@@ -1,24 +1,43 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-Drives the port's main path — one Dragonfly simulator phase — on the
-card at full width: the default Aries machine (``TopologyParams(
-n_groups=12)``: 4,608 nodes, 56,448 directed links), a 120,000-flow
-Pareto-sized phase (the size ``benchmarks/perf_sim.py`` uses, and
-``SimParams.max_flows``), a 64-rank inter-group allocation,
-``ADAPTIVE_0`` and 4 feedback iterations.  Phases:
+Drives the port's two main paths on the card at full width:
+
+* the simulator path, one Dragonfly phase: the default Aries machine
+  (``TopologyParams(n_groups=12)``: 4,608 nodes, 56,448 directed
+  links), a 120,000-flow Pareto-sized phase (the size
+  ``benchmarks/perf_sim.py`` uses, and ``SimParams.max_flows``), a
+  64-rank inter-group allocation, ``ADAPTIVE_0`` and 4 feedback
+  iterations;
+* the serving path: mamba2-130m at its published width (24 layers,
+  d_model 768, vocab 50,280; random weights from a seed) behind the
+  port's ``ServeEngine``, 8 requests of 512-token prompts and 32 new
+  tokens each, greedy.
+
+Phases:
 
 1. the card's name, power limit and compute capability (must be 9.0);
-2. build of the segment-sum kernels from ``csrc/segment_sum.cu``;
-3. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes, with its time, the plain version's, one PyTorch
-   library call's (``torch.bincount``, a yardstick the port never calls)
-   and its memory bound;
-4. the main path: a planned phase, 1 warm-up and 5 timed, then one
+2. build of every kernel library (one ``nvcc`` per source, all started
+   together);
+3. the segment-sum kernels against their plain PyTorch versions on the
+   card, at the simulator path's shapes, with their times, the plain
+   versions', one PyTorch library call's (``torch.bincount``, a
+   yardstick the port never calls) and their memory bound;
+4. the simulator path: a planned phase, 1 warm-up and 5 timed, then one
    planless, one notifying and one faulted phase, each checked for the
    kernel launches it must make;
 5. the same seeded phase on the CPU, whose ``t_us`` must agree with the
-   card's at rtol 2e-2.
+   card's at rtol 2e-2;
+6. the SSD (B3) and RMSNorm (B4) kernels against their plain versions
+   on inputs taken from a warm-up serve, at the serving path's shapes,
+   with their times, the plain versions', ``F.rms_norm``'s for B4 and
+   their bounds;
+7. the serving path: one timed ``ServeEngine.run``, every prefill and
+   decode step checked for its kernel launches, then one run with the
+   prefill and one decode step under ``torch.profiler``;
+8. the same seeded model on the CPU: 2 prompts of 256 tokens, last-token
+   prefill logits against the card's in float32 and bfloat16 at 24
+   layers, and in bfloat16 at 2 layers.
 
 Prints the kernel summary as one JSON line, then the ``ok`` line last.
 Any failed check exits non-zero; so does a machine without CUDA, and a
@@ -47,11 +66,20 @@ from repro_torch.dragonfly import (DragonflySimulator, DragonflyTopology,  # noq
                                    make_allocation)
 from repro_torch.dragonfly import torch_backend  # noqa: E402
 from repro_torch.faults import FaultSchedule, link_down  # noqa: E402
-from repro_torch.kernels.segment_sum import build as kernel_build  # noqa: E402
+from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2  # noqa: E402
+from repro_torch.kernels import libraries  # noqa: E402
+from repro_torch.kernels._build import build_all  # noqa: E402
+from repro_torch.kernels.rmsnorm import rmsnorm_fused, rmsnorm_plain  # noqa: E402
 from repro_torch.kernels.segment_sum import (  # noqa: E402
     segment_sum_scatter, segment_sum_scatter_plain, segment_sum_sorted,
     segment_sum_sorted_plain)
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_inner, ssd_inner_plain  # noqa: E402
+from repro_torch.models import common as model_common  # noqa: E402
+from repro_torch.models import mamba2 as model_mamba2  # noqa: E402
+from repro_torch.models import registry as model_registry  # noqa: E402
 from repro_torch.runtime import on_hopper  # noqa: E402
+from repro_torch.serve import Request, ServeConfig, ServeEngine  # noqa: E402
 
 N_GROUPS = 12
 N_FLOWS = 120_000
@@ -68,6 +96,29 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 KERNEL_SOURCE = "src/repro_torch/kernels/segment_sum/csrc/segment_sum.cu"
 TPU_KERNEL = "src/repro/kernels/segment_sum/segment_sum.py:48"
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+SSD_TPU = "src/repro/kernels/ssd_scan/ssd_scan.py:54"
+RMS_SOURCE = "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu"
+RMS_TPU = "src/repro/kernels/rmsnorm/rmsnorm.py:29"
+#: serving path: requests x prompt tokens, new tokens, weight seed
+SERVE_BATCH, PROMPT_LEN, NEW_TOKENS, SEED = 8, 512, 32, 0
+#: card vs CPU prefill: prompts x tokens
+CPU_BATCH, CPU_PROMPT = 2, 256
+#: SSD kernel vs plain version: float32 sums of at most 128 products,
+#: relative to the largest output (the tests' SSD_RTOL)
+SSD_RTOL = 1e-5
+#: RMSNorm kernel vs plain version in bf16: one bf16 ulp of the value
+BF16_RTOL = 2.0 ** -7
+#: card vs CPU logits of the full-width model in float32: the same math
+#: in other summation orders over 24 layers
+LOGITS_F32_TOL = 1e-3
+#: card vs CPU logits in bf16 at full width and 2 layers: the tests' bf16
+#: tolerance (tests/test_torch_mamba2.py), at the depth they hold it
+LOGITS_BF16_TOL = 4e-2
+#: card vs CPU logits in bf16 at 24 layers, as a share of the CPU's bf16
+#: vs float32 difference: two bf16 runs of the same model share most of
+#: their rounding (readings: 0.40-0.50 card vs CPU, PERF.md section 6)
+BF16_SPREAD_SHARE = 0.75
 
 
 def check(cond: bool, what: str) -> None:
@@ -131,10 +182,15 @@ def graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn):
+#: device_profile's numbers by label
+PROFILES: dict = {}
+
+
+def device_profile(fn, label: str = "phase"):
     """Call ``fn`` once under ``torch.profiler`` and print its device
     time by kernel (kernels, copies and fills on the card); returns
-    ``fn``'s result."""
+    ``fn``'s result and keeps wall, busy and idle share in
+    ``PROFILES[label]``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -155,7 +211,9 @@ def device_profile(fn):
         print("  device time: not measured (the trace holds no device "
               "events)")
         return res
-    print(f"  profiled phase: wall {wall_s:.6f} s, device busy "
+    PROFILES[label] = {"wall_s": wall_s, "busy_s": busy_s,
+                       "idle_share": 1 - busy_s / wall_s}
+    print(f"  profiled {label}: wall {wall_s:.6f} s, device busy "
           f"{busy_s:.6f} s, device idle share {1 - busy_s / wall_s:.4f}, "
           f"{sum(n for n, _ in by_name.values())} device events")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
@@ -301,6 +359,331 @@ def run_counted(what: str, want: tuple, fn):
     return res, dt
 
 
+
+# ------------------------------------------------------------ phases 6-8
+def serve_launches() -> tuple:
+    return ssd_inner.launches, rmsnorm_fused.launches
+
+
+def prompts(vocab: int, batch: int, length: int, seed: int) -> list:
+    """Random prompts, as ``repro_torch.launch.serve`` draws them."""
+    rng = np.random.default_rng(seed)
+    return [list(rng.integers(1, vocab, length)) for _ in range(batch)]
+
+
+class Checked:
+    """Wraps an engine's prefill or decode step: each call synchronises,
+    is timed on the host clock, and must launch exactly ``want``
+    (B3, B4) kernels; ``profile_at`` names calls to run under
+    :func:`device_profile` instead."""
+
+    def __init__(self, fn, what: str, want: tuple, profile_at=()):
+        self.fn, self.what, self.want = fn, what, want
+        self.profile_at = set(profile_at)
+        self.times: list = []
+
+    def __call__(self, *args):
+        before = serve_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if len(self.times) in self.profile_at:
+            out = device_profile(lambda: self.fn(*args), self.what)
+        else:
+            out = self.fn(*args)
+        torch.cuda.synchronize()
+        self.times.append(time.perf_counter() - t0)
+        got = tuple(a - b for a, b in zip(serve_launches(), before))
+        check(got == self.want, f"{self.what} call {len(self.times)}: "
+              f"launches B3/B4 {got}, want {self.want}")
+        return out
+
+
+def serve_engine(model, cuda, profile=False):
+    """A ServeEngine whose prefill and decode steps are Checked."""
+    n_layers = MAMBA2.n_layers
+    eng = ServeEngine(MAMBA2, model,
+                      ServeConfig(batch=SERVE_BATCH,
+                                  max_len=PROMPT_LEN + NEW_TOKENS + 8),
+                      device=cuda)
+    eng._prefill = Checked(eng._prefill, "prefill",
+                           (n_layers, 2 * n_layers + 1),
+                           profile_at=(0,) if profile else ())
+    eng._step = Checked(eng._step, "decode step", (0, 2 * n_layers + 1),
+                        profile_at=(1,) if profile else ())
+    return eng
+
+
+def serve_requests() -> list:
+    return [Request(prompt=p, max_new_tokens=NEW_TOKENS)
+            for p in prompts(MAMBA2.vocab, SERVE_BATCH, PROMPT_LEN, SEED)]
+
+
+def capture_inputs(model, cuda) -> dict:
+    """One warm-up serve; keeps the first inputs of each shape that the
+    B3 and B4 wrappers were given (B3's rebuilt from the scan's
+    arguments by ``chunk_inputs``, as ``ssd_scan_op`` builds them)."""
+    seen: dict = {}
+    real_scan, real_norm = model_mamba2.ssd_scan_op, \
+        model_common.rmsnorm_fused
+
+    def scan(x, dt, a_log, b_mat, c_mat, chunk, **kw):
+        key = ("ssd",) + tuple(x.shape)
+        if key not in seen:
+            seen[key] = [t.clone() for t in ssd_ops.chunk_inputs(
+                x, dt, a_log, b_mat, c_mat, chunk)]
+        return real_scan(x, dt, a_log, b_mat, c_mat, chunk, **kw)
+
+    def norm(x, gamma, eps):
+        seen.setdefault(("rms",) + tuple(x.shape),
+                        [x.clone(), gamma.clone(), eps])
+        return real_norm(x, gamma, eps)
+
+    model_mamba2.ssd_scan_op, model_common.rmsnorm_fused = scan, norm
+    try:
+        serve_engine(model, cuda).run(serve_requests(), seed=SEED)
+    finally:
+        model_mamba2.ssd_scan_op, model_common.rmsnorm_fused = \
+            real_scan, real_norm
+    return seen
+
+
+def serve_kernel_checks(seen: dict) -> list:
+    """B3 and B4 against their plain versions on the serving path's own
+    inputs; times and bounds.  Returns the JSON rows (B3, then B4 at the
+    prefill's ``[B*S, d_model]``)."""
+    import torch.nn.functional as F
+
+    print("phase 6: SSD and RMSNorm kernels vs plain on the card, inputs "
+          "from a warm-up serve")
+    rows = []
+    ssd_keys = [k for k in seen if k[0] == "ssd"]
+    check(len(ssd_keys) == 1, f"the serve gave B3 shapes {ssd_keys}")
+    xdt, bm, cm, da = seen[ssd_keys[0]]
+    bsz, nc, heads, q, p = xdt.shape
+    n = bm.shape[-1]
+    y, st = ssd_inner(xdt, bm, cm, da)
+    torch.cuda.synchronize()
+    want_y, want_st = ssd_inner_plain(xdt, bm, cm, da)
+    err = 0.0
+    for name, got, want in (("y", y, want_y), ("states", st, want_st)):
+        e = max_err(got, want)
+        atol = SSD_RTOL * float(want.abs().max())
+        ok = bool(torch.allclose(got, want, rtol=SSD_RTOL, atol=atol))
+        print(f"  ssd_inner {name} {tuple(got.shape)}: max_abs_err {e:.3e} "
+              f"(rtol {SSD_RTOL}, atol {atol:.3e}) "
+              f"{'ok' if ok else 'MISMATCH'}")
+        check(ok, f"ssd_inner {name} disagrees with its plain version")
+        err = max(err, e)
+    # the function's own work: C.B^T and scores . xdt over the causal
+    # half (j <= i) and the state; the elementwise mask and decay terms
+    # (under 1 %) are left out
+    cells = bsz * nc * heads
+    flops = cells * (q * (q + 1) * n + q * (q + 1) * p + 2 * q * n * p)
+    nbytes = 4 * (2 * xdt.numel() + bm.numel() + cm.numel() + da.numel()
+                  + st.numel())
+    ms = graph_ms(lambda: ssd_inner(xdt, bm, cm, da), 20)
+    plain_ms = cuda_ms(lambda: ssd_inner_plain(xdt, bm, cm, da), 10)
+    plain_graph_ms = graph_ms(lambda: ssd_inner_plain(xdt, bm, cm, da), 10)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOP_PER_S * 1e3
+    print(f"  ssd_inner {tuple(xdt.shape)} N={n}: {ms * 1e3:.2f} us/launch "
+          f"(graph replay), plain {plain_ms * 1e3:.2f} us (graph replay "
+          f"{plain_graph_ms * 1e3:.2f} us), bound "
+          f"{max(bytes_ms, ops_ms) * 1e3:.2f} us ({flops} flop at "
+          f"{F32_FLOP_PER_S:.3g} flop/s; {nbytes} bytes: "
+          f"{bytes_ms * 1e3:.2f} us), {flops / (ms * 1e-3) / 1e12:.2f} "
+          f"TFLOP/s")
+    rows.append({"name": "ssd_inner", "route": "cuda", "source": SSD_SOURCE,
+                 "replaces": SSD_TPU, "launches": 0, "max_abs_err": err,
+                 "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                 "library_ms": None, "shape": list(xdt.shape) + [n],
+                 "plain_graph_ms": plain_graph_ms})
+
+    rms_keys = sorted(k for k in seen if k[0] == "rms")
+    rms_rows = []
+    for key in rms_keys:
+        x, gamma, eps = seen[key]
+        x2 = x.reshape(-1, x.shape[-1])
+        got = rmsnorm_fused(x2, gamma, eps)
+        torch.cuda.synchronize()
+        want = rmsnorm_plain(x2, gamma, eps)
+        e = max_err(got.float(), want.float())
+        n_diff = int((got != want).sum())
+        ok = bool(torch.allclose(got.float(), want.float(), rtol=BF16_RTOL,
+                                 atol=0.0))
+        d = x2.shape[-1]
+        nbytes = 2 * x2.numel() * x2.element_size() + \
+            d * gamma.element_size()
+        flops = 4 * x2.numel()
+        ms = graph_ms(lambda: rmsnorm_fused(x2, gamma, eps), 200)
+        plain_ms = cuda_ms(lambda: rmsnorm_plain(x2, gamma, eps), 50)
+        library_ms = cuda_ms(lambda: F.rms_norm(x2, (d,), gamma, eps), 200)
+        plain_graph_ms = graph_ms(lambda: rmsnorm_plain(x2, gamma, eps), 50)
+        library_graph_ms = graph_ms(
+            lambda: F.rms_norm(x2, (d,), gamma, eps), 200)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / F32_FLOP_PER_S * 1e3
+        print(f"  rmsnorm {tuple(x2.shape)} {str(x2.dtype)[6:]}: "
+              f"max_abs_err {e:.3e} (rtol {BF16_RTOL:.4g}; {n_diff} of "
+              f"{got.numel()} differ) "
+              f"{'ok' if ok else 'MISMATCH'}; {ms * 1e3:.2f} us/launch "
+              f"(graph replay), plain {plain_ms * 1e3:.2f} us (graph "
+              f"replay {plain_graph_ms * 1e3:.2f} us), F.rms_norm "
+              f"{library_ms * 1e3:.2f} us (graph replay "
+              f"{library_graph_ms * 1e3:.2f} us), bound "
+              f"{max(bytes_ms, ops_ms) * 1e3:.2f} us ({nbytes} bytes)")
+        check(ok, f"rmsnorm {tuple(x2.shape)} disagrees with its plain "
+              f"version")
+        rms_rows.append({"name": "rmsnorm_fused", "route": "cuda",
+                         "source": RMS_SOURCE, "replaces": RMS_TPU,
+                         "launches": 0, "max_abs_err": e, "ms": ms,
+                         "plain_ms": plain_ms,
+                         "bound_ms": max(bytes_ms, ops_ms),
+                         "bound_by": "bytes" if bytes_ms >= ops_ms
+                         else "operations", "library_ms": library_ms,
+                         "shape": list(x2.shape),
+                         "plain_graph_ms": plain_graph_ms,
+                         "library_graph_ms": library_graph_ms})
+    check(len(rms_rows) == 4, f"the serve gave B4 shapes {rms_keys}")
+    row = next(r for r in rms_rows if r["shape"] == [
+        SERVE_BATCH * PROMPT_LEN, MAMBA2.d_model])
+    row["max_abs_err"] = max(r["max_abs_err"] for r in rms_rows)
+    rows.append(row)
+    return rows
+
+
+def serve_path(model, cuda) -> dict:
+    """Phase 7: the serving path, counted and timed, then profiled."""
+    n_layers = MAMBA2.n_layers
+    print(f"phase 7: serve {MAMBA2.name} ({n_layers} layers, d_model "
+          f"{MAMBA2.d_model}, vocab {MAMBA2.vocab}), {SERVE_BATCH} requests "
+          f"x {PROMPT_LEN} prompt tokens, {NEW_TOKENS} new tokens, greedy")
+    eng = serve_engine(model, cuda)
+    reqs = serve_requests()
+    ssd_inner.launches = rmsnorm_fused.launches = 0
+    t0 = time.perf_counter()
+    out = eng.run(reqs, seed=SEED)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = {"ssd_inner": ssd_inner.launches,
+              "rmsnorm_fused": rmsnorm_fused.launches}
+    steps = eng._step.times
+    check(len(eng._prefill.times) == 1 and len(steps) == NEW_TOKENS,
+          f"{len(eng._prefill.times)} prefills, {len(steps)} decode steps")
+    want = {"ssd_inner": n_layers,
+            "rmsnorm_fused": (2 * n_layers + 1) * (1 + NEW_TOKENS)}
+    check(counts == want, f"serve launches {counts}, want {want}")
+    toks = [t for r in out for t in r.out_tokens]
+    check(len(toks) == SERVE_BATCH * NEW_TOKENS and
+          all(0 <= t < MAMBA2.vocab for t in toks),
+          "served tokens out of range or missing")
+    prefill_s = eng._prefill.times[0]
+    step_s = float(np.mean(steps))
+    stats = {"prefill_s": prefill_s, "decode_step_s": step_s,
+             "decode_step_min_s": float(np.min(steps)),
+             "decode_step_max_s": float(np.max(steps)),
+             "decode_tok_per_s": SERVE_BATCH / step_s,
+             "prefill_tok_per_s": SERVE_BATCH * PROMPT_LEN / prefill_s,
+             "run_s": run_s, "launches": counts,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"  prefill_s {prefill_s:.6f} ({stats['prefill_tok_per_s']:.1f} "
+          f"prompt tok/s), decode_step_s {step_s:.6f} (min "
+          f"{stats['decode_step_min_s']:.6f}, max "
+          f"{stats['decode_step_max_s']:.6f}), decode_tok_per_s "
+          f"{stats['decode_tok_per_s']:.1f}, run {run_s:.4f} s, launches "
+          f"{counts} (per prefill {n_layers}/{2 * n_layers + 1}, per decode "
+          f"step 0/{2 * n_layers + 1}), peak "
+          f"memory {stats['peak_mem_gb']:.2f} GB")
+    print(f"  req0 tokens: {out[0].out_tokens[:12]}")
+    prof = serve_engine(model, cuda, profile=True)
+    prof.run(serve_requests(), seed=SEED)
+    for label in ("prefill", "decode step"):
+        stats[f"{label.split()[0]}_idle_share"] = \
+            PROFILES.get(label, {}).get("idle_share")
+    return stats
+
+
+def cpu_compare(cuda) -> None:
+    """Phase 8: the same seeded model on the CPU, last-token prefill
+    logits against the card's.
+
+    float32 is held at ``LOGITS_F32_TOL``.  bf16 is held at the tests'
+    ``LOGITS_BF16_TOL`` at full width and 2 layers, the depth at which the
+    tests hold it.  At 24 layers the bf16 model's own rounding error
+    against float32 is of the order of the logits themselves, in the
+    reference as in the port (tests/test_torch_mamba2.py::
+    test_bf16_spread_grows_with_depth_like_reference), so there the card's
+    bf16 logits must lie within ``BF16_SPREAD_SHARE`` of that spread from
+    the CPU's, in the largest and in the mean absolute difference, and
+    pick the same argmax."""
+    toks = torch.from_numpy(np.array(
+        prompts(MAMBA2.vocab, CPU_BATCH, CPU_PROMPT, 1)))
+
+    def last_logits(cfg, dev):
+        model = model_registry.init_params(cfg, SEED, dev)
+        state = model_registry.make_decode_state(cfg, CPU_BATCH, CPU_PROMPT,
+                                                 device=dev)
+        lg, _ = model_registry.prefill(model, {"tokens": toks.to(dev)}, cfg,
+                                       state)
+        return lg[:, -1, :cfg.vocab].float().cpu()
+
+    def mean_err(a, b):
+        return float((a - b).abs().mean())
+
+    logits = {}
+    for n_layers in (MAMBA2.n_layers, 2):
+        for dtype in (torch.float32, torch.bfloat16):
+            for where, dev in (("card", cuda), ("cpu", torch.device("cpu"))):
+                if n_layers == 2 and (where, dtype) == ("card", torch.float32):
+                    continue
+                t0 = time.perf_counter()
+                logits[n_layers, where, dtype] = last_logits(
+                    MAMBA2.scaled(n_layers=n_layers, dtype=dtype), dev)
+                print(f"  {where} {str(dtype)[6:]} prefill, {n_layers} "
+                      f"layers: {time.perf_counter() - t0:.2f} s (with init)")
+    full = MAMBA2.n_layers
+    card, host = logits[full, "card", torch.float32], \
+        logits[full, "cpu", torch.float32]
+    check(bool(torch.isfinite(card).all()), "non-finite logits on the card")
+    err = max_err(card, host)
+    ok = bool(torch.allclose(card, host, rtol=LOGITS_F32_TOL,
+                             atol=LOGITS_F32_TOL))
+    print(f"  float32, {full} layers: logits max_abs_err {err:.3e} (max "
+          f"|logit| {float(host.abs().max()):.3f}; rtol = atol = "
+          f"{LOGITS_F32_TOL}) {'ok' if ok else 'MISMATCH'}")
+    check(ok, "card and CPU logits disagree in float32")
+
+    bf_card, bf_host = logits[full, "card", torch.bfloat16], \
+        logits[full, "cpu", torch.bfloat16]
+    err, spread = max_err(bf_card, bf_host), max_err(bf_host, host)
+    err_mean, spread_mean = mean_err(bf_card, bf_host), mean_err(bf_host, host)
+    same = bool((bf_card.argmax(-1) == bf_host.argmax(-1)).all())
+    ok = (err <= BF16_SPREAD_SHARE * spread
+          and err_mean <= BF16_SPREAD_SHARE * spread_mean and same
+          and bool(torch.isfinite(bf_card).all()))
+    print(f"  bfloat16, {full} layers: card vs CPU max_abs_err {err:.3e} "
+          f"(mean {err_mean:.3e}); CPU bf16 vs float32 {spread:.3e} (mean "
+          f"{spread_mean:.3e}): shares {err / spread:.3f} and "
+          f"{err_mean / spread_mean:.3f} (limit {BF16_SPREAD_SHARE}); card "
+          f"bf16 vs float32 {max_err(bf_card, host):.3e}; argmax "
+          f"{'same' if same else 'DIFFERS'} {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"card and CPU logits disagree in bf16 at {full} layers")
+
+    bf_card, bf_host = logits[2, "card", torch.bfloat16], \
+        logits[2, "cpu", torch.bfloat16]
+    err = max_err(bf_card, bf_host)
+    ok = bool(torch.allclose(bf_card, bf_host, rtol=LOGITS_BF16_TOL,
+                             atol=LOGITS_BF16_TOL))
+    print(f"  bfloat16, 2 layers: card vs CPU max_abs_err {err:.3e} (mean "
+          f"{mean_err(bf_card, bf_host):.3e}; rtol = atol = "
+          f"{LOGITS_BF16_TOL}); CPU bf16 vs float32 "
+          f"{max_err(bf_host, logits[2, 'cpu', torch.float32]):.3e} "
+          f"{'ok' if ok else 'MISMATCH'}")
+    check(ok, "card and CPU logits disagree in bf16 at 2 layers")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path needs one",
@@ -314,11 +697,18 @@ def main() -> int:
           "cuda", torch.version.cuda)
     check(on_hopper(), f"compute capability {cap}, want (9, 0)")
 
-    info = kernel_build.build()
-    kernel_build.load_library()
-    print(f"phase 2: built {info.path.name} in {info.seconds:.2f} s")
-    if info.log.strip():
-        print(info.log.strip())
+    t0 = time.perf_counter()
+    libs = libraries()
+    infos = build_all(libs)
+    for lib in libs:
+        lib.load()
+    print(f"phase 2: built {len(infos)} kernel libraries in "
+          f"{time.perf_counter() - t0:.2f} s wall")
+    for info in infos:
+        print(f"  {info.path.name}: {info.seconds:.2f} s")
+        for line in info.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("   ", line.strip())
 
     topo = DragonflyTopology(TopologyParams(n_groups=N_GROUPS))
     n_links = int(topo.n_links)
@@ -413,6 +803,28 @@ def main() -> int:
           f"{b.phase_time_us:.3f}")
     check(bool(np.allclose(a.t_us, b.t_us, rtol=CPU_RTOL, atol=0.0)),
           "card and CPU t_us disagree")
+
+    # phases 6-8: the serving path
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    model = model_registry.init_params(MAMBA2, SEED, cuda)
+    print(f"serving model: {sum(p.numel() for p in model.parameters())} "
+          f"parameters, built in {time.perf_counter() - t0:.2f} s")
+    kernels += serve_kernel_checks(capture_inputs(model, cuda))
+    stats = serve_path(model, cuda)
+    for row in kernels:
+        if row["name"] in stats["launches"]:
+            row["launches"] = stats["launches"][row["name"]]
+            check(row["launches"] > 0, f"{row['name']} never ran on the "
+                  f"serving path")
+    print("  serve " + json.dumps({k: v for k, v in stats.items()
+                                   if k != "launches"}))
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 8: card vs CPU, {MAMBA2.name} prefill of {CPU_BATCH} x "
+          f"{CPU_PROMPT} tokens")
+    cpu_compare(cuda)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -1,0 +1,2 @@
+"""Command-line entry points of the port (counterpart of
+``repro.launch``)."""

@@ -1,0 +1,135 @@
+"""Pure-SSM language model (mamba2-130m): embed + Mamba2 blocks.
+
+Counterpart of ``repro/models/ssm_lm.py``.  The reference scans stacked
+per-layer parameters; here the layers are an ``nn.ModuleList`` run in a
+Python loop, and the decode state holds one :class:`Mamba2State` per
+layer.  The embedding is tied: logits are ``rmsnorm(x, ln_f) @
+embed.T`` over the padded vocabulary, and callers drop the pad.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from repro_torch.models.common import ModelConfig, normal, rmsnorm
+from repro_torch.models.mamba2 import (CastCache, Mamba2Block, Mamba2State,
+                                       init_mamba2_state)
+
+
+class SSMLayer(nn.Module):
+    """One residual layer: ``h + mamba(rmsnorm(h, ln))``."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.ln = nn.Parameter(torch.ones(cfg.d_model,
+                                          dtype=cfg.param_dtype),
+                               requires_grad=False)
+        self.mamba = Mamba2Block(cfg)
+
+
+class SSMLM(CastCache):
+    """Embedding, ``n_layers`` :class:`SSMLayer` and the final norm,
+    with float32 master weights under the reference's names."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = nn.Parameter(
+            torch.zeros(cfg.vocab_padded, cfg.d_model,
+                        dtype=cfg.param_dtype), requires_grad=False)
+        self.blocks = nn.ModuleList(SSMLayer(cfg)
+                                    for _ in range(cfg.n_layers))
+        self.ln_f = nn.Parameter(torch.ones(cfg.d_model,
+                                            dtype=cfg.param_dtype),
+                                 requires_grad=False)
+
+    @torch.no_grad()
+    def init_(self, gen: torch.Generator) -> "SSMLM":
+        """Random weights from ``gen``, laid out as the reference's
+        ``init_ssm_lm``."""
+        self.embed.copy_(normal(gen, self.embed.shape, 0.02,
+                                self.cfg.param_dtype))
+        for layer in self.blocks:
+            layer.ln.fill_(1.0)
+            layer.mamba.init_(gen)
+        self.ln_f.fill_(1.0)
+        self._cw = None
+        return self
+
+    def _cast(self) -> dict:
+        dt_ = self.cfg.dtype
+        return {"embed": self.embed.to(dt_), "ln_f": self.ln_f.to(dt_),
+                "ln": [layer.ln.to(dt_) for layer in self.blocks]}
+
+
+def _embed(model: SSMLM, tokens: torch.Tensor) -> torch.Tensor:
+    return model.weights()["embed"][tokens.long()]
+
+
+def _logits(model: SSMLM, x: torch.Tensor) -> torch.Tensor:
+    w, cfg = model.weights(), model.cfg
+    x = rmsnorm(x, w["ln_f"], cfg.norm_eps)
+    return x @ w["embed"].T
+
+
+@torch.no_grad()
+def ssm_lm_apply(model: SSMLM, tokens: torch.Tensor, cfg: ModelConfig):
+    """Teacher-forced logits ``[B,S,Vp]`` and a zero aux loss."""
+    x = _embed(model, tokens)
+    lns = model.weights()["ln"]
+    for ln, layer in zip(lns, model.blocks):
+        y, _ = layer.mamba(rmsnorm(x, ln, cfg.norm_eps))
+        x = x + y
+    return _logits(model, x), torch.zeros((), device=x.device)
+
+
+class SSMDecodeState(NamedTuple):
+    states: list           # one Mamba2State per layer
+    pos: int
+
+
+def ssm_make_state(cfg: ModelConfig, batch: int, max_len: int = 0,
+                   device=None) -> SSMDecodeState:
+    return SSMDecodeState(
+        states=[init_mamba2_state(cfg, batch, device)
+                for _ in range(cfg.n_layers)], pos=0)
+
+
+@torch.no_grad()
+def ssm_prefill(model: SSMLM, tokens: torch.Tensor, cfg: ModelConfig,
+                state: SSMDecodeState):
+    """Logits of the last position ``[B,1,Vp]`` and the state after
+    ``tokens``."""
+    x = _embed(model, tokens)
+    lns = model.weights()["ln"]
+    new_states = []
+    for ln, layer, st in zip(lns, model.blocks, state.states):
+        y, new_st = layer.mamba(rmsnorm(x, ln, cfg.norm_eps), st)
+        x = x + y
+        new_states.append(new_st)
+    logits = _logits(model, x[:, -1:, :].contiguous())
+    return logits, SSMDecodeState(states=new_states,
+                                  pos=state.pos + tokens.shape[1])
+
+
+@torch.no_grad()
+def ssm_decode_step(model: SSMLM, token: torch.Tensor, cfg: ModelConfig,
+                    state: SSMDecodeState):
+    """Logits ``[B,1,Vp]`` for one token ``[B,1]`` and the next state."""
+    x = _embed(model, token)
+    lns = model.weights()["ln"]
+    new_states = []
+    for ln, layer, st in zip(lns, model.blocks, state.states):
+        y, new_st = layer.mamba.decode(rmsnorm(x, ln, cfg.norm_eps), st)
+        x = x + y
+        new_states.append(new_st)
+    return _logits(model, x), SSMDecodeState(states=new_states,
+                                             pos=state.pos + 1)
+
+
+__all__ = ["Mamba2State", "SSMDecodeState", "SSMLM", "SSMLayer",
+           "ssm_decode_step", "ssm_lm_apply", "ssm_make_state",
+           "ssm_prefill"]

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels and its phase on the card.
+"""The port's CUDA kernels, its phase and its serving path on the card.
 
 Every test here needs an NVIDIA CUDA device and skips without one; on
 the card run them with ``python -m pytest -q -m cuda
@@ -10,6 +10,14 @@ order (and, for the scatter form, in atomic order) agree to a few 1e-7
 relative per term, so both are held at ``rtol = 1e-5``.  A phase on the
 card vs the same seeded phase on the CPU is held at the jax engine's
 ``JAX_RTOL = 2e-2``.
+
+RMSNorm (B4) kernel vs plain version: both compute in float32 and cast
+once; float32 outputs agree to ``TOL``, bfloat16 outputs to one bf16
+ulp (``BF16_RTOL = 2**-7`` of the value).  SSD (B3) kernel vs plain
+version: float32 sums of at most 128 products in possibly other orders,
+held at ``SSD_RTOL = 1e-5`` relative to the largest output.  A smoke
+serve on the card vs the same model on the CPU in float32: identical
+greedy tokens, logits at ``TOL``-scale ``1e-4``.
 """
 
 import numpy as np
@@ -19,6 +27,9 @@ import torch
 from repro_torch.core.strategies import RoutingMode
 from repro_torch.dragonfly import (DragonflySimulator, RoutingPolicy,
                                    SimParams, small_topology)
+from repro_torch.configs.mamba2_130m import SMOKE
+from repro_torch.kernels.rmsnorm import rmsnorm_fused, rmsnorm_plain
+from repro_torch.kernels.ssd_scan import ssd_inner, ssd_inner_plain
 from repro_torch.kernels.segment_sum import (segment_sum_scatter,
                                              segment_sum_scatter_plain,
                                              segment_sum_sorted,
@@ -28,6 +39,8 @@ pytestmark = pytest.mark.cuda
 
 TOL = 1e-5
 JAX_RTOL = 2e-2
+BF16_RTOL = 2.0 ** -7
+SSD_RTOL = 1e-5
 
 
 @pytest.fixture
@@ -105,3 +118,88 @@ def test_phase_on_the_card_matches_the_cpu(cuda, use_plan):
         assert np.array_equal(a.flits, b.flits)
         assert sims[0].rng.bit_generator.state == \
             sims[1].rng.bit_generator.state
+
+
+@pytest.mark.parametrize("shape,xdtype,gdtype", [
+    ((4096, 768), torch.bfloat16, torch.bfloat16),   # prefill ln / ln_f
+    ((4096, 1536), torch.bfloat16, torch.bfloat16),  # prefill gated norm
+    ((8, 768), torch.bfloat16, torch.bfloat16),      # decode step
+    ((3, 5, 100), torch.bfloat16, torch.float32),    # D not a multiple of 8
+    ((2, 8192), torch.float32, torch.float32),
+    ((7, 8191), torch.float32, torch.bfloat16),
+])
+def test_rmsnorm_kernel_matches_plain(cuda, shape, xdtype, gdtype):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(shape, device=cuda, generator=gen).to(xdtype)
+    gamma = (1 + 0.5 * torch.randn(shape[-1], device=cuda,
+                                   generator=gen)).to(gdtype)
+    before = rmsnorm_fused.launches
+    got = rmsnorm_fused(x, gamma)
+    assert rmsnorm_fused.launches == before + 1
+    torch.cuda.synchronize()
+    want = rmsnorm_plain(x, gamma)
+    assert got.dtype == xdtype and got.shape == x.shape
+    if xdtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=BF16_RTOL, atol=0.0)
+
+
+@pytest.mark.parametrize("B,Nc,H,Q,P,N", [
+    (8, 4, 24, 128, 64, 128),      # 8 x 512-token prefill, mamba2-130m
+    (1, 2, 24, 100, 64, 128),      # a 200-token prompt: chunk of 100
+    (2, 3, 3, 8, 16, 16),          # smoke config
+    (1, 1, 2, 1, 5, 7),
+])
+def test_ssd_kernel_matches_plain(cuda, B, Nc, H, Q, P, N):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    xdt = torch.randn(B, Nc, H, Q, P, device=cuda, generator=gen) * 0.5
+    bm = torch.randn(B, Nc, H, Q, N, device=cuda, generator=gen)
+    cm = torch.randn(B, Nc, H, Q, N, device=cuda, generator=gen)
+    da = torch.cumsum(-0.1 * torch.rand(B, Nc, H, Q, device=cuda,
+                                        generator=gen), -1)
+    before = ssd_inner.launches
+    y, s = ssd_inner(xdt, bm, cm, da)
+    assert ssd_inner.launches == before + 1
+    torch.cuda.synchronize()
+    want_y, want_s = ssd_inner_plain(xdt, bm, cm, da)
+    for got, want in ((y, want_y), (s, want_s)):
+        atol = SSD_RTOL * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=SSD_RTOL, atol=atol)
+
+
+def test_ssd_kernel_refuses_tiles_beyond_its_limits(cuda):
+    z = torch.zeros(1, 1, 1, 129, 8, device=cuda)
+    with pytest.raises(ValueError, match="Q <= 128"):
+        ssd_inner(z, torch.zeros(1, 1, 1, 129, 8, device=cuda),
+                  torch.zeros(1, 1, 1, 129, 8, device=cuda),
+                  torch.zeros(1, 1, 1, 129, device=cuda))
+
+
+def test_smoke_serve_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.models import registry
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    cfg = SMOKE.scaled(dtype=torch.float32)
+    prompts = [[5, 17, 3, 99, 250, 7, 8, 1, 2, 3, 4, 5], [11, 12]]
+    runs, logits = [], []
+    for dev in (cuda, torch.device("cpu")):
+        model = registry.init_params(cfg, 0, dev)
+        toks = torch.tensor([prompts[0]], device=dev)
+        state = registry.make_decode_state(cfg, 1, 16, device=dev)
+        before = ssd_inner.launches, rmsnorm_fused.launches
+        lg, _ = registry.prefill(model, {"tokens": toks}, cfg, state)
+        after = ssd_inner.launches, rmsnorm_fused.launches
+        n_norms = 2 * cfg.n_layers + 1
+        want = (before[0] + cfg.n_layers, before[1] + n_norms) \
+            if dev.type == "cuda" else before
+        assert after == want
+        logits.append(lg.float().cpu())
+        eng = ServeEngine(cfg, model, ServeConfig(batch=3, max_len=32),
+                          device=dev)
+        out = eng.run([Request(prompt=list(p), max_new_tokens=6)
+                       for p in prompts])
+        runs.append([r.out_tokens for r in out])
+    torch.testing.assert_close(logits[0], logits[1], rtol=1e-4, atol=1e-4)
+    assert runs[0] == runs[1]

@@ -1,0 +1,126 @@
+"""The port's ServeEngine and serve launcher against the reference's.
+
+Both engines serve the same reference-made weights (carried across by
+``repro_torch.models.convert``) in float32, where the greedy tokens
+must be identical; the prompts have unequal lengths, so left-padding
+with token 0 and filler requests are exercised.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.configs.mamba2_130m import SMOKE as REF_SMOKE
+from repro.models import registry as ref_registry
+from repro.serve.engine import Request as RefRequest
+from repro.serve.engine import ServeConfig as RefServeConfig
+from repro.serve.engine import ServeEngine as RefServeEngine
+from repro_torch.configs.mamba2_130m import SMOKE
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models.convert import ssm_lm_from_reference
+from repro_torch.serve import Request, ServeConfig, ServeEngine
+from repro_torch.serve.engine import route_kv_transfer
+
+PROMPTS = [[5, 17, 3, 99, 250, 7, 8], [11, 12], [300, 301, 302, 303, 1]]
+NEW = [6, 4, 5]
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jc = REF_SMOKE.scaled(dtype=jnp.float32)
+    tc = SMOKE.scaled(dtype=torch.float32)
+    params = ref_registry.init_params(jc, 0)
+    model = ssm_lm_from_reference(jax.tree_util.tree_map(np.asarray, params),
+                                  tc, device="cpu")
+    return jc, tc, params, model
+
+
+def _serve_both(weights, eos_id=-1):
+    jc, tc, params, model = weights
+    ref = RefServeEngine(jc, params, RefServeConfig(batch=4, max_len=32,
+                                                    eos_id=eos_id))
+    got = ServeEngine(tc, model, ServeConfig(batch=4, max_len=32,
+                                             eos_id=eos_id), device="cpu")
+    want = ref.run([RefRequest(prompt=list(p), max_new_tokens=n)
+                    for p, n in zip(PROMPTS, NEW)])
+    out = got.run([Request(prompt=list(p), max_new_tokens=n)
+                   for p, n in zip(PROMPTS, NEW)])
+    return want, out
+
+
+def test_greedy_tokens_match_reference_engine(weights):
+    want, out = _serve_both(weights)
+    assert len(out) == len(want) == 4           # one filler request
+    assert out[3].prompt == [0] and out[3].out_tokens == []
+    assert [r.out_tokens for r in out] == [r.out_tokens for r in want]
+    assert [len(r.out_tokens) for r in out[:3]] == NEW
+
+
+def test_eos_stops_like_the_reference(weights):
+    free, _ = _serve_both(weights)
+    eos = free[1].out_tokens[1]
+    want, out = _serve_both(weights, eos_id=eos)
+    assert [r.out_tokens for r in out] == [r.out_tokens for r in want]
+    assert out[1].out_tokens[-1] == eos and len(out[1].out_tokens) == 2
+
+
+def test_sampling_is_seeded(weights):
+    _, tc, _, model = weights
+    eng = ServeEngine(tc, model, ServeConfig(batch=2, max_len=32),
+                      device="cpu")
+
+    def run(seed):
+        reqs = [Request(prompt=[1, 2, 3], max_new_tokens=6, temperature=0.8)
+                for _ in range(2)]
+        return [r.out_tokens for r in eng.run(reqs, seed=seed)]
+
+    a, b = run(3), run(3)
+    assert a == b
+    assert all(0 <= t < tc.vocab for toks in a for t in toks)
+
+
+def test_comm_policy_is_refused(weights):
+    _, tc, _, model = weights
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServeEngine(tc, model, ServeConfig(comm_policy="app_aware"),
+                    device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServeEngine(tc, model, ServeConfig(), comm_engine=object(),
+                    device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        route_kv_transfer(None, None, 1024)
+
+
+def test_no_cuda_means_no_serving(weights, monkeypatch):
+    _, tc, _, model = weights
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(tc, model, ServeConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_serve.main(["--arch", "mamba2-130m", "--smoke"])
+
+
+def test_model_on_another_device_is_refused(weights):
+    _, tc, _, model = weights
+    with pytest.raises(ValueError):
+        ServeEngine(tc, model.to("meta"), ServeConfig(), device="cpu")
+
+
+def test_launcher_serves_on_the_cpu(capsys):
+    out = launch_serve.main(["--arch", "mamba2-130m", "--smoke", "--device",
+                             "cpu", "--requests", "3", "--prompt-len", "9",
+                             "--new-tokens", "5"])
+    assert len(out) == 3
+    assert all(len(r.out_tokens) == 5 for r in out)
+    assert all(0 <= t < SMOKE.vocab for r in out for t in r.out_tokens)
+    assert "[serve] mamba2-130m on cpu: 3 requests, 15 tokens" in \
+        capsys.readouterr().out
+
+
+def test_launcher_refuses_unported_architectures():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        launch_serve.main(["--arch", "qwen2-1.5b", "--smoke", "--device",
+                           "cpu"])
