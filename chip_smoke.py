@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-Drives the port's two main paths on the card at full width:
+Drives the port's three main paths on the card at full width:
 
 * the simulator path, one Dragonfly phase: the default Aries machine
   (``TopologyParams(n_groups=12)``: 4,608 nodes, 56,448 directed
@@ -12,7 +12,10 @@ Drives the port's two main paths on the card at full width:
 * the serving path: mamba2-130m at its published width (24 layers,
   d_model 768, vocab 50,280; random weights from a seed) behind the
   port's ``ServeEngine``, 8 requests of 512-token prompts and 32 new
-  tokens each, greedy.
+  tokens each, greedy;
+* the dense serving path: qwen2-1.5b at its published width (28 layers,
+  d_model 1536, 12 heads over 2 KV heads of 128, d_ff 8960, vocab
+  151,936; random weights from a seed), the same requests.
 
 Phases:
 
@@ -37,7 +40,15 @@ Phases:
    prefill and one decode step under ``torch.profiler``;
 8. the same seeded model on the CPU: 2 prompts of 256 tokens, last-token
    prefill logits against the card's in float32 and bfloat16 at 24
-   layers, and in bfloat16 at 2 layers.
+   layers, and in bfloat16 at 2 layers;
+9. the flash-attention kernel (B2) against its plain version on inputs
+   taken from a warm-up serve of qwen2-1.5b, in bfloat16 and float32 at
+   the prefill's shape and at ragged lengths, with its time, the plain
+   version's, ``F.scaled_dot_product_attention``'s (a yardstick the port
+   never calls) and its bound; B4 at that serve's shapes;
+10. the dense serving path as phase 7: qwen2-1.5b, every prefill and
+    decode step checked for its kernel launches, then profiled;
+11. as phase 8 for qwen2-1.5b at 28 layers and at 2.
 
 Prints the kernel summary as one JSON line, then the ``ok`` line last.
 Any failed check exits non-zero; so does a machine without CUDA, and a
@@ -67,14 +78,18 @@ from repro_torch.dragonfly import (DragonflySimulator, DragonflyTopology,  # noq
 from repro_torch.dragonfly import torch_backend  # noqa: E402
 from repro_torch.faults import FaultSchedule, link_down  # noqa: E402
 from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2  # noqa: E402
+from repro_torch.configs.qwen2_1_5b import CONFIG as QWEN2  # noqa: E402
 from repro_torch.kernels import libraries  # noqa: E402
 from repro_torch.kernels._build import build_all  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm_fused, rmsnorm_plain  # noqa: E402
 from repro_torch.kernels.segment_sum import (  # noqa: E402
     segment_sum_scatter, segment_sum_scatter_plain, segment_sum_sorted,
     segment_sum_sorted_plain)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_inner, ssd_inner_plain  # noqa: E402
+from repro_torch.models import attention as model_attention  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.models import mamba2 as model_mamba2  # noqa: E402
 from repro_torch.models import registry as model_registry  # noqa: E402
@@ -100,6 +115,9 @@ SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 SSD_TPU = "src/repro/kernels/ssd_scan/ssd_scan.py:54"
 RMS_SOURCE = "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu"
 RMS_TPU = "src/repro/kernels/rmsnorm/rmsnorm.py:29"
+FLASH_SOURCE = \
+    "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_TPU = "src/repro/kernels/flash_attention/flash_attention.py:84"
 #: serving path: requests x prompt tokens, new tokens, weight seed
 SERVE_BATCH, PROMPT_LEN, NEW_TOKENS, SEED = 8, 512, 32, 0
 #: card vs CPU prefill: prompts x tokens
@@ -109,16 +127,31 @@ CPU_BATCH, CPU_PROMPT = 2, 256
 SSD_RTOL = 1e-5
 #: RMSNorm kernel vs plain version in bf16: one bf16 ulp of the value
 BF16_RTOL = 2.0 ** -7
+#: flash kernel vs plain version: float32 math in other orders (the
+#: kernel scales q before the dot, the plain version the scores after
+#: it); float32 at the JAX kernel tests' 3e-5, bf16 outputs to one bf16
+#: ulp of the value plus FLASH_BF16_ATOL
+FLASH_TOL = 3e-5
+FLASH_BF16_ATOL = 1e-5
 #: card vs CPU logits of the full-width model in float32: the same math
-#: in other summation orders over 24 layers
+#: in other summation orders over 24 or 28 layers
 LOGITS_F32_TOL = 1e-3
 #: card vs CPU logits in bf16 at full width and 2 layers: the tests' bf16
 #: tolerance (tests/test_torch_mamba2.py), at the depth they hold it
 LOGITS_BF16_TOL = 4e-2
-#: card vs CPU logits in bf16 at 24 layers, as a share of the CPU's bf16
-#: vs float32 difference: two bf16 runs of the same model share most of
-#: their rounding (readings: 0.40-0.50 card vs CPU, PERF.md section 6)
-BF16_SPREAD_SHARE = 0.75
+#: card vs CPU logits of mamba2-130m in bf16 at 24 layers, as a share of
+#: the CPU's bf16 vs float32 difference: there the two bf16 runs share
+#: most of their rounding (readings: 0.40-0.50 card vs CPU, PERF.md
+#: section 6).  Not held for qwen2-1.5b at 28 layers, where any two bf16
+#: runs that sum in other orders share little of it (readings: 0.93 and
+#: 0.86 card vs CPU; tests/test_torch_transformer.py::
+#: test_bf16_rounding_spread_grows_with_depth)
+BF16_SPREAD_SHARE = {MAMBA2.name: 0.75}
+#: the card's bf16 logits at full depth vs the CPU's float32 ones, as a
+#: multiple of the CPU's bf16 vs float32 difference: a bf16 run that sums
+#: in another order is as close to float32 as the first (the witness
+#: above: 0.97-0.99 in mean, at most 1.0 in max)
+BF16_ACCURACY_RATIO = 1.25
 
 
 def check(cond: bool, what: str) -> None:
@@ -360,9 +393,16 @@ def run_counted(what: str, want: tuple, fn):
 
 
 
-# ------------------------------------------------------------ phases 6-8
-def serve_launches() -> tuple:
-    return ssd_inner.launches, rmsnorm_fused.launches
+# ----------------------------------------------------------- phases 6-11
+#: the kernels of each serving path: the mixer's (B3 or B2), then B4;
+#: a prefill launches the first once per layer, a decode step never, and
+#: B4 twice per layer and once for the final norm in both
+SERVE_KERNELS = {MAMBA2.name: (ssd_inner, rmsnorm_fused),
+                 QWEN2.name: (flash_attention, rmsnorm_fused)}
+
+
+def launch_counts(kernels) -> tuple:
+    return tuple(k.launches for k in kernels)
 
 
 def prompts(vocab: int, batch: int, length: int, seed: int) -> list:
@@ -373,17 +413,17 @@ def prompts(vocab: int, batch: int, length: int, seed: int) -> list:
 
 class Checked:
     """Wraps an engine's prefill or decode step: each call synchronises,
-    is timed on the host clock, and must launch exactly ``want``
-    (B3, B4) kernels; ``profile_at`` names calls to run under
+    is timed on the host clock, and must launch exactly ``want`` of each
+    of ``kernels``; ``profile_at`` names calls to run under
     :func:`device_profile` instead."""
 
-    def __init__(self, fn, what: str, want: tuple, profile_at=()):
-        self.fn, self.what, self.want = fn, what, want
+    def __init__(self, fn, what: str, kernels, want: tuple, profile_at=()):
+        self.fn, self.what, self.kernels, self.want = fn, what, kernels, want
         self.profile_at = set(profile_at)
         self.times: list = []
 
     def __call__(self, *args):
-        before = serve_launches()
+        before = launch_counts(self.kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if len(self.times) in self.profile_at:
@@ -392,39 +432,43 @@ class Checked:
             out = self.fn(*args)
         torch.cuda.synchronize()
         self.times.append(time.perf_counter() - t0)
-        got = tuple(a - b for a, b in zip(serve_launches(), before))
+        got = tuple(a - b for a, b in zip(launch_counts(self.kernels),
+                                        before))
+        names = "/".join(k.__name__ for k in self.kernels)
         check(got == self.want, f"{self.what} call {len(self.times)}: "
-              f"launches B3/B4 {got}, want {self.want}")
+              f"launches {names} {got}, want {self.want}")
         return out
 
 
-def serve_engine(model, cuda, profile=False):
-    """A ServeEngine whose prefill and decode steps are Checked."""
-    n_layers = MAMBA2.n_layers
-    eng = ServeEngine(MAMBA2, model,
+def serve_engine(cfg, model, cuda, profile=False):
+    """A ServeEngine of ``cfg`` whose prefill and decode steps are
+    Checked for the launches of ``SERVE_KERNELS[cfg.name]``."""
+    n_layers, kernels = cfg.n_layers, SERVE_KERNELS[cfg.name]
+    eng = ServeEngine(cfg, model,
                       ServeConfig(batch=SERVE_BATCH,
                                   max_len=PROMPT_LEN + NEW_TOKENS + 8),
                       device=cuda)
-    eng._prefill = Checked(eng._prefill, "prefill",
+    eng._prefill = Checked(eng._prefill, f"{cfg.name} prefill", kernels,
                            (n_layers, 2 * n_layers + 1),
                            profile_at=(0,) if profile else ())
-    eng._step = Checked(eng._step, "decode step", (0, 2 * n_layers + 1),
+    eng._step = Checked(eng._step, f"{cfg.name} decode step", kernels,
+                        (0, 2 * n_layers + 1),
                         profile_at=(1,) if profile else ())
     return eng
 
 
-def serve_requests() -> list:
+def serve_requests(cfg) -> list:
     return [Request(prompt=p, max_new_tokens=NEW_TOKENS)
-            for p in prompts(MAMBA2.vocab, SERVE_BATCH, PROMPT_LEN, SEED)]
+            for p in prompts(cfg.vocab, SERVE_BATCH, PROMPT_LEN, SEED)]
 
 
-def capture_inputs(model, cuda) -> dict:
+def capture_inputs(cfg, model, cuda) -> dict:
     """One warm-up serve; keeps the first inputs of each shape that the
-    B3 and B4 wrappers were given (B3's rebuilt from the scan's
+    B2, B3 and B4 wrappers were given (B3's rebuilt from the scan's
     arguments by ``chunk_inputs``, as ``ssd_scan_op`` builds them)."""
     seen: dict = {}
-    real_scan, real_norm = model_mamba2.ssd_scan_op, \
-        model_common.rmsnorm_fused
+    real_scan, real_norm, real_flash = model_mamba2.ssd_scan_op, \
+        model_common.rmsnorm_fused, model_attention.flash_attention
 
     def scan(x, dt, a_log, b_mat, c_mat, chunk, **kw):
         key = ("ssd",) + tuple(x.shape)
@@ -438,12 +482,18 @@ def capture_inputs(model, cuda) -> dict:
                         [x.clone(), gamma.clone(), eps])
         return real_norm(x, gamma, eps)
 
-    model_mamba2.ssd_scan_op, model_common.rmsnorm_fused = scan, norm
+    def flash(q, k, v, *, causal=True):
+        seen.setdefault(("flash",) + tuple(q.shape) + tuple(k.shape),
+                        [q.clone(), k.clone(), v.clone(), causal])
+        return real_flash(q, k, v, causal=causal)
+
+    model_mamba2.ssd_scan_op, model_common.rmsnorm_fused, \
+        model_attention.flash_attention = scan, norm, flash
     try:
-        serve_engine(model, cuda).run(serve_requests(), seed=SEED)
+        serve_engine(cfg, model, cuda).run(serve_requests(cfg), seed=SEED)
     finally:
-        model_mamba2.ssd_scan_op, model_common.rmsnorm_fused = \
-            real_scan, real_norm
+        model_mamba2.ssd_scan_op, model_common.rmsnorm_fused, \
+            model_attention.flash_attention = real_scan, real_norm, real_flash
     return seen
 
 
@@ -554,30 +604,126 @@ def serve_kernel_checks(seen: dict) -> list:
     return rows
 
 
-def serve_path(model, cuda) -> dict:
-    """Phase 7: the serving path, counted and timed, then profiled."""
-    n_layers = MAMBA2.n_layers
-    print(f"phase 7: serve {MAMBA2.name} ({n_layers} layers, d_model "
-          f"{MAMBA2.d_model}, vocab {MAMBA2.vocab}), {SERVE_BATCH} requests "
+def flash_checks(seen: dict) -> dict:
+    """Phase 9: B2 against its plain version on the dense serving path's
+    own inputs (the first layer's q, k and v of the prefill), in bf16 and
+    float32, also at ragged lengths; time, plain and library times and
+    bound at the prefill's shape; B4 at that path's shapes.  Returns the
+    JSON row (the bf16 prefill; float32 figures under ``f32_*``)."""
+    import torch.nn.functional as F
+
+    print("phase 9: flash attention (B2) vs plain on the card, inputs from "
+          "a warm-up serve")
+    keys = [k for k in seen if k[0] == "flash"]
+    check(len(keys) == 1, f"the serve gave B2 shapes {keys}")
+    q, k, v, causal = seen[keys[0]]
+    bsz, heads, seq, hd = q.shape
+    kv_heads = k.shape[1]
+    check(causal and q.dtype == torch.bfloat16 and
+          (bsz, heads, seq, hd) == (SERVE_BATCH, QWEN2.n_heads, PROMPT_LEN,
+                                    QWEN2.hd) and kv_heads == QWEN2.n_kv_heads,
+          f"B2 saw q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}")
+
+    def cut(t, b, s):
+        return t[:b, :, :s].contiguous()
+
+    f32 = [t.float() for t in (q, k, v)]
+    cases = [("bf16", (q, k, v), True), ("float32", f32, True),
+             ("bf16, S = 200", [cut(t, 2, 200) for t in (q, k, v)], True),
+             ("float32, S = 200", [cut(t, 2, 200) for t in f32], True),
+             ("bf16, Sq = 7, Skv = 333, non-causal",
+              (cut(q, 1, 7), cut(k, 1, 333), cut(v, 1, 333)), False)]
+    err = 0.0
+    for label, (a, b, c), is_causal in cases:
+        got = flash_attention(a, b, c, causal=is_causal)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(a, b, c, causal=is_causal)
+        e = max_err(got.float(), want.float())
+        if a.dtype == torch.float32:
+            rtol, atol = FLASH_TOL, FLASH_TOL
+        else:
+            rtol, atol = BF16_RTOL, FLASH_BF16_ATOL
+        ok = bool(torch.allclose(got.float(), want.float(), rtol=rtol,
+                                 atol=atol))
+        print(f"  flash_attention {label} q {tuple(a.shape)} k "
+              f"{tuple(b.shape)}: max_abs_err {e:.3e} (rtol {rtol:.4g}, "
+              f"atol {atol:.1e}; {int((got != want).sum())} of "
+              f"{got.numel()} differ) {'ok' if ok else 'MISMATCH'}")
+        check(ok, f"flash_attention {label} disagrees with its plain version")
+        err = max(err, e)
+
+    # the function's own work: q.k and p.v over the causal pairs
+    flops = 4 * hd * bsz * heads * seq * (seq + 1) // 2
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": FLASH_SOURCE, "replaces": FLASH_TPU, "launches": 0,
+           "max_abs_err": err, "shape": [bsz, heads, kv_heads, seq, hd]}
+    for prefix, (a, b, c) in (("", (q, k, v)), ("f32_", f32)):
+        nbytes = (2 * a.numel() + b.numel() + c.numel()) * a.element_size()
+        ms = graph_ms(lambda: flash_attention(a, b, c), 20)
+        plain_ms = cuda_ms(lambda: flash_attention_plain(a, b, c), 10)
+        def sdpa():
+            return F.scaled_dot_product_attention(a, b, c, is_causal=True,
+                                                  enable_gqa=True)
+
+        library_ms = cuda_ms(sdpa, 20)
+        library_graph_ms = graph_ms(sdpa, 20)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / F32_FLOP_PER_S * 1e3
+        print(f"  flash_attention {str(a.dtype)[6:]} {tuple(a.shape)} / "
+              f"{tuple(b.shape)}: {ms * 1e3:.2f} us/launch (graph replay), "
+              f"plain {plain_ms * 1e3:.2f} us, SDPA {library_ms * 1e3:.2f} "
+              f"us (graph replay {library_graph_ms * 1e3:.2f} us), bound "
+              f"{max(bytes_ms, ops_ms) * 1e3:.2f} us ({flops} "
+              f"flop at {F32_FLOP_PER_S:.3g} flop/s; {nbytes} bytes: "
+              f"{bytes_ms * 1e3:.2f} us), {flops / (ms * 1e-3) / 1e12:.2f} "
+              f"TFLOP/s")
+        row.update({f"{prefix}ms": ms, f"{prefix}plain_ms": plain_ms,
+                    f"{prefix}bound_ms": max(bytes_ms, ops_ms),
+                    f"{prefix}bound_by": "bytes" if bytes_ms >= ops_ms
+                    else "operations", f"{prefix}library_ms": library_ms,
+                    f"{prefix}library_graph_ms": library_graph_ms})
+
+    for key in sorted(k for k in seen if k[0] == "rms"):
+        x, gamma, eps = seen[key]
+        x2 = x.reshape(-1, x.shape[-1])
+        got = rmsnorm_fused(x2, gamma, eps)
+        torch.cuda.synchronize()
+        want = rmsnorm_plain(x2, gamma, eps)
+        ok = bool(torch.allclose(got.float(), want.float(), rtol=BF16_RTOL,
+                                 atol=0.0))
+        print(f"  rmsnorm {tuple(x2.shape)} {str(x2.dtype)[6:]}: max_abs_err "
+              f"{max_err(got.float(), want.float()):.3e} (rtol "
+              f"{BF16_RTOL:.4g}) {'ok' if ok else 'MISMATCH'}")
+        check(ok, f"rmsnorm {tuple(x2.shape)} disagrees with its plain "
+              f"version")
+    return row
+
+
+def serve_path(cfg, model, cuda, phase: int) -> dict:
+    """Phases 7 and 10: a serving path, counted and timed, then
+    profiled."""
+    n_layers = cfg.n_layers
+    mixer, norm = SERVE_KERNELS[cfg.name]
+    print(f"phase {phase}: serve {cfg.name} ({n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}), {SERVE_BATCH} requests "
           f"x {PROMPT_LEN} prompt tokens, {NEW_TOKENS} new tokens, greedy")
-    eng = serve_engine(model, cuda)
-    reqs = serve_requests()
-    ssd_inner.launches = rmsnorm_fused.launches = 0
+    eng = serve_engine(cfg, model, cuda)
+    reqs = serve_requests(cfg)
+    mixer.launches = norm.launches = 0
     t0 = time.perf_counter()
     out = eng.run(reqs, seed=SEED)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    counts = {"ssd_inner": ssd_inner.launches,
-              "rmsnorm_fused": rmsnorm_fused.launches}
+    counts = {mixer.__name__: mixer.launches, norm.__name__: norm.launches}
     steps = eng._step.times
     check(len(eng._prefill.times) == 1 and len(steps) == NEW_TOKENS,
           f"{len(eng._prefill.times)} prefills, {len(steps)} decode steps")
-    want = {"ssd_inner": n_layers,
-            "rmsnorm_fused": (2 * n_layers + 1) * (1 + NEW_TOKENS)}
+    want = {mixer.__name__: n_layers,
+            norm.__name__: (2 * n_layers + 1) * (1 + NEW_TOKENS)}
     check(counts == want, f"serve launches {counts}, want {want}")
     toks = [t for r in out for t in r.out_tokens]
     check(len(toks) == SERVE_BATCH * NEW_TOKENS and
-          all(0 <= t < MAMBA2.vocab for t in toks),
+          all(0 <= t < cfg.vocab for t in toks),
           "served tokens out of range or missing")
     prefill_s = eng._prefill.times[0]
     step_s = float(np.mean(steps))
@@ -597,29 +743,37 @@ def serve_path(model, cuda) -> dict:
           f"step 0/{2 * n_layers + 1}), peak "
           f"memory {stats['peak_mem_gb']:.2f} GB")
     print(f"  req0 tokens: {out[0].out_tokens[:12]}")
-    prof = serve_engine(model, cuda, profile=True)
-    prof.run(serve_requests(), seed=SEED)
+    prof = serve_engine(cfg, model, cuda, profile=True)
+    prof.run(serve_requests(cfg), seed=SEED)
     for label in ("prefill", "decode step"):
         stats[f"{label.split()[0]}_idle_share"] = \
-            PROFILES.get(label, {}).get("idle_share")
+            PROFILES.get(f"{cfg.name} {label}", {}).get("idle_share")
     return stats
 
 
-def cpu_compare(cuda) -> None:
-    """Phase 8: the same seeded model on the CPU, last-token prefill
-    logits against the card's.
+def cpu_compare(cfg, cuda) -> None:
+    """Phases 8 and 11: the same seeded model on the CPU, last-token
+    prefill logits against the card's, at full depth and at 2 layers.
 
     float32 is held at ``LOGITS_F32_TOL``.  bf16 is held at the tests'
     ``LOGITS_BF16_TOL`` at full width and 2 layers, the depth at which the
-    tests hold it.  At 24 layers the bf16 model's own rounding error
-    against float32 is of the order of the logits themselves, in the
-    reference as in the port (tests/test_torch_mamba2.py::
-    test_bf16_spread_grows_with_depth_like_reference), so there the card's
-    bf16 logits must lie within ``BF16_SPREAD_SHARE`` of that spread from
-    the CPU's, in the largest and in the mean absolute difference, and
-    pick the same argmax."""
+    tests hold it.  At full depth the bf16 model's own rounding error
+    against float32 can be of the order of the logits themselves (so it
+    is for mamba2-130m at 24 layers, in the reference as in the port:
+    tests/test_torch_mamba2.py::
+    test_bf16_spread_grows_with_depth_like_reference), and two bf16 runs
+    that sum in other orders can differ by nearly as much as either
+    differs from float32 (so they do for qwen2-1.5b at 28 layers:
+    tests/test_torch_transformer.py::
+    test_bf16_rounding_spread_grows_with_depth).  So there the card's
+    bf16 logits must be no farther from the CPU's float32 ones than
+    ``BF16_ACCURACY_RATIO`` times the CPU's bf16 ones are, in the largest
+    and in the mean absolute difference, and pick the CPU bf16 run's
+    argmax; for the models in ``BF16_SPREAD_SHARE`` they must also lie
+    within that share of the CPU's bf16 vs float32 spread from the CPU's
+    bf16 logits."""
     toks = torch.from_numpy(np.array(
-        prompts(MAMBA2.vocab, CPU_BATCH, CPU_PROMPT, 1)))
+        prompts(cfg.vocab, CPU_BATCH, CPU_PROMPT, 1)))
 
     def last_logits(cfg, dev):
         model = model_registry.init_params(cfg, SEED, dev)
@@ -633,17 +787,17 @@ def cpu_compare(cuda) -> None:
         return float((a - b).abs().mean())
 
     logits = {}
-    for n_layers in (MAMBA2.n_layers, 2):
+    for n_layers in (cfg.n_layers, 2):
         for dtype in (torch.float32, torch.bfloat16):
             for where, dev in (("card", cuda), ("cpu", torch.device("cpu"))):
                 if n_layers == 2 and (where, dtype) == ("card", torch.float32):
                     continue
                 t0 = time.perf_counter()
                 logits[n_layers, where, dtype] = last_logits(
-                    MAMBA2.scaled(n_layers=n_layers, dtype=dtype), dev)
+                    cfg.scaled(n_layers=n_layers, dtype=dtype), dev)
                 print(f"  {where} {str(dtype)[6:]} prefill, {n_layers} "
                       f"layers: {time.perf_counter() - t0:.2f} s (with init)")
-    full = MAMBA2.n_layers
+    full = cfg.n_layers
     card, host = logits[full, "card", torch.float32], \
         logits[full, "cpu", torch.float32]
     check(bool(torch.isfinite(card).all()), "non-finite logits on the card")
@@ -659,15 +813,21 @@ def cpu_compare(cuda) -> None:
         logits[full, "cpu", torch.bfloat16]
     err, spread = max_err(bf_card, bf_host), max_err(bf_host, host)
     err_mean, spread_mean = mean_err(bf_card, bf_host), mean_err(bf_host, host)
+    acc, acc_mean = max_err(bf_card, host), mean_err(bf_card, host)
     same = bool((bf_card.argmax(-1) == bf_host.argmax(-1)).all())
-    ok = (err <= BF16_SPREAD_SHARE * spread
-          and err_mean <= BF16_SPREAD_SHARE * spread_mean and same
+    share = BF16_SPREAD_SHARE.get(cfg.name)
+    ok = (acc <= BF16_ACCURACY_RATIO * spread
+          and acc_mean <= BF16_ACCURACY_RATIO * spread_mean and same
           and bool(torch.isfinite(bf_card).all()))
+    if share is not None:
+        ok = ok and err <= share * spread and err_mean <= share * spread_mean
     print(f"  bfloat16, {full} layers: card vs CPU max_abs_err {err:.3e} "
           f"(mean {err_mean:.3e}); CPU bf16 vs float32 {spread:.3e} (mean "
           f"{spread_mean:.3e}): shares {err / spread:.3f} and "
-          f"{err_mean / spread_mean:.3f} (limit {BF16_SPREAD_SHARE}); card "
-          f"bf16 vs float32 {max_err(bf_card, host):.3e}; argmax "
+          f"{err_mean / spread_mean:.3f} (limit {share}); card bf16 vs "
+          f"float32 {acc:.3e} (mean {acc_mean:.3e}): ratios "
+          f"{acc / spread:.3f} and {acc_mean / spread_mean:.3f} (limit "
+          f"{BF16_ACCURACY_RATIO}); argmax "
           f"{'same' if same else 'DIFFERS'} {'ok' if ok else 'MISMATCH'}")
     check(ok, f"card and CPU logits disagree in bf16 at {full} layers")
 
@@ -811,20 +971,42 @@ def main() -> int:
     model = model_registry.init_params(MAMBA2, SEED, cuda)
     print(f"serving model: {sum(p.numel() for p in model.parameters())} "
           f"parameters, built in {time.perf_counter() - t0:.2f} s")
-    kernels += serve_kernel_checks(capture_inputs(model, cuda))
-    stats = serve_path(model, cuda)
-    for row in kernels:
-        if row["name"] in stats["launches"]:
-            row["launches"] = stats["launches"][row["name"]]
-            check(row["launches"] > 0, f"{row['name']} never ran on the "
-                  f"serving path")
-    print("  serve " + json.dumps({k: v for k, v in stats.items()
-                                   if k != "launches"}))
+    kernels += serve_kernel_checks(capture_inputs(MAMBA2, model, cuda))
+    serve_stats = {MAMBA2.name: serve_path(MAMBA2, model, cuda, 7)}
     del model
     torch.cuda.empty_cache()
     print(f"phase 8: card vs CPU, {MAMBA2.name} prefill of {CPU_BATCH} x "
           f"{CPU_PROMPT} tokens")
-    cpu_compare(cuda)
+    cpu_compare(MAMBA2, cuda)
+
+    # phases 9-11: the dense serving path
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = model_registry.init_params(QWEN2, SEED, cuda)
+    print(f"dense serving model: {sum(p.numel() for p in model.parameters())}"
+          f" parameters, built in {time.perf_counter() - t0:.2f} s")
+    kernels.append(flash_checks(capture_inputs(QWEN2, model, cuda)))
+    serve_stats[QWEN2.name] = serve_path(QWEN2, model, cuda, 10)
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 11: card vs CPU, {QWEN2.name} prefill of {CPU_BATCH} x "
+          f"{CPU_PROMPT} tokens")
+    cpu_compare(QWEN2, cuda)
+
+    # each kernel's launches on the serving paths that run it
+    for row in kernels:
+        if row["name"].startswith("segment_sum"):
+            continue
+        by_path = {name: st["launches"][row["name"]]
+                   for name, st in serve_stats.items()
+                   if row["name"] in st["launches"]}
+        check(all(n > 0 for n in by_path.values()) and by_path,
+              f"{row['name']} never ran on a serving path: {by_path}")
+        row["launches"], row["launches_by_path"] = sum(by_path.values()), \
+            by_path
+    for name, st in serve_stats.items():
+        print(f"  serve {name} " + json.dumps(
+            {k: v for k, v in st.items() if k != "launches"}))
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -1,8 +1,9 @@
 """--arch <id> registry over the reference's 10 architectures.
 
-Only mamba2-130m is ported; asking for any other of the ten raises
-``NotImplementedError`` pointing to its ROADMAP item, and an id outside
-the ten raises ``KeyError``.
+mamba2-130m and the four dense archs (qwen2-1.5b, stablelm-1.6b,
+llama3-8b, codeqwen1.5-7b) are ported; asking for any other of the ten
+raises ``NotImplementedError`` pointing to its ROADMAP item, and an id
+outside the ten raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -12,21 +13,21 @@ import importlib
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {
+    "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+    "llama3-8b": "repro_torch.configs.llama3_8b",
+    "codeqwen1.5-7b": "repro_torch.configs.codeqwen15_7b",
+    "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
 }
 
 #: the reference's architectures that are not ported yet, with where
 #: each is queued
 PENDING = {
-    "paligemma-3b": "ROADMAP A.4 (VLM family, after flash attention B2)",
-    "stablelm-1.6b": "ROADMAP A.4 (dense serving slice with B2)",
-    "llama3-8b": "ROADMAP A.4 (dense serving slice with B2)",
-    "codeqwen1.5-7b": "ROADMAP A.4 (dense serving slice with B2)",
-    "qwen2-1.5b": "ROADMAP A.4 (dense serving slice with B2)",
+    "paligemma-3b": "ROADMAP A.4 (VLM family)",
     "granite-moe-3b-a800m": "ROADMAP A.4 (MoE family, after collectives)",
     "qwen2-moe-a2.7b": "ROADMAP A.4 (MoE family, after collectives)",
-    "zamba2-7b": "ROADMAP A.4 (hybrid family, after B2)",
-    "whisper-large-v3": "ROADMAP A.4 (enc-dec family, after B2)",
+    "zamba2-7b": "ROADMAP A.4 (hybrid family)",
+    "whisper-large-v3": "ROADMAP A.4 (enc-dec family)",
 }
 
 ARCHS = ("paligemma-3b", "stablelm-1.6b", "llama3-8b", "codeqwen1.5-7b",

@@ -1,0 +1,101 @@
+"""Flash attention: the CUDA wrapper and its plain PyTorch version.
+
+Counterpart of ``repro/kernels/flash_attention``: causal or non-causal
+grouped-query attention, q ``[B,H,Sq,hd]``, k and v ``[B,Hkv,Skv,hd]``
+(``H`` a multiple of ``Hkv``; q head ``h`` reads kv head ``h // (H //
+Hkv)``), float32 or bfloat16, all of one dtype; the output has q's
+shape and dtype.  The math is float32: scores ``q.k^T / sqrt(hd)``, the
+causal mask ``kpos <= qpos`` counted from 0 (top-left, as the TPU
+kernel's), softmax and ``P.V``, one cast at the end.  Unlike the TPU
+kernel, any ``Sq`` and ``Skv >= 1`` are taken, and any head dim up to
+:data:`MAX_HEAD_DIM`.
+
+:func:`flash_attention` runs the plain version only for tensors on the
+CPU (which only the tests pass).  For CUDA tensors it launches the
+kernel of ``csrc/flash_attention.cu`` on the current stream or raises;
+any other device raises.  It counts its launches in
+``flash_attention.launches``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.flash_attention.build import LIB
+
+DTYPES = (torch.float32, torch.bfloat16)
+#: the largest head dim the kernel is built for (builds of 16, 32, 64
+#: and 128; a smaller head dim runs in the next larger build)
+MAX_HEAD_DIM = 128
+#: the TPU kernel's mask value
+NEG_INF = -1e30
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True) -> torch.Tensor:
+    """The reference ``attention_ref``: float32 math, one cast at the end."""
+    group = q.shape[1] // k.shape[1]
+    sq, skv, hd = q.shape[2], k.shape[2], q.shape[3]
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)) / math.sqrt(hd)
+    if causal:
+        mask = torch.arange(skv, device=q.device)[None, :] <= \
+            torch.arange(sq, device=q.device)[:, None]
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p, vf).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q ``[B,H,Sq,hd]``; k, v ``[B,Hkv,Skv,hd]``, contiguous, one dtype
+    and device.  Returns a new ``[B,H,Sq,hd]`` tensor in q's dtype."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: want q [B,H,Sq,hd] and k, v "
+                         f"[B,Hkv,Skv,hd], got q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    bsz, heads, sq, hd = q.shape
+    kv_heads, skv = k.shape[1], k.shape[2]
+    if k.shape[0] != bsz or k.shape[3] != hd:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} does not "
+                         f"match q {tuple(q.shape)}")
+    if kv_heads == 0 or heads % kv_heads:
+        raise ValueError(f"flash_attention: {heads} heads are not a "
+                         f"multiple of {kv_heads} kv heads")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {hd}; the kernel is "
+                         f"built for 1 to {MAX_HEAD_DIM}")
+    if skv == 0:
+        raise ValueError("flash_attention: no keys to attend to (Skv = 0)")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: want q, k, v all float32 or all "
+                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k and v must be contiguous")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention: q on {q.device}, k on "
+                         f"{k.device}, v on {v.device}")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if bsz > 65535 or heads > 65535:
+        raise ValueError(f"flash_attention: B = {bsz}, H = {heads}; the "
+                         f"kernel's grid takes at most 65535 of each")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    err = LIB.load().flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bsz, heads,
+        kv_heads, sq, skv, hd, int(causal), int(q.dtype == torch.bfloat16),
+        1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention: CUDA error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

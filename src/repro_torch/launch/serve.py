@@ -2,11 +2,13 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
         --requests 8 --prompt-len 512 --new-tokens 32      # on the card
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --smoke --device cpu                               # on the CPU
 
-The weights are random, drawn from ``--seed``.  ``--device`` defaults
-to the CUDA card; without one the launcher raises.
+``--arch`` takes any ported architecture (``repro_torch.configs.PORTED``:
+mamba2-130m and the dense qwen2-1.5b, stablelm-1.6b, llama3-8b,
+codeqwen1.5-7b).  The weights are random, drawn from ``--seed``.
+``--device`` defaults to the CUDA card; without one the launcher raises.
 """
 
 from __future__ import annotations

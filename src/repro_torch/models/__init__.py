@@ -1,6 +1,6 @@
 """Model stack of the port: configuration, layers, the Mamba2 SSM
-language model and the family registry (counterpart of
-``repro.models``)."""
+language model, the dense transformer and the family registry
+(counterpart of ``repro.models``)."""
 
 from repro_torch.models.common import Family, ModelConfig
 from repro_torch.models.registry import (decode_step, init_params,

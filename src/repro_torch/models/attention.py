@@ -1,0 +1,134 @@
+"""Grouped-query attention with RoPE and a KV cache.
+
+Counterpart of ``repro/models/attention.py``, without its sharding
+constraints (serving on one card has no mesh).  A layer's compute
+weights are a dict (:meth:`repro_torch.models.transformer.DenseLM.
+weights`): ``wqkv`` ``[D, (H + 2 Hkv) hd]``, the three input projections
+side by side so that one product computes them, ``bqkv`` with the QKV
+bias, and ``wo``.
+
+The reference model groups heads as ``[G, Hkv]``: q head ``g Hkv + j``
+attends with kv head ``j``.  The flash kernel (B2) groups them as
+``[Hkv, G]``: q head ``h`` reads kv head ``h // G``.  :func:`flash_attend`
+reorders the q heads into the kernel's order on the way in and back on
+the way out, inside the transposes to and from the kernel's ``[B, H, S,
+hd]`` layout.  :func:`gqa_attend` is the reference's plain attention
+with positions and a valid length; decode uses it, and the tests hold
+the flash path against it.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.common import ModelConfig, apply_rope
+
+#: the reference's mask value
+NEG_INF = -1e30
+
+
+def qkv_project(w: dict, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor):
+    """x ``[B,S,D]`` -> q ``[B,S,H,hd]``, k and v ``[B,S,Hkv,hd]``, RoPE
+    applied to q and k at ``positions`` ``[B,S]``."""
+    bsz, seq, _ = x.shape
+    hd, heads, kv_heads = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    qkv = x @ w["wqkv"]
+    if cfg.qkv_bias:
+        qkv = qkv + w["bqkv"]
+    q, k, v = torch.split(qkv, [heads * hd, kv_heads * hd, kv_heads * hd],
+                          dim=-1)
+    q = q.reshape(bsz, seq, heads, hd)
+    k = k.reshape(bsz, seq, kv_heads, hd)
+    v = v.reshape(bsz, seq, kv_heads, hd)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def flash_attend(q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+    """Causal attention of a whole sequence from position 0 through the
+    flash kernel (B2).  q ``[B,S,H,hd]``, k and v ``[B,S,Hkv,hd]`` ->
+    ``[B,S,H,hd]``, with the reference's head grouping."""
+    bsz, seq, heads, hd = q.shape
+    kv_heads = k.shape[2]
+    group = heads // kv_heads
+    # model head g * Hkv + j -> kernel head j * G + g
+    qk = q.reshape(bsz, seq, group, kv_heads, hd).permute(0, 3, 2, 1, 4) \
+        .contiguous().view(bsz, heads, seq, hd)
+    o = flash_attention(qk, k.transpose(1, 2).contiguous(),
+                        v.transpose(1, 2).contiguous(), causal=True)
+    return o.view(bsz, kv_heads, group, seq, hd).permute(0, 3, 2, 1, 4) \
+        .reshape(bsz, seq, heads, hd)
+
+
+def gqa_attend(q, k, v, *, causal: bool,
+               kv_valid_len=None) -> torch.Tensor:
+    """The reference's plain grouped-query attention (its
+    ``_attend_dense_inner``, without the q-chunk loop, which changes no
+    number, and with positions counted from 0).  q ``[B,Sq,H,hd]``, k
+    and v ``[B,Skv,Hkv,hd]``.  Scores in float32 from exact products,
+    scaled after the dot; the causal mask keeps ``kpos <= qpos``;
+    ``kv_valid_len`` ``[B]`` masks cache slots at or past it.  The
+    probabilities are cast to v's dtype before the product with v."""
+    bsz, sq, heads, hd = q.shape
+    skv, kv_heads = k.shape[1], k.shape[2]
+    group = heads // kv_heads
+    qg = q.reshape(bsz, sq, group, kv_heads, hd)
+    logits = torch.einsum("bqghd,bkhd->bghqk", qg.float(), k.float()) \
+        * (1.0 / math.sqrt(hd))
+    mask = None
+    if causal:                                              # [1,Sq,Skv]
+        mask = (torch.arange(skv, device=q.device)[None, :]
+                <= torch.arange(sq, device=q.device)[:, None])[None]
+    if kv_valid_len is not None:
+        lim = torch.arange(skv, device=q.device)[None, :] < \
+            kv_valid_len[:, None]
+        lim = lim[:, None, :].expand(bsz, sq, skv)
+        mask = lim if mask is None else (mask & lim)
+    if mask is not None:
+        logits = torch.where(mask[:, None, None, :, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bghqk,bkhd->bqghd", probs.to(v.dtype), v)
+    return out.reshape(bsz, sq, heads, hd)
+
+
+def attn_output(w: dict, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    bsz, seq, heads, hd = o.shape
+    return o.reshape(bsz, seq, heads * hd) @ w["wo"]
+
+
+# ------------------------------------------------------------------ caching
+class KVCache(NamedTuple):
+    k: torch.Tensor        # [L, B, Smax, Hkv, hd]
+    v: torch.Tensor        # [L, B, Smax, Hkv, hd]
+    length: torch.Tensor   # [B] int32, filled prefix length
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> KVCache:
+    """The reference's stacked cache: leading dim ``cfg.n_layers``."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return KVCache(
+        k=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        v=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        length=torch.zeros(batch, dtype=torch.int32, device=device))
+
+
+def cache_update(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                 k_new: torch.Tensor, v_new: torch.Tensor, start: int):
+    """Write ``k_new``/``v_new`` ``[B,S,Hkv,hd]`` at position ``start``
+    of one layer's preallocated cache ``[B,Smax,Hkv,hd]``, in place (the
+    reference returns updated copies); returns the two caches.  A write
+    past ``Smax`` raises where the reference clamps its start."""
+    seq = k_new.shape[1]
+    if not 0 <= start <= cache_k.shape[1] - seq:
+        raise ValueError(f"cache_update: {seq} slots at {start} do not fit "
+                         f"a cache of {cache_k.shape[1]}")
+    cache_k[:, start:start + seq] = k_new
+    cache_v[:, start:start + seq] = v_new
+    return cache_k, cache_v

@@ -15,6 +15,8 @@ from dataclasses import dataclass, replace
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from repro_torch.kernels.rmsnorm import rmsnorm_fused
 
@@ -99,13 +101,39 @@ def normal(gen: torch.Generator, shape, scale: float,
            dtype) -> torch.Tensor:
     """``N(0, scale**2)`` draws from ``gen`` (a CPU generator, so the
     same seed gives the same weights on every device)."""
-    return (torch.randn(shape, generator=gen) * scale).to(dtype)
+    return torch.randn(shape, generator=gen).mul_(scale).to(dtype)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
                scale: float | None = None) -> torch.Tensor:
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     return normal(gen, (d_in, d_out), scale, dtype)
+
+
+class CastCache(nn.Module):
+    """A module whose compute copies of its parameters are made once,
+    and dropped when the module moves (``.to``) or is reloaded."""
+
+    def __init__(self):
+        super().__init__()
+        self._cw: dict | None = None
+
+    def _apply(self, fn, *args, **kwargs):
+        self._cw = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._cw = None
+        return super()._load_from_state_dict(*args, **kwargs)
+
+    def weights(self) -> dict:
+        if self._cw is None:
+            with torch.no_grad():
+                self._cw = self._cast()
+        return self._cw
+
+    def _cast(self) -> dict:
+        raise NotImplementedError
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
@@ -116,3 +144,37 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
     rounding of that dtype, and not at all in float32 or where
     ``gamma`` is 1."""
     return rmsnorm_fused(x, gamma, eps)
+
+
+# -------------------------------------------------------------------- rope
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Split-half RoPE in float32, cast back to ``x``'s dtype.  x
+    ``[..., S, H, hd]``; positions ``[..., S]`` int.  The frequencies
+    are made on ``x``'s device: a copy from the host would synchronise
+    the stream at every call."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # [hd/2]
+    ang = positions[..., :, None].float() * freqs            # [..., S, hd/2]
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The reference's activations; its ``gelu`` is jax's default, the
+    tanh approximation."""
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if kind == "relu":
+        return F.relu(x)
+    raise ValueError(f"unknown activation {kind!r}")

@@ -1,15 +1,21 @@
 """Carry the reference's model weights into the port.
 
 Counterpart, on the model side, of :mod:`repro_torch.dragonfly.convert`.
-The reference keeps an SSM LM's parameters as a pytree whose per-layer
+The reference keeps an LM's parameters as a pytree whose per-layer
 leaves are stacked ``[L, ...]``; its plain values (``jax.tree_util.
 tree_map(np.asarray, params)``) are a nested dict of NumPy arrays::
 
-    {"embed": [Vp, D], "ln_f": [D],
-     "blocks": {"ln": [L, D], "mamba": {"w_z": [L, D, E], ...}}}
+    SSM:   {"embed": [Vp, D], "ln_f": [D],
+            "blocks": {"ln": [L, D], "mamba": {"w_z": [L, D, E], ...}}}
+    dense: {"embed": [Vp, D], "ln_f": [D], ("lm_head": [D, Vp]),
+            "blocks": {"ln1": [L, D], "ln2": [L, D],
+                       "attn": {"wq": [L, D, H hd], ...},
+                       "mlp": {"w_in": [L, D, F], ...}}}
 
-:func:`ssm_lm_from_reference` unstacks the per-layer leaves into the
-port's :class:`~repro_torch.models.ssm_lm.SSMLM` (keeping ``embed`` at
+:func:`ssm_lm_from_reference` and :func:`dense_lm_from_reference`
+unstack the per-layer leaves into the port's
+:class:`~repro_torch.models.ssm_lm.SSMLM` and
+:class:`~repro_torch.models.transformer.DenseLM` (keeping ``embed`` at
 its ``vocab_padded`` rows and the masters in ``cfg.param_dtype``), so
 both compute the same functions.  This module imports nothing of
 ``repro``.
@@ -22,33 +28,43 @@ import torch
 
 from repro_torch.models.common import Family, ModelConfig
 from repro_torch.models.ssm_lm import SSMLM
+from repro_torch.models.transformer import DenseLM
 from repro_torch.runtime import resolve_device
 
 
-def ssm_state_dict(params: dict, cfg: ModelConfig) -> dict:
-    """The port's state dict for the reference parameters ``params``."""
-    if cfg.family != Family.SSM:
-        raise NotImplementedError(f"{cfg.family.value}: only the SSM "
-                                  "family is ported")
+def _tensor(a, cfg: ModelConfig) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+        cfg.param_dtype)
 
-    def t(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            cfg.param_dtype)
 
+def _common(params: dict, cfg: ModelConfig, family: Family,
+            first_leaf: str) -> dict:
+    """Checks the family, ``embed``'s shape and the layer count; returns
+    the state dict's ``embed`` and ``ln_f``."""
+    if cfg.family != family:
+        raise NotImplementedError(f"{cfg.family.value}: want the "
+                                  f"{family.value} family")
     embed = np.asarray(params["embed"])
     if embed.shape != (cfg.vocab_padded, cfg.d_model):
         raise ValueError(f"embed {embed.shape}, config wants "
                          f"{(cfg.vocab_padded, cfg.d_model)}")
-    out = {"embed": t(embed), "ln_f": t(params["ln_f"])}
-    blocks = params["blocks"]
-    n_layers = np.asarray(blocks["ln"]).shape[0]
+    n_layers = np.asarray(params["blocks"][first_leaf]).shape[0]
     if n_layers != cfg.n_layers:
         raise ValueError(f"{n_layers} stacked layers, config has "
                          f"{cfg.n_layers}")
-    for i in range(n_layers):
-        out[f"blocks.{i}.ln"] = t(np.asarray(blocks["ln"])[i])
+    return {"embed": _tensor(embed, cfg), "ln_f": _tensor(params["ln_f"], cfg)}
+
+
+def ssm_state_dict(params: dict, cfg: ModelConfig) -> dict:
+    """The port's SSM state dict for the reference parameters
+    ``params``."""
+    out = _common(params, cfg, Family.SSM, "ln")
+    blocks = params["blocks"]
+    for i in range(cfg.n_layers):
+        out[f"blocks.{i}.ln"] = _tensor(np.asarray(blocks["ln"])[i], cfg)
         for name, leaf in blocks["mamba"].items():
-            out[f"blocks.{i}.mamba.{name}"] = t(np.asarray(leaf)[i])
+            out[f"blocks.{i}.mamba.{name}"] = _tensor(np.asarray(leaf)[i],
+                                                      cfg)
     return out
 
 
@@ -60,3 +76,31 @@ def ssm_lm_from_reference(params: dict, cfg: ModelConfig,
     model = SSMLM(cfg)
     model.load_state_dict(ssm_state_dict(params, cfg), strict=True)
     return model.to(dev)
+
+
+def dense_state_dict(params: dict, cfg: ModelConfig) -> dict:
+    """The port's dense state dict for the reference parameters
+    ``params``; ``lm_head`` is taken when the config is untied."""
+    out = _common(params, cfg, Family.DENSE, "ln1")
+    if not cfg.tie_embeddings:
+        out["lm_head"] = _tensor(params["lm_head"], cfg)
+    blocks = params["blocks"]
+    for i in range(cfg.n_layers):
+        for name in ("ln1", "ln2"):
+            out[f"blocks.{i}.{name}"] = _tensor(np.asarray(blocks[name])[i],
+                                                cfg)
+        for sub in ("attn", "mlp"):
+            for name, leaf in blocks[sub].items():
+                out[f"blocks.{i}.{sub}.{name}"] = _tensor(
+                    np.asarray(leaf)[i], cfg)
+    return out
+
+
+def dense_lm_from_reference(params: dict, cfg: ModelConfig,
+                            device=None) -> DenseLM:
+    """A port model on ``device`` (``None``: the CUDA card) holding the
+    reference parameters ``params``; shapes are checked by the strict
+    load."""
+    model = DenseLM(cfg, device=resolve_device(device))
+    model.load_state_dict(dense_state_dict(params, cfg), strict=True)
+    return model

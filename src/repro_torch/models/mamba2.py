@@ -26,8 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.ssd_scan import ssd_scan_op
-from repro_torch.models.common import (ModelConfig, dense_init, normal,
-                                       rmsnorm)
+from repro_torch.models.common import (CastCache, ModelConfig, dense_init,
+                                       normal, rmsnorm)
 
 
 # ----------------------------------------------------------------- SSD core
@@ -100,32 +100,6 @@ _IN_PROJ = ("w_z", "w_x", "w_b", "w_c", "w_dt")
 _CAST = ("conv_x_b", "conv_bb", "conv_cb", "d_skip", "norm_g", "out_proj")
 _TAPS = ("conv_x_w", "conv_b_w", "conv_c_w")
 _F32 = ("a_log", "dt_bias")
-
-
-class CastCache(nn.Module):
-    """A module whose compute copies of its parameters are made once,
-    and dropped when the module moves (``.to``) or is reloaded."""
-
-    def __init__(self):
-        super().__init__()
-        self._cw: dict | None = None
-
-    def _apply(self, fn, *args, **kwargs):
-        self._cw = None
-        return super()._apply(fn, *args, **kwargs)
-
-    def _load_from_state_dict(self, *args, **kwargs):
-        self._cw = None
-        return super()._load_from_state_dict(*args, **kwargs)
-
-    def weights(self) -> dict:
-        if self._cw is None:
-            with torch.no_grad():
-                self._cw = self._cast()
-        return self._cw
-
-    def _cast(self) -> dict:
-        raise NotImplementedError
 
 
 class Mamba2Block(CastCache):

@@ -14,8 +14,8 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from repro_torch.models.common import ModelConfig, normal, rmsnorm
-from repro_torch.models.mamba2 import (CastCache, Mamba2Block, Mamba2State,
+from repro_torch.models.common import CastCache, ModelConfig, normal, rmsnorm
+from repro_torch.models.mamba2 import (Mamba2Block, Mamba2State,
                                        init_mamba2_state)
 
 

@@ -1,0 +1,255 @@
+"""Decoder-only transformer LM, the dense family (qwen2, llama3,
+stablelm, codeqwen).
+
+Counterpart of ``repro/models/transformer.py``.  The reference scans
+stacked per-layer parameters; here the layers are an ``nn.ModuleList``
+run in a Python loop, with float32 masters under the reference's names
+(``blocks.{i}.attn.wq``, ...).  :meth:`DenseLM.weights` casts them to
+``cfg.dtype`` once, with the three attention input projections and the
+two gated MLP inputs joined side by side, and keeps the copies until
+the module moves or is reloaded (:class:`~repro_torch.models.common.
+CastCache`).
+
+The prefill (and the teacher-forced forward) runs its attention through
+the flash kernel B2 (:func:`~repro_torch.models.attention.flash_attend`):
+there the positions are ``arange(S)`` for every row and no slot is
+masked, so the kernel's top-left causal mask is the model's.  A decode
+step attends with one query over a partly filled cache in plain PyTorch
+(:func:`~repro_torch.models.attention.gqa_attend`), as the reference
+does outside any kernel.  The KV cache is preallocated per layer and
+written in place: a decode state is consumed by the step that follows
+it.  The MoE family raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention as attn
+from repro_torch.models.common import (CastCache, Family, ModelConfig,
+                                       dense_init, normal, rmsnorm)
+from repro_torch.models.mlp import mlp
+
+MOE_PENDING = ("the MoE family is not ported to repro_torch yet; see "
+               "ROADMAP A.4 (MoE models, after the collectives)")
+
+
+def _param(shape, cfg: ModelConfig, device, fill: float = 0.0):
+    return nn.Parameter(torch.full(shape, fill, dtype=cfg.param_dtype,
+                                   device=device), requires_grad=False)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.hd
+        hq, hkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+        shapes = {"wq": (d, hq), "wk": (d, hkv), "wv": (d, hkv),
+                  "wo": (hq, d)}
+        if cfg.qkv_bias:
+            shapes.update(bq=(hq,), bk=(hkv,), bv=(hkv,))
+        for name, shape in shapes.items():
+            self.register_parameter(name, _param(shape, cfg, device))
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        self.w_in = _param((d, f), cfg, device)
+        self.w_out = _param((f, d), cfg, device)
+        if cfg.glu:
+            self.w_gate = _param((d, f), cfg, device)
+
+
+class DenseBlock(nn.Module):
+    """One layer: ``x + attn(rmsnorm(x, ln1))``, then ``+ mlp(rmsnorm(.,
+    ln2))``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.ln1 = _param((cfg.d_model,), cfg, device, 1.0)
+        self.attn = Attention(cfg, device)
+        self.ln2 = _param((cfg.d_model,), cfg, device, 1.0)
+        self.mlp = MLP(cfg, device)
+
+
+class DenseLM(CastCache):
+    """Embedding, ``n_layers`` :class:`DenseBlock`, the final norm and,
+    unless tied, the LM head; parameters allocated on ``device``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        if cfg.family == Family.MOE:
+            raise NotImplementedError(f"{cfg.name}: {MOE_PENDING}")
+        self.cfg = cfg
+        self.embed = _param((cfg.vocab_padded, cfg.d_model), cfg, device)
+        self.blocks = nn.ModuleList(DenseBlock(cfg, device)
+                                    for _ in range(cfg.n_layers))
+        self.ln_f = _param((cfg.d_model,), cfg, device, 1.0)
+        if not cfg.tie_embeddings:
+            self.lm_head = _param((cfg.d_model, cfg.vocab_padded), cfg,
+                                  device)
+
+    @torch.no_grad()
+    def init_(self, gen: torch.Generator) -> "DenseLM":
+        """Random weights from ``gen``, laid out as the reference's
+        ``init_lm``: embed N(0, 0.02^2), projections N(0, 1/fan_in) (``wo``
+        over ``H hd``), zero biases, unit norms.  Each tensor is drawn on
+        the host and copied to the module's device as it is drawn."""
+        cfg, pd = self.cfg, self.cfg.param_dtype
+        self.embed.copy_(normal(gen, self.embed.shape, 0.02, pd))
+        for block in self.blocks:
+            a, m = block.attn, block.mlp
+            for w in (a.wq, a.wk, a.wv):
+                w.copy_(dense_init(gen, *w.shape, pd))
+            a.wo.copy_(dense_init(gen, *a.wo.shape, pd))
+            m.w_in.copy_(dense_init(gen, *m.w_in.shape, pd))
+            m.w_out.copy_(dense_init(gen, *m.w_out.shape, pd))
+            if cfg.glu:
+                m.w_gate.copy_(dense_init(gen, *m.w_gate.shape, pd))
+            if cfg.qkv_bias:
+                for b in (a.bq, a.bk, a.bv):
+                    b.zero_()
+            block.ln1.fill_(1.0)
+            block.ln2.fill_(1.0)
+        self.ln_f.fill_(1.0)
+        if not cfg.tie_embeddings:
+            self.lm_head.copy_(dense_init(gen, *self.lm_head.shape, pd,
+                                          scale=0.02))
+        self._cw = None
+        return self
+
+    def _cast(self) -> dict:
+        cfg, dt = self.cfg, self.cfg.dtype
+
+        def cat(*ws):
+            return torch.cat([w.to(dt) for w in ws], dim=-1)
+
+        blocks = []
+        for block in self.blocks:
+            a, m = block.attn, block.mlp
+            w = {"ln1": block.ln1.to(dt), "ln2": block.ln2.to(dt),
+                 "wqkv": cat(a.wq, a.wk, a.wv), "wo": a.wo.to(dt),
+                 "w_out": m.w_out.to(dt)}
+            if cfg.qkv_bias:
+                w["bqkv"] = cat(a.bq, a.bk, a.bv)
+            if cfg.glu:
+                w["w_in_gate"] = cat(m.w_in, m.w_gate)
+            else:
+                w["w_in"] = m.w_in.to(dt)
+            blocks.append(w)
+        embed = self.embed.to(dt)
+        head = embed.T if cfg.tie_embeddings else self.lm_head.to(dt)
+        return {"embed": embed, "head": head, "ln_f": self.ln_f.to(dt),
+                "blocks": blocks}
+
+
+# ------------------------------------------------------------------- blocks
+def block_forward(w: dict, x: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor, *,
+                  prefix_len: Optional[int] = None):
+    """Training/prefill block over a whole sequence from position 0:
+    ``(x, (k, v, aux))``.  The attention runs on the flash kernel."""
+    if prefix_len is not None:
+        raise NotImplementedError("prefix-LM attention (the VLM family) is "
+                                  "not ported yet; see ROADMAP A.4")
+    h = rmsnorm(x, w["ln1"], cfg.norm_eps)
+    q, k, v = attn.qkv_project(w, h, cfg, positions)
+    x = x + attn.attn_output(w, attn.flash_attend(q, k, v), cfg)
+    h = rmsnorm(x, w["ln2"], cfg.norm_eps)
+    aux = torch.zeros((), device=x.device)
+    return x + mlp(w, h, cfg), (k, v, aux)
+
+
+def block_decode(w: dict, x: torch.Tensor, cfg: ModelConfig,
+                 cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int):
+    """One-token decode against a filled KV cache, written in place.
+    x ``[B,1,D]``; cache_k/v ``[B,Smax,Hkv,hd]``; pos the current
+    position."""
+    bsz = x.shape[0]
+    h = rmsnorm(x, w["ln1"], cfg.norm_eps)
+    positions = torch.full((bsz, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = attn.qkv_project(w, h, cfg, positions)
+    ck, cv = attn.cache_update(cache_k, cache_v, k, v, pos)
+    valid = torch.full((bsz,), pos + 1, dtype=torch.int32, device=x.device)
+    o = attn.gqa_attend(q, ck, cv, causal=False, kv_valid_len=valid)
+    x = x + attn.attn_output(w, o, cfg)
+    h = rmsnorm(x, w["ln2"], cfg.norm_eps)
+    return x + mlp(w, h, cfg), ck, cv
+
+
+# ----------------------------------------------------------------------- LM
+def _embed(model: DenseLM, tokens: torch.Tensor) -> torch.Tensor:
+    return model.weights()["embed"][tokens.long()]
+
+
+def _logits(model: DenseLM, x: torch.Tensor) -> torch.Tensor:
+    w = model.weights()
+    return rmsnorm(x, w["ln_f"], model.cfg.norm_eps) @ w["head"]
+
+
+def _positions(tokens: torch.Tensor) -> torch.Tensor:
+    bsz, seq = tokens.shape
+    return torch.arange(seq, dtype=torch.int32,
+                        device=tokens.device)[None, :].expand(bsz, seq)
+
+
+@torch.no_grad()
+def lm_apply(model: DenseLM, tokens: torch.Tensor, cfg: ModelConfig):
+    """tokens ``[B,S]`` -> (logits ``[B,S,Vp]`` in ``cfg.dtype``, aux
+    loss)."""
+    x = _embed(model, tokens)
+    positions = _positions(tokens)
+    aux = torch.zeros((), device=x.device)
+    for w in model.weights()["blocks"]:
+        x, (_, _, a) = block_forward(w, x, cfg, positions)
+        aux = aux + a
+    return _logits(model, x), aux
+
+
+class LMDecodeState(NamedTuple):
+    cache: attn.KVCache    # stacked [L, ...]
+    pos: int
+
+
+def lm_make_state(cfg: ModelConfig, batch: int, max_len: int,
+                  device=None) -> LMDecodeState:
+    return LMDecodeState(cache=attn.init_cache(cfg, batch, max_len,
+                                               device=device), pos=0)
+
+
+@torch.no_grad()
+def lm_prefill(model: DenseLM, tokens: torch.Tensor, cfg: ModelConfig,
+               state: LMDecodeState):
+    """Fill the cache with the prompt from slot 0; returns (last-token
+    logits ``[B,1,Vp]``, state)."""
+    x = _embed(model, tokens)
+    bsz, seq = tokens.shape
+    positions = _positions(tokens)
+    cache = state.cache
+    for i, w in enumerate(model.weights()["blocks"]):
+        x, (k, v, _) = block_forward(w, x, cfg, positions)
+        attn.cache_update(cache.k[i], cache.v[i], k, v, 0)
+    logits = _logits(model, x[:, -1:, :].contiguous())
+    length = torch.full((bsz,), seq, dtype=torch.int32, device=x.device)
+    return logits, LMDecodeState(cache=cache._replace(length=length), pos=seq)
+
+
+@torch.no_grad()
+def lm_decode_step(model: DenseLM, token: torch.Tensor, cfg: ModelConfig,
+                   state: LMDecodeState):
+    """token ``[B,1]`` -> (logits ``[B,1,Vp]``, the next state)."""
+    x = _embed(model, token)
+    cache = state.cache
+    for i, w in enumerate(model.weights()["blocks"]):
+        x, _, _ = block_decode(w, x, cfg, cache.k[i], cache.v[i], state.pos)
+    return _logits(model, x), LMDecodeState(
+        cache=cache._replace(length=cache.length + 1), pos=state.pos + 1)
+
+
+__all__ = ["DenseLM", "LMDecodeState", "block_decode", "block_forward",
+           "lm_apply", "lm_decode_step", "lm_make_state", "lm_prefill"]

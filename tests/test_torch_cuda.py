@@ -18,6 +18,13 @@ version: float32 sums of at most 128 products in possibly other orders,
 held at ``SSD_RTOL = 1e-5`` relative to the largest output.  A smoke
 serve on the card vs the same model on the CPU in float32: identical
 greedy tokens, logits at ``TOL``-scale ``1e-4``.
+
+Flash attention (B2) kernel vs plain version: both compute in float32
+(the kernel scales q before the dot, the plain version the scores
+after it, and they sum in other orders); float32 outputs agree to
+``FLASH_TOL = 3e-5`` (the JAX kernel tests' tolerance), bfloat16 outputs
+to one bf16 ulp of the value plus ``1e-5``.  The qwen2-1.5b smoke serve
+is held like the mamba2-130m one.
 """
 
 import numpy as np
@@ -27,7 +34,10 @@ import torch
 from repro_torch.core.strategies import RoutingMode
 from repro_torch.dragonfly import (DragonflySimulator, RoutingPolicy,
                                    SimParams, small_topology)
+from repro_torch.configs import get_smoke_config
 from repro_torch.configs.mamba2_130m import SMOKE
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm_fused, rmsnorm_plain
 from repro_torch.kernels.ssd_scan import ssd_inner, ssd_inner_plain
 from repro_torch.kernels.segment_sum import (segment_sum_scatter,
@@ -41,6 +51,7 @@ TOL = 1e-5
 JAX_RTOL = 2e-2
 BF16_RTOL = 2.0 ** -7
 SSD_RTOL = 1e-5
+FLASH_TOL = 3e-5
 
 
 @pytest.fixture
@@ -191,6 +202,66 @@ def test_smoke_serve_on_the_card_matches_the_cpu(cuda):
         before = ssd_inner.launches, rmsnorm_fused.launches
         lg, _ = registry.prefill(model, {"tokens": toks}, cfg, state)
         after = ssd_inner.launches, rmsnorm_fused.launches
+        n_norms = 2 * cfg.n_layers + 1
+        want = (before[0] + cfg.n_layers, before[1] + n_norms) \
+            if dev.type == "cuda" else before
+        assert after == want
+        logits.append(lg.float().cpu())
+        eng = ServeEngine(cfg, model, ServeConfig(batch=3, max_len=32),
+                          device=dev)
+        out = eng.run([Request(prompt=list(p), max_new_tokens=6)
+                       for p in prompts])
+        runs.append([r.out_tokens for r in out])
+    torch.testing.assert_close(logits[0], logits[1], rtol=1e-4, atol=1e-4)
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.parametrize("q_shape,kv_shape,causal", [
+    ((8, 12, 512, 128), (8, 2, 512, 128), True),   # qwen2-1.5b prefill
+    ((2, 12, 200, 128), (2, 2, 200, 128), True),   # a 200-token prompt
+    ((1, 4, 7, 64), (1, 2, 333, 64), False),       # Sq != Skv, ragged
+    ((2, 4, 70, 16), (2, 2, 70, 16), True),        # smoke head dim
+    ((1, 3, 65, 12), (1, 1, 130, 12), True),       # head dim 12, MQA
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, q_shape, kv_shape, causal,
+                                              dtype):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(s, device=cuda, generator=gen).to(dtype)
+               for s in (q_shape, kv_shape, kv_shape))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=FLASH_TOL, atol=FLASH_TOL)
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=BF16_RTOL, atol=1e-5)
+
+
+def test_flash_attention_kernel_refuses_oversized_grids(cuda):
+    z = torch.zeros(1, 65536, 1, 16, device=cuda)
+    with pytest.raises(ValueError, match="65535"):
+        flash_attention(z, z, z)
+
+
+def test_qwen2_smoke_serve_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.models import registry
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    cfg = get_smoke_config("qwen2-1.5b").scaled(dtype=torch.float32)
+    prompts = [[5, 17, 3, 99, 250, 7, 8, 1, 2, 3, 4, 5], [11, 12]]
+    runs, logits = [], []
+    for dev in (cuda, torch.device("cpu")):
+        model = registry.init_params(cfg, 0, dev)
+        toks = torch.tensor([prompts[0]], device=dev)
+        state = registry.make_decode_state(cfg, 1, 16, device=dev)
+        before = flash_attention.launches, rmsnorm_fused.launches
+        lg, _ = registry.prefill(model, {"tokens": toks}, cfg, state)
+        after = flash_attention.launches, rmsnorm_fused.launches
         n_norms = 2 * cfg.n_layers + 1
         want = (before[0] + cfg.n_layers, before[1] + n_norms) \
             if dev.type == "cuda" else before

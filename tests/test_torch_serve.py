@@ -3,7 +3,9 @@
 Both engines serve the same reference-made weights (carried across by
 ``repro_torch.models.convert``) in float32, where the greedy tokens
 must be identical; the prompts have unequal lengths, so left-padding
-with token 0 and filler requests are exercised.
+with token 0 and filler requests are exercised.  Every case runs for
+the SMOKE configs of mamba2-130m (SSM family) and qwen2-1.5b (dense
+family, whose prefill runs the flash kernel's plain version here).
 """
 
 import jax
@@ -13,28 +15,33 @@ import torch
 
 import jax.numpy as jnp
 
-from repro.configs.mamba2_130m import SMOKE as REF_SMOKE
+from repro.configs.registry import get_smoke_config as ref_smoke_config
 from repro.models import registry as ref_registry
 from repro.serve.engine import Request as RefRequest
 from repro.serve.engine import ServeConfig as RefServeConfig
 from repro.serve.engine import ServeEngine as RefServeEngine
-from repro_torch.configs.mamba2_130m import SMOKE
+from repro_torch.configs import get_smoke_config
 from repro_torch.launch import serve as launch_serve
-from repro_torch.models.convert import ssm_lm_from_reference
+from repro_torch.models.common import Family
+from repro_torch.models.convert import (dense_lm_from_reference,
+                                        ssm_lm_from_reference)
 from repro_torch.serve import Request, ServeConfig, ServeEngine
 from repro_torch.serve.engine import route_kv_transfer
 
 PROMPTS = [[5, 17, 3, 99, 250, 7, 8], [11, 12], [300, 301, 302, 303, 1]]
 NEW = [6, 4, 5]
+ARCHS = ["mamba2-130m", "qwen2-1.5b"]
 
 
-@pytest.fixture(scope="module")
-def weights():
-    jc = REF_SMOKE.scaled(dtype=jnp.float32)
-    tc = SMOKE.scaled(dtype=torch.float32)
+@pytest.fixture(scope="module", params=ARCHS)
+def weights(request):
+    jc = ref_smoke_config(request.param).scaled(dtype=jnp.float32)
+    tc = get_smoke_config(request.param).scaled(dtype=torch.float32)
     params = ref_registry.init_params(jc, 0)
-    model = ssm_lm_from_reference(jax.tree_util.tree_map(np.asarray, params),
-                                  tc, device="cpu")
+    convert = (dense_lm_from_reference if tc.family == Family.DENSE
+               else ssm_lm_from_reference)
+    model = convert(jax.tree_util.tree_map(np.asarray, params), tc,
+                    device="cpu")
     return jc, tc, params, model
 
 
@@ -100,7 +107,7 @@ def test_no_cuda_means_no_serving(weights, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(tc, model, ServeConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        launch_serve.main(["--arch", "mamba2-130m", "--smoke"])
+        launch_serve.main(["--arch", tc.name, "--smoke"])
 
 
 def test_model_on_another_device_is_refused(weights):
@@ -109,18 +116,20 @@ def test_model_on_another_device_is_refused(weights):
         ServeEngine(tc, model.to("meta"), ServeConfig(), device="cpu")
 
 
-def test_launcher_serves_on_the_cpu(capsys):
-    out = launch_serve.main(["--arch", "mamba2-130m", "--smoke", "--device",
+@pytest.mark.parametrize("arch", ARCHS)
+def test_launcher_serves_on_the_cpu(capsys, arch):
+    out = launch_serve.main(["--arch", arch, "--smoke", "--device",
                              "cpu", "--requests", "3", "--prompt-len", "9",
                              "--new-tokens", "5"])
     assert len(out) == 3
     assert all(len(r.out_tokens) == 5 for r in out)
-    assert all(0 <= t < SMOKE.vocab for r in out for t in r.out_tokens)
-    assert "[serve] mamba2-130m on cpu: 3 requests, 15 tokens" in \
+    vocab = get_smoke_config(arch).vocab
+    assert all(0 <= t < vocab for r in out for t in r.out_tokens)
+    assert f"[serve] {arch} on cpu: 3 requests, 15 tokens" in \
         capsys.readouterr().out
 
 
 def test_launcher_refuses_unported_architectures():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch_serve.main(["--arch", "qwen2-1.5b", "--smoke", "--device",
+        launch_serve.main(["--arch", "zamba2-7b", "--smoke", "--device",
                            "cpu"])
