@@ -21,7 +21,8 @@ Phases:
 
 1. the card's name, power limit and compute capability (must be 9.0);
 2. build of every kernel library (one ``nvcc`` per source, all started
-   together);
+   together), and a probe of the flash library's SASS for ``HGMMA``
+   (the tensor-core ``wgmma`` of its bf16 kernel);
 3. the segment-sum kernels against their plain PyTorch versions on the
    card, at the simulator path's shapes, with their times, the plain
    versions', one PyTorch library call's (``torch.bincount``, a
@@ -43,9 +44,10 @@ Phases:
    layers, and in bfloat16 at 2 layers;
 9. the flash-attention kernel (B2) against its plain version on inputs
    taken from a warm-up serve of qwen2-1.5b, in bfloat16 and float32 at
-   the prefill's shape and at ragged lengths, with its time, the plain
-   version's, ``F.scaled_dot_product_attention``'s (a yardstick the port
-   never calls) and its bound; B4 at that serve's shapes;
+   the prefill's shape and at ragged lengths, and in bfloat16 at
+   stablelm-1.6b's head dim of 64, with its time, the plain version's,
+   ``F.scaled_dot_product_attention``'s (a yardstick the port never
+   calls) and its bound; B4 at that serve's shapes;
 10. the dense serving path as phase 7: qwen2-1.5b, every prefill and
     decode step checked for its kernel launches, then profiled;
 11. as phase 8 for qwen2-1.5b at 28 layers and at 2.
@@ -79,10 +81,12 @@ from repro_torch.dragonfly import torch_backend  # noqa: E402
 from repro_torch.faults import FaultSchedule, link_down  # noqa: E402
 from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2  # noqa: E402
 from repro_torch.configs.qwen2_1_5b import CONFIG as QWEN2  # noqa: E402
+from repro_torch.configs.stablelm_1_6b import CONFIG as STABLELM  # noqa: E402
 from repro_torch.kernels import libraries  # noqa: E402
-from repro_torch.kernels._build import build_all  # noqa: E402
+from repro_torch.kernels._build import build_all, find_nvcc  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
+from repro_torch.kernels.flash_attention.build import LIB as FLASH_LIB  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_fused, rmsnorm_plain  # noqa: E402
 from repro_torch.kernels.segment_sum import (  # noqa: E402
     segment_sum_scatter, segment_sum_scatter_plain, segment_sum_sorted,
@@ -106,9 +110,11 @@ TIMED_PHASES = 5
 KERNEL_RTOL = 1e-5
 #: card vs CPU run of the same phase (the jax engine's JAX_RTOL)
 CPU_RTOL = 2e-2
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s, dense
+#: bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 KERNEL_SOURCE = "src/repro_torch/kernels/segment_sum/csrc/segment_sum.cu"
 TPU_KERNEL = "src/repro/kernels/segment_sum/segment_sum.py:48"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
@@ -127,12 +133,20 @@ CPU_BATCH, CPU_PROMPT = 2, 256
 SSD_RTOL = 1e-5
 #: RMSNorm kernel vs plain version in bf16: one bf16 ulp of the value
 BF16_RTOL = 2.0 ** -7
-#: flash kernel vs plain version: float32 math in other orders (the
-#: kernel scales q before the dot, the plain version the scores after
-#: it); float32 at the JAX kernel tests' 3e-5, bf16 outputs to one bf16
-#: ulp of the value plus FLASH_BF16_ATOL
+#: flash kernel vs plain version in float32: the same float32 math in
+#: other orders (the kernel scales q before the dot, the plain version
+#: the scores after it), at the JAX kernel tests' 3e-5
 FLASH_TOL = 3e-5
-FLASH_BF16_ATOL = 1e-5
+#: in bf16 the kernel rounds each kv tile's unnormalised P to bf16 and
+#: the plain version the normalised probabilities, each p_j to within
+#: 2**-8 p_j: outputs to one bf16 ulp of the value (BF16_RTOL) plus, per
+#: output, FLASH_BF16_ATOL_PER_PV * sum_j p_j |v_j|, the worst case of
+#: the two placements (flash_bf16_atol; the witness
+#: tests/test_torch_flash_attention.py::test_kernel_order_witness)
+FLASH_BF16_ATOL_PER_PV = 2.0 ** -7
+#: the target for B2's bf16 time, as a multiple of SDPA's: reported, not
+#: enforced (a miss goes into PERF.md with its numbers)
+FLASH_SDPA_FACTOR = 2.0
 #: card vs CPU logits of the full-width model in float32: the same math
 #: in other summation orders over 24 or 28 layers
 LOGITS_F32_TOL = 1e-3
@@ -252,6 +266,23 @@ def device_profile(fn, label: str = "phase"):
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
         print(f"    {us:10.1f} us  x{n:<4d} {name[:90]}")
     return res
+
+
+def hgmma_count(lib) -> int:
+    """HGMMA (``wgmma``) instructions in a built library's SASS, read
+    with the toolkit's ``cuobjdump``."""
+    out = subprocess.run(
+        [str(Path(find_nvcc()).parent / "cuobjdump"), "--dump-sass",
+         str(lib.path)], capture_output=True, text=True, check=True,
+        timeout=300)
+    return sum("HGMMA" in line for line in out.stdout.splitlines())
+
+
+def flash_bf16_atol(q, k, v, causal: bool) -> torch.Tensor:
+    """Per output, ``FLASH_BF16_ATOL_PER_PV * sum_j p_j |v_j|`` with the
+    plain version's float32 probabilities."""
+    return FLASH_BF16_ATOL_PER_PV * flash_attention_plain(
+        q.float(), k.float(), v.float().abs(), causal=causal)
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -607,7 +638,8 @@ def serve_kernel_checks(seen: dict) -> list:
 def flash_checks(seen: dict) -> dict:
     """Phase 9: B2 against its plain version on the dense serving path's
     own inputs (the first layer's q, k and v of the prefill), in bf16 and
-    float32, also at ragged lengths; time, plain and library times and
+    float32, also at ragged lengths, and on seeded inputs at
+    stablelm-1.6b's head dim of 64; time, plain and library times and
     bound at the prefill's shape; B4 at that path's shapes.  Returns the
     JSON row (the bf16 prefill; float32 figures under ``f32_*``)."""
     import torch.nn.functional as F
@@ -628,11 +660,17 @@ def flash_checks(seen: dict) -> dict:
         return t[:b, :, :s].contiguous()
 
     f32 = [t.float() for t in (q, k, v)]
+    gen = torch.Generator(device=q.device).manual_seed(SEED)
+    hd64 = [torch.randn((2, n, PROMPT_LEN, STABLELM.hd), generator=gen,
+                        device=q.device).to(torch.bfloat16)
+            for n in (STABLELM.n_heads, STABLELM.n_kv_heads,
+                      STABLELM.n_kv_heads)]
     cases = [("bf16", (q, k, v), True), ("float32", f32, True),
              ("bf16, S = 200", [cut(t, 2, 200) for t in (q, k, v)], True),
              ("float32, S = 200", [cut(t, 2, 200) for t in f32], True),
              ("bf16, Sq = 7, Skv = 333, non-causal",
-              (cut(q, 1, 7), cut(k, 1, 333), cut(v, 1, 333)), False)]
+              (cut(q, 1, 7), cut(k, 1, 333), cut(v, 1, 333)), False),
+             (f"bf16, {STABLELM.name} head dim (randn)", hd64, True)]
     err = 0.0
     for label, (a, b, c), is_causal in cases:
         got = flash_attention(a, b, c, causal=is_causal)
@@ -640,15 +678,20 @@ def flash_checks(seen: dict) -> dict:
         want = flash_attention_plain(a, b, c, causal=is_causal)
         e = max_err(got.float(), want.float())
         if a.dtype == torch.float32:
-            rtol, atol = FLASH_TOL, FLASH_TOL
+            rtol, atol, what = FLASH_TOL, FLASH_TOL, f"atol {FLASH_TOL:.4g}"
         else:
-            rtol, atol = BF16_RTOL, FLASH_BF16_ATOL
-        ok = bool(torch.allclose(got.float(), want.float(), rtol=rtol,
-                                 atol=atol))
+            rtol, atol = BF16_RTOL, flash_bf16_atol(a, b, c, is_causal)
+            what = f"atol 2**-7 sum p|v|, {float(atol.min()):.3e} to " \
+                f"{float(atol.max()):.3e}"
+        gap = (got.float() - want.float()).abs()
+        limit = atol + rtol * want.float().abs()
+        ok = bool((gap <= limit).all())
+        share = float((gap / limit.clamp_min(1e-30)).max())
         print(f"  flash_attention {label} q {tuple(a.shape)} k "
               f"{tuple(b.shape)}: max_abs_err {e:.3e} (rtol {rtol:.4g}, "
-              f"atol {atol:.1e}; {int((got != want).sum())} of "
-              f"{got.numel()} differ) {'ok' if ok else 'MISMATCH'}")
+              f"{what}; largest gap {share:.3f} of its limit; "
+              f"{int((got != want).sum())} of {got.numel()} differ) "
+              f"{'ok' if ok else 'MISMATCH'}")
         check(ok, f"flash_attention {label} disagrees with its plain version")
         err = max(err, e)
 
@@ -667,16 +710,25 @@ def flash_checks(seen: dict) -> dict:
 
         library_ms = cuda_ms(sdpa, 20)
         library_graph_ms = graph_ms(sdpa, 20)
+        # bf16 runs on the tensor cores, float32 on the FMA pipe
+        peak = BF16_FLOP_PER_S if a.dtype == torch.bfloat16 \
+            else F32_FLOP_PER_S
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / F32_FLOP_PER_S * 1e3
+        ops_ms = flops / peak * 1e3
         print(f"  flash_attention {str(a.dtype)[6:]} {tuple(a.shape)} / "
               f"{tuple(b.shape)}: {ms * 1e3:.2f} us/launch (graph replay), "
               f"plain {plain_ms * 1e3:.2f} us, SDPA {library_ms * 1e3:.2f} "
               f"us (graph replay {library_graph_ms * 1e3:.2f} us), bound "
               f"{max(bytes_ms, ops_ms) * 1e3:.2f} us ({flops} "
-              f"flop at {F32_FLOP_PER_S:.3g} flop/s; {nbytes} bytes: "
-              f"{bytes_ms * 1e3:.2f} us), {flops / (ms * 1e-3) / 1e12:.2f} "
-              f"TFLOP/s")
+              f"flop at {peak:.3g} flop/s: {ops_ms * 1e3:.2f} us; {nbytes} "
+              f"bytes: {bytes_ms * 1e3:.2f} us), "
+              f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+        if a.dtype == torch.bfloat16:
+            factor = ms / library_graph_ms
+            print(f"  bf16 B2 / SDPA (graph replay) = {factor:.3f}: "
+                  f"{'within' if factor <= FLASH_SDPA_FACTOR else 'MISSES'}"
+                  f" {FLASH_SDPA_FACTOR}x")
+            row["sdpa_factor"] = factor
         row.update({f"{prefix}ms": ms, f"{prefix}plain_ms": plain_ms,
                     f"{prefix}bound_ms": max(bytes_ms, ops_ms),
                     f"{prefix}bound_by": "bytes" if bytes_ms >= ops_ms
@@ -866,9 +918,18 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s wall")
     for info in infos:
         print(f"  {info.path.name}: {info.seconds:.2f} s")
+        entry = ""
         for line in info.log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("   ", line.strip())
+            if "Compiling entry function" in line:   # mangled: cut the
+                entry = line.split("'")[1]           # file's namespace
+                entry = entry[entry.find("_cu_") + 4:][:48] \
+                    if "_cu_" in entry else entry[:48]
+            elif "registers" in line or "spill" in line:
+                print("   ", entry, line.strip())
+    n_hgmma = hgmma_count(FLASH_LIB)
+    print(f"  {FLASH_LIB.path.name}: {n_hgmma} HGMMA instructions in its "
+          f"SASS ({'present' if n_hgmma else 'ABSENT'})")
+    check(n_hgmma > 0, "the flash library's SASS holds no HGMMA")
 
     topo = DragonflyTopology(TopologyParams(n_groups=N_GROUPS))
     n_links = int(topo.n_links)

@@ -3,55 +3,114 @@
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention/flash_attention.py::flash_attention
 // (body _flash_kernel).  q [B, H, Sq, hd], k and v [B, Hkv, Skv, hd], float32
-// or bf16; the output has q's layout and dtype.  The function is the TPU
-// kernel's: q is cast to float32 and multiplied by scale = 1/sqrt(hd), the
-// scores q.k^T are float32, the causal mask keeps kpos <= qpos counted from
-// 0 (scores of masked pairs become -1e30), an online softmax keeps the running
-// max m, the normaliser l and the float32 accumulator per row, P stays float32
-// for the P.V product, and the output is acc / max(l, 1e-20) cast once.
+// or bf16, all of one dtype; q head h reads kv head h / (H / Hkv); the output
+// has q's layout and dtype.  Both dtypes share the mask (top-left causal,
+// kpos <= qpos counted from 0, columns past Skv masked; masked scores become
+// -1e30), an online softmax whose running max m and normaliser l are float32,
+// a float32 accumulator, and the output acc / max(l, 1e-20) cast once.  Any
+// Sq, Skv >= 1 and any hd from 1 to 128 are taken.  The dtypes differ where
+// the products are rounded:
 //
-// Design.  One block of 256 threads (a 16 x 16 grid) per (batch, head, 64-row
-// q tile) walks the kv tiles of 64 rows in a loop, which takes the place of
-// the TPU's sequential ("arbitrary") kv grid axis; the kv head is h / group.
-// Under the causal mask the loop stops at the tile that holds the diagonal
-// instead of skipping the later ones with pl.when, and q tiles are handed out
-// last first, so the longest blocks start first.  The q tile (pre-scaled), a
-// K tile and a V tile are staged in shared memory as float32; Q and K rows
-// are padded to hd + 4 floats, so that the 16-byte loads of eight threads
-// reading eight K rows fall on distinct banks.  Each thread owns 4 rows
-// (ty + 16 r) and, of the 64 x 64 score tile, the 4 columns tx + 16 c: it
-// sums their dot products over hd with float32 FMAs, masks them, and reduces
-// the row max and row sum over the 16 threads of its row with shuffles.  Its
-// rows' m, l and the accumulator columns tx + 16 c (hd / 16 of them) stay in
-// registers.  P goes to shared memory over the K tile, which the scores no
-// longer need, and every thread then adds P.V for its rows and columns.  At
-// hd = 128 that is 33 KB for Q, 33 KB for K or P and 32 KB for V: 98 KB of
-// dynamic shared memory (two blocks fit on an SM), above the 48 KB default,
-// so the host entry sets cudaFuncAttributeMaxDynamicSharedMemorySize before
-// the first launch (a launch without it is refused, which only
-// cudaGetLastError() shows).  Any Sq, Skv >= 1 works: rows past Sq are
-// computed on zeros and not stored, columns past Skv are masked and their V
-// rows are zero.  Any hd from 1 to 128 works: the kernel is built for hd 16,
-// 32, 64 and 128, and a smaller hd runs in the next larger build with its
-// extra columns zero.
+//   float32  q is multiplied by scale = 1/sqrt(hd) and the scores q.k^T are
+//            float32, P stays float32 for P.V: the TPU kernel's function.
+//   bf16     the scores are q.k^T of the bf16 inputs accumulated in float32,
+//            then scaled by 1/sqrt(hd) in float32 (as the model does,
+//            src/repro/models/attention.py:107); P = exp(s - m) is rounded to
+//            bf16 for the P.V product, which accumulates in float32.  The
+//            model rounds the normalised probabilities to bf16 instead
+//            (attention.py:127); the two differ by where that one rounding
+//            falls, which tests/test_torch_flash_attention.py bounds.
 //
-// Bound on an H100 SXM: operations.  A causal head of S rows needs
-// S (S + 1) / 2 (q, k) pairs at 4 hd flops each (q.k and p.v): at the
-// qwen2-1.5b prefill (B = 8, H = 12, S = 512, hd = 128) 6.45 GFLOP, 96 us at
-// the 67 TFLOP/s float32 peak, against 29.4 MB of bf16 q, k, v and output,
-// 8.8 us at 3.35 TB/s.  The scores and P are float32 in the function, which
-// bf16 tensor cores (wgmma) would round; they would lift the bound to the
-// bytes and change the numerics, and are later work.  The kernel computes the
-// whole diagonal tile and masks it: at S = 512, 36 tiles of 64 x 64 per head
-// where the function needs 32.5, 1.12 times its work.
+// Bound on an H100 SXM.  A causal head of S rows needs S (S + 1) / 2 (q, k)
+// pairs at 4 hd flops each (q.k and p.v): at the qwen2-1.5b prefill (B = 8,
+// H = 12, Hkv = 2, S = 512, hd = 128) 6.45 GFLOP.  In float32 that is 96 us at
+// the 67 TFLOP/s FMA peak, so float32 is bound by operations.  In bf16 it is
+// 6.5 us at the 989 TFLOP/s dense tensor-core peak, below the 29.4 MB of bf16
+// q, k, v and output at 3.35 TB/s (8.8 us): bf16 is bound by bytes.  Both
+// kernels compute whole 64 x 64 tiles on the diagonal: 1.125 times the
+// causal work at S = 512.
+//
+// float32 design (flash_kernel, SIMT).  One block of 256 threads (a 16 x 16
+// grid) per (batch, head, 64-row q tile) walks the kv tiles of 64 rows in a
+// loop, which takes the place of the TPU's sequential ("arbitrary") kv grid
+// axis.  The q tile (pre-scaled), a K tile and a V tile are staged in shared
+// memory as float32, Q and K rows padded to hd + 4 floats so that 16-byte
+// loads fall on distinct banks.  Each thread owns 4 rows and 4 columns of the
+// 64 x 64 score tile, sums their dot products with float32 FMAs, reduces row
+// max and row sum over the 16 threads of its row with shuffles, writes P over
+// the K tile and adds P.V for its rows and hd / 16 accumulator columns.  98 KB
+// of shared memory at hd 128; builds for hd 16, 32, 64 and 128.
+//
+// bf16 design (flash_wgmma: warp-specialised, tensor cores, persistent).  A
+// block of 384 threads: two consumer warpgroups, each owning 64 rows of a
+// 128-row q tile, and a producer warpgroup whose first warp issues every
+// copy (its other three warps exit).  Shared memory holds Q (128 x hd bf16,
+// 32 KB at hd 128) and a three-stage ring of K and V tiles of 64 kv rows (16
+// KB each): 128 KB at hd 128.  Every tile is stored in the 128-byte swizzled
+// layout that wgmma's shared-memory descriptors read: 64-column blocks of
+// 128-byte rows, the 16-byte chunk j of row r at chunk j ^ (r % 8).  The
+// producer writes it with TMA (one cp.async.bulk.tensor per 64 columns of a
+// tile, through a 3-D tensor map [B * heads, S, hd] whose out-of-range rows
+// and columns read as zeros, so ragged Sq, Skv and a head dim below the
+// build's are padded by the copy), encoded on the host with
+// cuTensorMapEncodeTiled fetched through cudaGetDriverEntryPoint (no
+// -lcuda).  Where TMA cannot express the tensor (hd not a multiple of 8, so
+// rows are not 16-byte multiples, or a pointer not 16-byte aligned), a
+// compile-time variant of the same kernel has the producer warp stage the
+// tiles with ordinary loads into the same layout.  mbarriers carry the
+// hand-offs: q_full and k_full / v_full per stage (the TMA's transaction
+// count, or the 32 lanes' arrivals), q_empty and empty per stage (one
+// arrival per consumer warp).  Each consumer warpgroup, per kv tile i:
+//   1. issues S = Q K^T (64 x 64, float32): hd / 16 wgmma m64n64k16, both
+//      operands K-major from shared memory; then, as a second group, tile
+//      i - 1's P V: four wgmma m64n{hd}k16, P's bf16 A fragments from
+//      registers, V MN-major ("transposed") through its descriptor;
+//   2. once S is done (wgmma.wait_group 1), while P V still runs: scales S
+//      by log2(e) / sqrt(hd), masks it only where the tile crosses the
+//      diagonal or Skv, and updates m and l with exp2, in place (row max
+//      over the row's four threads by shuffles; l summed per thread and
+//      reduced once at the end);
+//   3. once P V is done: frees tile i - 1's stage, rescales O (64 x hd
+//      float32, in registers) by exp2(m_old - m_new), and rounds P to bf16:
+//      the accumulator fragment of S is the A fragment of the next P V, so
+//      P never touches shared memory.
+// Every input of a wgmma other than its accumulator is made before the
+// wgmma fence, and nothing writes a wgmma's registers while it runs: else
+// ptxas serialises every wgmma of the kernel (its warning C7513).
+// Under the causal mask the kv loop stops at the tile that holds the q
+// tile's last diagonal element, and the first warpgroup skips the products
+// of a tile wholly above its rows (it still waits for the tile and frees
+// it).  The grid is persistent: one block per SM (132 on an H100 SXM) walks
+// the (batch, head, q tile) items, numbered longest first and dealt in
+// rounds that alternate direction (item_of), so that the long causal tiles
+// spread over the SMs; the K/V ring runs on across items, and Q is reloaded
+// as soon as both warpgroups' last S is done, so an item's last P V and its
+// stores overlap the next item's loads.  At the qwen2-1.5b prefill there are
+// 4 x 12 x 8 = 384 items, about 2.9 per block.
+//
+// Occupancy (ptxas -v, sm_90a): 168 registers a thread at launch, one block
+// of 384 threads per SM; setmaxnreg gives the producer warpgroup 24 and the
+// consumers 240 (40 and 232 in the variant with ordinary loads, whose
+// producer spills at 24); no spills in the TMA variants.  Two blocks of 288
+// threads (one producer warp) would start at 96 registers a thread, as
+// ptxas counts them per SM sub-partition, and the consumers' 64 x hd float32
+// accumulator alone takes 64; so one block per SM, with a deeper ring (three
+// stages instead of two) in the shared memory the second block would have
+// used.  Builds for hd 64 and 128.
 //
 // Plain C interface for ctypes: enqueues on the given stream, does not
 // synchronise, allocates nothing and returns a cudaError_t code.
 
+#include <cuda.h>  // CUtensorMap and its enums; the driver is reached through
+                   // cudaGetDriverEntryPoint, so nothing links -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
+
+// ------------------------------------------------------------- float32
+
 
 constexpr int kBq = 64;             // q rows per block
 constexpr int kBk = 64;             // kv rows per tile
@@ -60,16 +119,9 @@ constexpr int kLdP = kBk + 4;       // P row stride (floats)
 constexpr float kNegInf = -1e30f;   // the TPU kernel's NEG_INF
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even
 }
 
 template <int HD>
@@ -285,10 +337,756 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
                         causal, scale, stream);
 }
 
+
+// ---------------------------------------------------------------- bf16
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBm = 128;               // q rows per block
+constexpr int kBn = 64;                // kv rows per tile (S is m64n64)
+constexpr int kStages = 3;             // K/V ring depth
+constexpr int kConsumers = 256;        // warpgroups 0 and 1
+constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
+// one block of 384 threads on an SM starts at 168 registers a thread; the
+// producer warpgroup (whose first warp issues the copies, the other three
+// exit) gives back 144, which lifts the 256 consumers to 240: 24 + 2 * 240
+// of each SM sub-partition's 512.  The variant with ordinary loads keeps 40
+// for the producer (its address arithmetic spills at 24) and 232 for them.
+// launch() refuses a build that ptxas gave another count than kLaunchRegs:
+// there a setmaxnreg.inc could wait forever for registers the block lacks.
+constexpr int kLaunchRegs = 168;
+template <bool kTma> constexpr int kProducerRegs = kTma ? 24 : 40;
+template <bool kTma> constexpr int kConsumerRegs = kTma ? 240 : 232;
+static_assert(128 * kProducerRegs<true> + kConsumers * kConsumerRegs<true> <=
+                  kThreads * kLaunchRegs &&
+              128 * kProducerRegs<false> + kConsumers * kConsumerRegs<false> <=
+                  kThreads * kLaunchRegs,
+              "setmaxnreg asks for more registers than the block holds");
+constexpr float kNegInf = -1e30f;      // the TPU kernel's NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
+
+// byte offsets in the block's shared memory; every tile is 1024-byte aligned
+template <int HD>
+struct Smem {
+  static constexpr int kQBytes = kBm * HD * 2;
+  static constexpr int kTileBytes = kBn * HD * 2;
+  static constexpr int kK = kQBytes;                       // Q, then K ring
+  static constexpr int kV = kK + kStages * kTileBytes;     // then V ring
+  static constexpr int kBars = kV + kStages * kTileBytes;  // then mbarriers
+  // + slack to align the dynamic shared memory's start to 1024 bytes
+  static constexpr size_t kBytes = kBars + 8 * (2 + 3 * kStages) + 1024;
+};
+// mbarrier slots: q_full, q_empty, then per stage k_full, v_full and empty
+constexpr int kQFull = 0, kQEmpty = 1, kKFull = 2, kVFull = 2 + kStages,
+              kEmpty = 2 + 2 * kStages;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of element (r, c) of a tile of `rows` rows in the 128-byte
+// swizzled layout that TMA writes and wgmma reads
+__device__ __forceinline__ uint32_t swizzled(int rows, int r, int c) {
+  return (c >> 6) * rows * 128 + r * 128 +
+         ((((c >> 3) & 7) ^ (r & 7)) << 4) + ((c & 7) << 1);
+}
+
+// wgmma shared-memory descriptor of the 128-byte swizzled layout: start
+// address, leading and stride byte offsets (16-byte units), layout type 1
+__device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// wait for the completion of the barrier's phase of this parity; a phase
+// that never completes (a lost arrival) traps after about ten seconds
+// instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  long long t0 = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) t0 = clock64();
+    else if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// 3-D TMA copy of one box into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// rows [row0, row0 + rows) of one head (n_rows x hd, row-major) into a tile
+// in the swizzled layout, zeros past n_rows and hd; for tensors TMA cannot
+// describe.  The fence makes the stores visible to wgmma (the async proxy).
+template <int HD>
+__device__ void stage_rows(unsigned char* dst, const bf16* __restrict__ src,
+                           int rows, int row0, int n_rows, int hd, int lane) {
+  for (int i = lane; i < rows * HD; i += 32) {
+    const int r = i / HD, c = i % HD, g = row0 + r;
+    bf16 v = __float2bfloat16(0.0f);
+    if (g < n_rows && c < hd) v = src[(long long)g * hd + c];
+    *reinterpret_cast<bf16*>(dst + swizzled(rows, r, c)) = v;
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// wait until at most N committed groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accesses to a wgmma's registers across
+// the fence before it (ptxas serialises the wgmmas if an accumulator or A
+// fragment is written between the fence and them) or the wait for it, and
+// from giving them to other values meanwhile
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int M, int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M * N; ++i)
+    asm volatile("" : "+r"(r[i / N][i % N])::"memory");
+}
+
+// the scores' first step ignores their old values: zeros (not the last
+// tile's P) keep those dead while it runs
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.0f;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // nearest even
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A from registers, B MN-major in
+// shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A from registers, B MN-major in
+// shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+
+// The inputs of a warpgroup's products with one kv tile other than the
+// accumulators and P: shared-memory descriptors and the scale-d flags (0:
+// overwrite, 1: accumulate), made before the wgmma fence.  ptxas
+// serialises the wgmmas of a stage if an input of one is computed between
+// the fence and it (its warning C7513), a constant flag included.
+template <int HD>
+struct Descs {
+  uint64_t q[HD / 16], k[HD / 16], v[kBn / 16];
+  int overwrite, accumulate;
+};
+
+// Q (its 64 rows at qa) and a K tile (at kb): K-major, the k16 step kk at
+// byte 32 (kk % 4) of the 64-column block kk / 4; a V tile (at vb): MN-major,
+// the k16 step kk at row 16 kk, 8-row groups 1024 bytes apart and 64-column
+// blocks kBn * 128 bytes apart
+template <int HD>
+__device__ __forceinline__ void describe(Descs<HD>& d, uint32_t qa,
+                                         uint32_t kb, uint32_t vb) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    d.q[kk] =
+        descriptor(qa + (kk >> 2) * kBm * 128 + (kk & 3) * 32, 16, 1024);
+    d.k[kk] =
+        descriptor(kb + (kk >> 2) * kBn * 128 + (kk & 3) * 32, 16, 1024);
+    asm volatile("" : "+l"(d.q[kk]), "+l"(d.k[kk]));
+  }
+#pragma unroll
+  for (int kk = 0; kk < kBn / 16; ++kk) {
+    d.v[kk] = descriptor(vb + kk * 16 * 128, kBn * 128, 1024);
+    asm volatile("" : "+l"(d.v[kk]));
+  }
+  d.overwrite = 0;
+  d.accumulate = 1;
+  asm volatile("" : "+r"(d.overwrite), "+r"(d.accumulate));
+}
+
+// S = Q K^T for this warpgroup's 64 rows and one kv tile: hd / 16 steps of
+// wgmma m64n64k16, Q and K from shared memory; issued, not awaited.  The
+// first step overwrites S.
+template <int HD>
+__device__ __forceinline__ void issue_scores(float (&s)[kBn / 2],
+                                             const Descs<HD>& d) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss(s, d.q[kk], d.k[kk], kk == 0 ? d.overwrite : d.accumulate);
+}
+
+// O += P V over one kv tile: kBn / 16 steps of wgmma m64n{hd}k16, P from
+// registers, V from shared memory; issued, not awaited
+template <int HD>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
+                                         const uint32_t (&p)[kBn / 16][4],
+                                         const Descs<HD>& d) {
+#pragma unroll
+  for (int kk = 0; kk < kBn / 16; ++kk) {
+    if constexpr (HD == 128) wgmma_rs_n128(o, p[kk], d.v[kk], d.accumulate);
+    else wgmma_rs_n64(o, p[kk], d.v[kk], d.accumulate);
+  }
+}
+
+// The online softmax of one tile of scores, in place: s[4 j + e] (row r0 +
+// 8 (e >> 1), column k0 + 8 j + cq + (e & 1)) becomes exp2(s * log2(e) /
+// sqrt(hd) - m_new), masked where the tile crosses the diagonal (from the
+// warpgroup's first row w0) or Skv.  Updates the rows' m and l (l per
+// thread, reduced at the end) and returns their rescale factors in a0, a1.
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[kBn / 2], float& m0, float& m1, float& l0, float& l1,
+    float& a0, float& a1, int k0, int w0, int r0, int cq, int skv,
+    bool causal, float scale_log2) {
+  const bool masked = k0 + kBn > skv || (causal && k0 + kBn - 1 > w0);
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int j = 0; j < kBn / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e] * scale_log2;
+      if (masked) {
+        const int kpos = k0 + 8 * j + cq + (e & 1);
+        const int qpos = r0 + 8 * (e >> 1);
+        if (kpos >= skv || (causal && kpos > qpos)) x = kNegInf;
+      }
+      s[4 * j + e] = x;
+      if (e < 2) mx0 = fmaxf(mx0, x);
+      else mx1 = fmaxf(mx1, x);
+    }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {    // over the row's 4 threads
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+  a0 = ex2(m0 - n0);
+  a1 = ex2(m1 - n1);
+  m0 = n0;
+  m1 = n1;
+  float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kBn / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pe = ex2(s[4 * j + e] - (e < 2 ? n0 : n1));
+      s[4 * j + e] = pe;
+      if (e < 2) sum0 += pe;
+      else sum1 += pe;
+    }
+  l0 = l0 * a0 + sum0;
+  l1 = l1 * a1 + sum1;
+}
+
+// P rounded to bf16: the S fragment of kv columns 16 kk .. 16 kk + 15 is
+// the A fragment of the kk-th k16 step of P V
+__device__ __forceinline__ void round_p(const float (&s)[kBn / 2],
+                                        uint32_t (&p)[kBn / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBn / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+
+// A work item: one 128-row q tile of one (batch, head), row qh of the
+// [B * H] heads.  Items are numbered longest first (under the causal mask
+// the last q tiles walk the most kv tiles), and dealt to the blocks in
+// rounds of gridDim.x, every other round in reverse, so that a block that
+// drew a long item draws a short one next: the n-th item of block j.
+__device__ __forceinline__ int item_of(int n) {
+  return n * gridDim.x +
+         ((n & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+}
+
+struct Item {
+  int q0, qh, kvh, n_tiles;
+};
+
+__device__ __forceinline__ Item item_at(int w, int n_qt, int batch_heads,
+                                        int heads, int group, int sq, int skv,
+                                        bool causal) {
+  Item it;
+  it.q0 = (n_qt - 1 - w / batch_heads) * kBm;
+  it.qh = w % batch_heads;
+  it.kvh = it.qh / heads * (heads / group) + it.qh % heads / group;
+  it.n_tiles = (skv + kBn - 1) / kBn;
+  if (causal)                  // up to the tile of the last row's diagonal
+    it.n_tiles = min(it.n_tiles, (min(it.q0 + kBm, sq) - 1) / kBn + 1);
+  return it;
+}
+
+// HD: the build's head dim (64 or 128); hd <= HD the inputs' (the copies pad
+// the rest with zeros).  kTma: TMA copies, else ordinary loads.  Persistent:
+// each block walks its items (item_of); the K/V ring and its barriers
+// run on across items, and Q is reloaded as soon as both warpgroups are
+// done with its products, so one item's last P V and stores overlap the
+// next one's loads.
+template <int HD, bool kTma>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wgmma(const __grid_constant__ CUtensorMap tq,
+            const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv,
+            const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, bf16* __restrict__ out, int batch,
+            int heads, int group, int sq, int skv, int hd, bool causal,
+            float scale_log2) {
+  using L = Smem<HD>;
+  constexpr int kFullArrivals = kTma ? 1 : 32;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;   // swizzle atoms: 1024 B
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bars = base + L::kBars;
+#define BAR(i) (bars + 8u * (uint32_t)(i))
+
+  const int n_qt = (sq + kBm - 1) / kBm, batch_heads = batch * heads;
+  const int n_items = n_qt * batch_heads;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(BAR(kQFull), kFullArrivals);
+    mbar_init(BAR(kQEmpty), kConsumers / 32);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(BAR(kKFull + s), kFullArrivals);
+      mbar_init(BAR(kVFull + s), kFullArrivals);
+      mbar_init(BAR(kEmpty + s), kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {
+    // ----------------------------------------------- producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;"
+                 ::"n"(kProducerRegs<kTma>));
+    if (warp != kConsumers / 32) return;       // one warp issues the copies
+    if (kTma && lane != 0) return;
+    int t = 0;                                  // tiles copied so far
+    for (int n = 0, w = item_of(0); w < n_items; w = item_of(++n)) {
+      const Item it = item_at(w, n_qt, batch_heads, heads, group, sq, skv,
+                              causal);
+      if (n > 0)           // both warpgroups are done with the last Q
+        mbar_wait(BAR(kQEmpty), (n - 1) & 1);
+      if constexpr (kTma) {
+        mbar_expect_tx(BAR(kQFull), L::kQBytes);
+#pragma unroll
+        for (int c = 0; c < HD / 64; ++c)
+          tma_load(base + c * kBm * 128, &tq, BAR(kQFull), c * 64, it.q0,
+                   it.qh);
+      } else {
+        stage_rows<HD>(smem, q + (long long)it.qh * sq * hd, kBm, it.q0, sq,
+                       hd, lane);
+        mbar_arrive(BAR(kQFull));
+      }
+      for (int i = 0; i < it.n_tiles; ++i, ++t) {
+        const int s = t % kStages;
+        if (t >= kStages)  // both warpgroups are done with tile t - kStages
+          mbar_wait(BAR(kEmpty + s), ((t / kStages) & 1) ^ 1);
+        const uint32_t kdst = base + L::kK + s * L::kTileBytes;
+        const uint32_t vdst = base + L::kV + s * L::kTileBytes;
+        if constexpr (kTma) {
+          mbar_expect_tx(BAR(kKFull + s), L::kTileBytes);
+#pragma unroll
+          for (int c = 0; c < HD / 64; ++c)
+            tma_load(kdst + c * kBn * 128, &tk, BAR(kKFull + s), c * 64,
+                     i * kBn, it.kvh);
+          mbar_expect_tx(BAR(kVFull + s), L::kTileBytes);
+#pragma unroll
+          for (int c = 0; c < HD / 64; ++c)
+            tma_load(vdst + c * kBn * 128, &tv, BAR(kVFull + s), c * 64,
+                     i * kBn, it.kvh);
+        } else {
+          const long long head = (long long)it.kvh * skv * hd;
+          stage_rows<HD>(smem + (kdst - base), k + head, kBn, i * kBn, skv,
+                         hd, lane);
+          mbar_arrive(BAR(kKFull + s));
+          stage_rows<HD>(smem + (vdst - base), v + head, kBn, i * kBn, skv,
+                         hd, lane);
+          mbar_arrive(BAR(kVFull + s));
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------ consumer warpgroups
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;"
+               ::"n"(kConsumerRegs<kTma>));
+  // 0 or 1, warp-uniform to the compiler, so that addresses stay uniform
+  const int wgi = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int cq = 2 * (lane & 3);      // its column in each 8-column group
+  const int rw = 64 * wgi + 16 * (warp & 3) + (lane >> 2);  // row in the tile
+  const uint32_t qa = base + wgi * 64 * 128;     // its 64 rows of Q
+
+  auto kfull = [&](int t) {
+    mbar_wait(BAR(kKFull + t % kStages), (t / kStages) & 1);
+  };
+  auto vfull = [&](int t) {
+    mbar_wait(BAR(kVFull + t % kStages), (t / kStages) & 1);
+  };
+  auto release = [&](uint32_t bar) {   // this warp is done with a buffer
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  auto k_at = [&](int t) {
+    return base + L::kK + (t % kStages) * L::kTileBytes;
+  };
+  auto v_at = [&](int t) {
+    return base + L::kV + (t % kStages) * L::kTileBytes;
+  };
+
+  int t = 0;                                     // ring position of tile 0
+  for (int n = 0, w = item_of(0); w < n_items; w = item_of(++n)) {
+    const Item it = item_at(w, n_qt, batch_heads, heads, group, sq, skv,
+                            causal);
+    const int w0 = it.q0 + 64 * wgi;             // its first q row
+    const int last = min(w0 + 63, sq - 1);       // < w0: no rows at all
+    const int r0 = it.q0 + rw;                   // its rows r0 and r0 + 8
+    // the tiles it computes, a prefix of the item's: under the causal mask
+    // the first warpgroup may skip the last one, wholly above its rows
+    int n_mine = 0;
+    if (w0 <= last)
+      n_mine = causal ? min(it.n_tiles, last / kBn + 1) : it.n_tiles;
+
+    float o[HD / 2], s[kBn / 2], m0 = kNegInf, m1 = kNegInf, l0 = 0.0f,
+        l1 = 0.0f, a0, a1;
+    uint32_t p[kBn / 16][4];
+#pragma unroll
+    for (int j = 0; j < HD / 2; ++j) o[j] = 0.0f;
+
+    Descs<HD> desc;
+    mbar_wait(BAR(kQFull), n & 1);
+    if (n_mine > 0) {
+      kfull(t);
+      describe(desc, qa, k_at(t), v_at(t));
+      zero(s);
+      pin(s);
+      wgmma_fence();
+      issue_scores<HD>(s, desc);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(s);
+      softmax_tile(s, m0, m1, l0, l1, a0, a1, 0, w0, r0, cq, skv, causal,
+                   scale_log2);
+      round_p(s, p);
+      // Tile i's scores run on the tensor cores while tile i - 1's P V
+      // does too; the softmax of tile i then overlaps that P V.
+      for (int i = 1; i < n_mine; ++i) {
+        kfull(t + i);
+        vfull(t + i - 1);
+        describe(desc, qa, k_at(t + i), v_at(t + i - 1));
+        zero(s);
+        pin(s);
+        wgmma_fence();
+        issue_scores<HD>(s, desc);
+        wgmma_commit();
+        pin(o);
+        pin(p);
+        wgmma_fence();
+        issue_pv<HD>(o, p, desc);
+        wgmma_commit();
+        wgmma_wait<1>();                 // the scores are done
+        pin(s);
+        softmax_tile(s, m0, m1, l0, l1, a0, a1, i * kBn, w0, r0, cq, skv,
+                     causal, scale_log2);
+        wgmma_wait<0>();                 // and P V
+        pin(o);
+        pin(p);
+        release(BAR(kEmpty + (t + i - 1) % kStages));
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          o[4 * j] *= a0;
+          o[4 * j + 1] *= a0;
+          o[4 * j + 2] *= a1;
+          o[4 * j + 3] *= a1;
+        }
+        round_p(s, p);
+      }
+    }
+    release(BAR(kQEmpty));             // its products with Q are done
+    if (n_mine > 0) {
+      vfull(t + n_mine - 1);
+      describe(desc, qa, k_at(t), v_at(t + n_mine - 1));
+      pin(o);
+      pin(p);
+      wgmma_fence();
+      issue_pv<HD>(o, p, desc);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(o);
+      pin(p);
+      release(BAR(kEmpty + (t + n_mine - 1) % kStages));
+    }
+    for (int i = n_mine; i < it.n_tiles; ++i) {  // tiles it does not compute
+      kfull(t + i);
+      vfull(t + i);
+      release(BAR(kEmpty + (t + i) % kStages));
+    }
+    t += it.n_tiles;
+
+    // l summed per thread over its columns: reduce over the row's 4 threads
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float d0 = fmaxf(l0, 1e-20f), d1 = fmaxf(l1, 1e-20f);
+    bf16* dst = out + (long long)it.qh * sq * hd;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int c = 8 * j + cq;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + 8 * half;
+        if (row >= sq || c >= hd) continue;
+        const float d = half ? d1 : d0;
+        const float x = o[4 * j + 2 * half] / d;
+        const float y = o[4 * j + 2 * half + 1] / d;
+        bf16* at = dst + (long long)row * hd + c;
+        if constexpr (kTma) {  // hd a multiple of 8: c + 1 < hd, aligned
+          *reinterpret_cast<__nv_bfloat162*>(at) =
+              __floats2bfloat162_rn(x, y);
+        } else {
+          at[0] = __float2bfloat16(x);
+          if (c + 1 < hd) at[1] = __float2bfloat16(y);
+        }
+      }
+    }
+  }
+#undef BAR
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [n_heads, rows, hd] bf16, copied in boxes of box_rows x 64 columns with
+// the 128-byte swizzle; boxes past rows or hd read zeros
+bool encode(CUtensorMap* map, const void* ptr, int n_heads, int rows, int hd,
+            int box_rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows,
+                              (cuuint64_t)n_heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)rows * hd * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD, bool kTma>
+int launch(const void* q, const void* k, const void* v, void* out, int batch,
+           int heads, int kv_heads, int sq, int skv, int hd, bool causal,
+           float scale, cudaStream_t stream) {
+  constexpr size_t bytes = Smem<HD>::kBytes;
+  CUtensorMap maps[3] = {};
+  if (kTma && !(encode(&maps[0], q, batch * heads, sq, hd, kBm) &&
+                encode(&maps[1], k, batch * kv_heads, skv, hd, kBn) &&
+                encode(&maps[2], v, batch * kv_heads, skv, hd, kBn)))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  static bool ready[64] = {};       // one per build of the kernel
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, flash_wgmma<HD, kTma>);
+    if (err != cudaSuccess) return (int)err;
+    if (attr.numRegs != kLaunchRegs) return (int)cudaErrorInvalidKernelImage;
+    err = cudaFuncSetAttribute(flash_wgmma<HD, kTma>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    ready[dev] = true;
+  }
+  static int sms[64] = {};           // multiprocessors of each device
+  if (sms[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  // one persistent block per SM, or one per item if there are fewer
+  const long long items = (long long)((sq + kBm - 1) / kBm) * batch * heads;
+  if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)(items < sms[dev] ? items : sms[dev]);
+  flash_wgmma<HD, kTma><<<grid, kThreads, bytes, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<const bf16*>(q),
+      static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), batch, heads, heads / kv_heads, sq, skv, hd,
+      causal, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             int batch, int heads, int kv_heads, int sq, int skv, int hd,
+             bool causal, float scale, cudaStream_t stream) {
+  const bool tma = hd % 8 == 0 &&
+                   ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  if (hd <= 64)
+    return tma ? launch<64, true>(q, k, v, out, batch, heads, kv_heads, sq,
+                                  skv, hd, causal, scale, stream)
+               : launch<64, false>(q, k, v, out, batch, heads, kv_heads, sq,
+                                   skv, hd, causal, scale, stream);
+  return tma ? launch<128, true>(q, k, v, out, batch, heads, kv_heads, sq,
+                                 skv, hd, causal, scale, stream)
+             : launch<128, false>(q, k, v, out, batch, heads, kv_heads, sq,
+                                  skv, hd, causal, scale, stream);
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // q [batch, heads, sq, hd], k and v [batch, kv_heads, skv, hd] -> out [batch,
-// heads, sq, hd]; all float32 (bf16 = 0) or all bf16 (bf16 = 1), contiguous.
+// heads, sq, hd]; all float32 (bf16 = 0, the SIMT kernel) or all bf16 (bf16 =
+// 1, the tensor-core kernel), contiguous.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int batch, int heads, int kv_heads,
                                int sq, int skv, int hd, int causal, int bf16,
@@ -299,8 +1097,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
       hd > 128)
     return (int)cudaErrorInvalidValue;
   if (bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, out, batch, heads, kv_heads, sq,
-                                   skv, hd, causal != 0, scale, stream);
+    return wg::dispatch(q, k, v, out, batch, heads, kv_heads, sq, skv, hd,
+                        causal != 0, scale, stream);
   return dispatch<float>(q, k, v, out, batch, heads, kv_heads, sq, skv, hd,
                          causal != 0, scale, stream);
 }

@@ -4,17 +4,31 @@ Counterpart of ``repro/kernels/flash_attention``: causal or non-causal
 grouped-query attention, q ``[B,H,Sq,hd]``, k and v ``[B,Hkv,Skv,hd]``
 (``H`` a multiple of ``Hkv``; q head ``h`` reads kv head ``h // (H //
 Hkv)``), float32 or bfloat16, all of one dtype; the output has q's
-shape and dtype.  The math is float32: scores ``q.k^T / sqrt(hd)``, the
-causal mask ``kpos <= qpos`` counted from 0 (top-left, as the TPU
-kernel's), softmax and ``P.V``, one cast at the end.  Unlike the TPU
-kernel, any ``Sq`` and ``Skv >= 1`` are taken, and any head dim up to
-:data:`MAX_HEAD_DIM`.
+shape and dtype.  Scores are ``q.k^T / sqrt(hd)`` in float32, the
+causal mask keeps ``kpos <= qpos`` counted from 0 (top-left, as the TPU
+kernel's), the softmax is float32, and the output is cast once at the
+end.  Where the dtypes differ:
+
+* float32: ``P`` stays float32 for ``P.V`` (the TPU kernel's function,
+  ``attention_ref``);
+* bfloat16: the scores are products of the bf16 inputs accumulated in
+  float32 and scaled after the product, and the probabilities are
+  rounded to bf16 before ``P.V``, which accumulates in float32: what
+  the served model computes (``repro/models/attention.py:107,127`` and
+  the port's ``gqa_attend``).  The kernel rounds the unnormalised
+  ``exp(s - m)`` of each kv tile instead of the normalised
+  probabilities, so kernel and plain version differ by where that one
+  rounding falls; tests/test_torch_flash_attention.py bounds it.
+
+Unlike the TPU kernel, any ``Sq`` and ``Skv >= 1`` are taken, and any
+head dim up to :data:`MAX_HEAD_DIM`.
 
 :func:`flash_attention` runs the plain version only for tensors on the
-CPU (which only the tests pass).  For CUDA tensors it launches the
-kernel of ``csrc/flash_attention.cu`` on the current stream or raises;
-any other device raises.  It counts its launches in
-``flash_attention.launches``.
+CPU (which only the tests pass).  For CUDA tensors it launches a kernel
+of ``csrc/flash_attention.cu`` on the current stream or raises; any
+other device raises.  The dtype picks the kernel: float32 goes to the
+SIMT kernel, bfloat16 to the tensor-core (``wgmma``) one.  It counts
+its launches in ``flash_attention.launches``.
 """
 
 from __future__ import annotations
@@ -26,8 +40,9 @@ import torch
 from repro_torch.kernels.flash_attention.build import LIB
 
 DTYPES = (torch.float32, torch.bfloat16)
-#: the largest head dim the kernel is built for (builds of 16, 32, 64
-#: and 128; a smaller head dim runs in the next larger build)
+#: the largest head dim the kernels are built for (float32 builds of 16,
+#: 32, 64 and 128, bf16 builds of 64 and 128; a smaller head dim runs in
+#: the next larger build)
 MAX_HEAD_DIM = 128
 #: the TPU kernel's mask value
 NEG_INF = -1e30
@@ -35,7 +50,9 @@ NEG_INF = -1e30
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True) -> torch.Tensor:
-    """The reference ``attention_ref``: float32 math, one cast at the end."""
+    """float32: the reference ``attention_ref``, float32 math and one
+    cast at the end.  bfloat16: the same, with the probabilities rounded
+    to bf16 before a float32 ``P.V``, as the served model rounds them."""
     group = q.shape[1] // k.shape[1]
     sq, skv, hd = q.shape[2], k.shape[2], q.shape[3]
     kf = k.float().repeat_interleave(group, dim=1)
@@ -46,6 +63,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.arange(sq, device=q.device)[:, None]
         s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
+    if q.dtype == torch.bfloat16:
+        p = p.to(torch.bfloat16).float()
     return torch.matmul(p, vf).to(q.dtype)
 
 
@@ -82,9 +101,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if bsz > 65535 or heads > 65535:
+    if q.dtype == torch.float32 and (bsz > 65535 or heads > 65535):
         raise ValueError(f"flash_attention: B = {bsz}, H = {heads}; the "
-                         f"kernel's grid takes at most 65535 of each")
+                         f"float32 kernel's grid takes at most 65535 of each")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -93,7 +112,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kv_heads, sq, skv, hd, int(causal), int(q.dtype == torch.bfloat16),
         1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError(f"flash_attention: CUDA error {err}")
+        raise RuntimeError(f"flash_attention: CUDA error {err}" + (
+            " (the bf16 kernel's build has another register count than its "
+            "setmaxnreg counts assume)" if err == 200 else ""))
     flash_attention.launches += 1
     return out
 

@@ -19,12 +19,16 @@ held at ``SSD_RTOL = 1e-5`` relative to the largest output.  A smoke
 serve on the card vs the same model on the CPU in float32: identical
 greedy tokens, logits at ``TOL``-scale ``1e-4``.
 
-Flash attention (B2) kernel vs plain version: both compute in float32
-(the kernel scales q before the dot, the plain version the scores
-after it, and they sum in other orders); float32 outputs agree to
-``FLASH_TOL = 3e-5`` (the JAX kernel tests' tolerance), bfloat16 outputs
-to one bf16 ulp of the value plus ``1e-5``.  The qwen2-1.5b smoke serve
-is held like the mamba2-130m one.
+Flash attention (B2) kernel vs plain version: in float32 both compute
+in float32 (the kernel scales q before the dot, the plain version the
+scores after it, and they sum in other orders) and agree to
+``FLASH_TOL = 3e-5`` (the JAX kernel tests' tolerance).  In bfloat16
+the kernel rounds each kv tile's unnormalised P to bf16 and the plain
+version the normalised probabilities, so outputs agree to one bf16 ulp
+of the value plus, per output, ``FLASH_BF16_ATOL_PER_PV * sum_j p_j
+|v_j|``, the bound of
+tests/test_torch_flash_attention.py::test_kernel_order_witness.  The
+qwen2-1.5b smoke serve is held like the mamba2-130m one.
 """
 
 import numpy as np
@@ -52,6 +56,11 @@ JAX_RTOL = 2e-2
 BF16_RTOL = 2.0 ** -7
 SSD_RTOL = 1e-5
 FLASH_TOL = 3e-5
+#: bf16 flash kernel vs plain version: rtol BF16_RTOL plus, per output,
+#: this times sum_j p_j |v_j|: each placement of P's bf16 rounding moves
+#: every p_j by at most 2**-8 p_j
+#: (tests/test_torch_flash_attention.py::test_kernel_order_witness)
+FLASH_BF16_ATOL_PER_PV = 2.0 ** -7
 
 
 @pytest.fixture
@@ -59,6 +68,16 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     return torch.device("cuda")
+
+
+def _assert_flash_bf16_close(got, want, q, k, v, causal):
+    atol = FLASH_BF16_ATOL_PER_PV * flash_attention_plain(
+        q.float(), k.float(), v.float().abs(), causal=causal)
+    gap = (got.float() - want.float()).abs()
+    limit = atol + BF16_RTOL * want.float().abs()
+    assert bool((gap <= limit).all()), \
+        f"largest gap {float((gap / limit.clamp_min(1e-30)).max()):.3f} " \
+        f"of its limit"
 
 
 def _inputs(n, segs, seed):
@@ -222,6 +241,10 @@ def test_smoke_serve_on_the_card_matches_the_cpu(cuda):
     ((1, 4, 7, 64), (1, 2, 333, 64), False),       # Sq != Skv, ragged
     ((2, 4, 70, 16), (2, 2, 70, 16), True),        # smoke head dim
     ((1, 3, 65, 12), (1, 1, 130, 12), True),       # head dim 12, MQA
+    ((2, 32, 512, 64), (2, 32, 512, 64), True),    # stablelm-1.6b width
+    ((1, 2, 130, 72), (1, 2, 130, 72), True),      # head dim 72: padded
+    ((2, 12, 700, 128), (2, 2, 700, 128), True),   # 144 q tiles: two rounds
+    ((1, 2, 300, 128), (1, 2, 700, 128), False),   # Sq < Skv, non-causal
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, q_shape, kv_shape, causal,
@@ -238,8 +261,24 @@ def test_flash_attention_kernel_matches_plain(cuda, q_shape, kv_shape, causal,
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=FLASH_TOL, atol=FLASH_TOL)
     else:
-        torch.testing.assert_close(got.float(), want.float(),
-                                   rtol=BF16_RTOL, atol=1e-5)
+        _assert_flash_bf16_close(got, want, q, k, v, causal)
+
+
+def test_flash_attention_bf16_unaligned_matches_plain(cuda):
+    """A q that starts 8 bytes past a 16-byte boundary, which TMA cannot
+    copy: the bf16 kernel's variant with ordinary loads, at head dim
+    128."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    n = 2 * 12 * 100 * 128
+    buf = torch.randn(n + 8, device=cuda, generator=gen).to(torch.bfloat16)
+    q = buf[4:4 + n].view(2, 12, 100, 128)
+    k, v = (torch.randn((2, 2, 100, 128), device=cuda, generator=gen)
+            .to(torch.bfloat16) for _ in range(2))
+    assert q.is_contiguous() and q.data_ptr() % 16 == 8
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v)
+    _assert_flash_bf16_close(got, want, q, k, v, True)
 
 
 def test_flash_attention_kernel_refuses_oversized_grids(cuda):

@@ -13,9 +13,10 @@ plain jnp.  Tolerances:
   order 1 or below;
 * bfloat16: the repo's own decode tolerance, 4e-2
   (tests/test_decode_consistency.py), at 2 layers.  The two frameworks
-  round bf16 at other places: the port's attention keeps P in float32
-  where the reference model rounds it to bf16 before the product with
-  v, and the port's norm rounds once where the reference's rounds twice.
+  round bf16 at other places: the port's norm rounds once where the
+  reference's rounds twice, and the flash kernel on the card rounds
+  each kv tile's unnormalised P where the reference model (and the
+  kernel's plain version here) rounds the normalised probabilities.
 """
 
 import dataclasses
