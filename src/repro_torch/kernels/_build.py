@@ -8,7 +8,10 @@ kernel's own ``build/`` (listed in ``.gitignore``), and ``ctypes`` loads
 it.  Nothing happens at import: the CPU tests import every kernel module
 on machines without ``nvcc``.  A build failure raises; there is no
 fallback.  Every build goes through :func:`build_all`, which starts one
-``nvcc`` per source together and waits for all of them.
+``nvcc`` per source together and waits for all of them.  Helpers shared
+by several kernels (``wgmma``, TMA, ``mbarrier``) live in
+:data:`HOPPER_HEADER`; a library is rebuilt when its source or any
+header it names is newer than it.
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ from pathlib import Path
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: the Hopper helpers included by the tensor-core kernels
+HOPPER_HEADER = Path(__file__).resolve().parent / "csrc" / "hopper.cuh"
 
 #: ctypes argument codes used in signatures: pointers (and the stream)
 #: must be ``c_void_p``, or ctypes passes them as 32-bit ints
@@ -55,11 +61,15 @@ class KernelLibrary:
 
     ``signatures`` maps each C entry point to its argument codes (keys
     of :data:`CTYPES`); every entry point returns an ``int`` error code.
+    ``headers`` are the files the source includes from elsewhere in the
+    package: an edit of one rebuilds the library.
     """
 
     def __init__(self, source: Path, name: str,
-                 signatures: dict[str, tuple[str, ...]]):
+                 signatures: dict[str, tuple[str, ...]],
+                 headers: tuple = ()):
         self.source = Path(source)
+        self.headers = tuple(Path(h) for h in headers)
         self.build_dir = self.source.parent.parent / "build"
         self.path = self.build_dir / f"lib{name}.so"
         self.signatures = signatures
@@ -67,8 +77,17 @@ class KernelLibrary:
         self._lib: ctypes.CDLL | None = None
 
     def build(self) -> BuildInfo:
-        """Compile the library unless one newer than the source exists."""
+        """Compile the library unless one newer than its source and
+        headers exists."""
         return build_all([self])[0]
+
+    def fresh(self) -> bool:
+        """A built library newer than the source and every header."""
+        if not self.path.is_file():
+            return False
+        built = self.path.stat().st_mtime
+        return all(built >= f.stat().st_mtime
+                   for f in (self.source, *self.headers))
 
     def load(self) -> ctypes.CDLL:
         """The built library with its C signatures declared."""
@@ -83,15 +102,14 @@ class KernelLibrary:
 
 
 def build_all(libraries) -> list[BuildInfo]:
-    """Build every library that has no library newer than its source,
-    one ``nvcc`` per source, all started together; raises after all
-    ended if any failed."""
+    """Build every library that has no library newer than its source and
+    headers, one ``nvcc`` per source, all started together; raises after
+    all ended if any failed."""
     jobs = []
     for lib in libraries:
         if lib._info is not None:
             continue
-        if lib.path.is_file() and \
-                lib.path.stat().st_mtime >= lib.source.stat().st_mtime:
+        if lib.fresh():
             lib._info = BuildInfo(lib.path, 0.0, "")
             continue
         lib.build_dir.mkdir(exist_ok=True)

@@ -6,10 +6,11 @@ from __future__ import annotations
 
 from pathlib import Path
 
-from repro_torch.kernels._build import KernelLibrary
+from repro_torch.kernels._build import HOPPER_HEADER, KernelLibrary
 
 LIB = KernelLibrary(
     Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
     "flash_attention",
     {"flash_attention": ("ptr", "ptr", "ptr", "ptr", "i32", "i32", "i32",
-                         "i32", "i32", "i32", "i32", "i32", "f32", "ptr")})
+                         "i32", "i32", "i32", "i32", "i32", "f32", "ptr")},
+    headers=(HOPPER_HEADER,))

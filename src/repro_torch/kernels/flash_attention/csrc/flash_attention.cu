@@ -101,11 +101,7 @@
 // Plain C interface for ctypes: enqueues on the given stream, does not
 // synchronise, allocates nothing and returns a cudaError_t code.
 
-#include <cuda.h>  // CUtensorMap and its enums; the driver is reached through
-                   // cudaGetDriverEntryPoint, so nothing links -lcuda
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "../../csrc/hopper.cuh"  // wgmma, TMA and mbarrier helpers
 
 namespace {
 
@@ -341,7 +337,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
 // ---------------------------------------------------------------- bf16
 namespace wg {
 
-using bf16 = __nv_bfloat16;
+using namespace hopper;
 
 constexpr int kBm = 128;               // q rows per block
 constexpr int kBn = 64;                // kv rows per tile (S is m64n64)
@@ -381,72 +377,6 @@ struct Smem {
 constexpr int kQFull = 0, kQEmpty = 1, kKFull = 2, kVFull = 2 + kStages,
               kEmpty = 2 + 2 * kStages;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// byte offset of element (r, c) of a tile of `rows` rows in the 128-byte
-// swizzled layout that TMA writes and wgmma reads
-__device__ __forceinline__ uint32_t swizzled(int rows, int r, int c) {
-  return (c >> 6) * rows * 128 + r * 128 +
-         ((((c >> 3) & 7) ^ (r & 7)) << 4) + ((c & 7) << 1);
-}
-
-// wgmma shared-memory descriptor of the 128-byte swizzled layout: start
-// address, leading and stride byte offsets (16-byte units), layout type 1
-__device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-// wait for the completion of the barrier's phase of this parity; a phase
-// that never completes (a lost arrival) traps after about ten seconds
-// instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  long long t0 = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0) t0 = clock64();
-    else if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
-// 3-D TMA copy of one box into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
 // rows [row0, row0 + rows) of one head (n_rows x hd, row-major) into a tile
 // in the swizzled layout, zeros past n_rows and hd; for tensors TMA cannot
 // describe.  The fence makes the stores visible to wgmma (the async proxy).
@@ -459,134 +389,8 @@ __device__ void stage_rows(unsigned char* dst, const bf16* __restrict__ src,
     if (g < n_rows && c < hd) v = src[(long long)g * hd + c];
     *reinterpret_cast<bf16*>(dst + swizzled(rows, r, c)) = v;
   }
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  fence_async_smem();
 }
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// wait until at most N committed groups are still running
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accesses to a wgmma's registers across
-// the fence before it (ptxas serialises the wgmmas if an accumulator or A
-// fragment is written between the fence and them) or the wait for it, and
-// from giving them to other values meanwhile
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int M, int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[M][N]) {
-#pragma unroll
-  for (int i = 0; i < M * N; ++i)
-    asm volatile("" : "+r"(r[i / N][i % N])::"memory");
-}
-
-// the scores' first step ignores their old values: zeros (not the last
-// tile's P) keep those dead while it runs
-template <int N>
-__device__ __forceinline__ void zero(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) r[i] = 0.0f;
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // nearest even
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A from registers, B MN-major in
-// shared memory
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
-}
-
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A from registers, B MN-major in
-// shared memory
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63},"
-      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate));
-}
-
 
 // The inputs of a warpgroup's products with one kv tile other than the
 // accumulators and P: shared-memory descriptors and the scale-d flags (0:
@@ -974,50 +778,6 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
     }
   }
 #undef BAR
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime has loaded
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// [n_heads, rows, hd] bf16, copied in boxes of box_rows x 64 columns with
-// the 128-byte swizzle; boxes past rows or hd read zeros
-bool encode(CUtensorMap* map, const void* ptr, int n_heads, int rows, int hd,
-            int box_rows) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows,
-                              (cuuint64_t)n_heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)hd * 2,
-                                 (cuuint64_t)rows * hd * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int HD, bool kTma>

@@ -6,9 +6,10 @@ from __future__ import annotations
 
 from pathlib import Path
 
-from repro_torch.kernels._build import KernelLibrary
+from repro_torch.kernels._build import HOPPER_HEADER, KernelLibrary
 
 LIB = KernelLibrary(
     Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu", "ssd_scan",
-    {"ssd_inner": ("ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "i64", "i32",
-                   "i32", "i32", "ptr")})
+    {"ssd_inner": ("ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "i32",
+                   "i32", "i32", "i32", "i32", "i32", "i32", "ptr")},
+    headers=(HOPPER_HEADER,))

@@ -36,8 +36,11 @@ def ssd_chunked(x, dt, a_log, b_mat, c_mat, chunk: int,
     """Chunked SSD scan; the within-chunk block runs on kernel B3.
 
     x ``[B,S,H,P]``, dt ``[B,S,H]`` (post-softplus), a_log ``[H]``,
-    b/c ``[B,S,H,N]``, init_state ``[B,H,N,P]`` or None.  Returns
-    ``(y [B,S,H,P], final_state [B,H,N,P])``.
+    b/c ``[B,S,G,N]`` per group (G dividing H; the reference takes them
+    broadcast to the heads, ``[B,S,H,N]``, which is G = H),
+    init_state ``[B,H,N,P]`` or None.  Returns ``(y [B,S,H,P],
+    final_state [B,H,N,P])``.  bf16 x, B and C take B3's tensor-core
+    route (:mod:`repro_torch.kernels.ssd_scan`).
     """
     return ssd_scan_op(x, dt, a_log, b_mat, c_mat, chunk,
                        init_state=init_state)
@@ -192,13 +195,12 @@ class Mamba2Block(CastCache):
                                   dt_)
 
         xh = xs.reshape(bsz, seq, heads, cfg.ssm_head_dim)
-        rep = heads // groups
-        b_h = bm.reshape(bsz, seq, groups, n).repeat_interleave(rep, dim=2)
-        c_h = cm.reshape(bsz, seq, groups, n).repeat_interleave(rep, dim=2)
         dt = F.softplus(dt_raw.float() + w["dt_bias"])
 
+        # B and C per group: the scan reads group h // (H/G) for head h
         y, ssm_final = ssd_chunked(
-            xh, dt, w["a_log"], b_h, c_h, cfg.ssm_chunk,
+            xh, dt, w["a_log"], bm.reshape(bsz, seq, groups, n),
+            cm.reshape(bsz, seq, groups, n), cfg.ssm_chunk,
             init_state.ssm if init_state is not None else None)
         y = y + xh * w["d_skip"][None, None, :, None]
         y = y.reshape(bsz, seq, d_inner)

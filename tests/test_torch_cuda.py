@@ -14,8 +14,11 @@ card vs the same seeded phase on the CPU is held at the jax engine's
 RMSNorm (B4) kernel vs plain version: both compute in float32 and cast
 once; float32 outputs agree to ``TOL``, bfloat16 outputs to one bf16
 ulp (``BF16_RTOL = 2**-7`` of the value).  SSD (B3) kernel vs plain
-version: float32 sums of at most 128 products in possibly other orders,
-held at ``SSD_RTOL = 1e-5`` relative to the largest output.  A smoke
+version: in float32 (the SIMT kernel) float32 sums of at most 128
+products in possibly other orders, held at ``SSD_RTOL = 1e-5`` relative
+to the largest output; in bf16 (the tensor-core kernel) within the
+per-output ``bf16_limits`` of ``repro_torch.kernels.ssd_scan.ops``, the
+bound of tests/test_torch_ssd_scan.py::test_bf16_route_witness.  A smoke
 serve on the card vs the same model on the CPU in float32: identical
 greedy tokens, logits at ``TOL``-scale ``1e-4``.
 
@@ -44,6 +47,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm_fused, rmsnorm_plain
 from repro_torch.kernels.ssd_scan import ssd_inner, ssd_inner_plain
+from repro_torch.kernels.ssd_scan.ops import bf16_limits
 from repro_torch.kernels.segment_sum import (segment_sum_scatter,
                                              segment_sum_scatter_plain,
                                              segment_sum_sorted,
@@ -176,24 +180,44 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, xdtype, gdtype):
                                    rtol=BF16_RTOL, atol=0.0)
 
 
-@pytest.mark.parametrize("B,Nc,H,Q,P,N", [
-    (8, 4, 24, 128, 64, 128),      # 8 x 512-token prefill, mamba2-130m
-    (1, 2, 24, 100, 64, 128),      # a 200-token prompt: chunk of 100
-    (2, 3, 3, 8, 16, 16),          # smoke config
-    (1, 1, 2, 1, 5, 7),
+@pytest.mark.parametrize("with_dt", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Nc,H,G,Q,P,N", [
+    (8, 4, 24, 1, 128, 64, 128),   # 8 x 512-token prefill, mamba2-130m
+    (1, 2, 24, 1, 100, 64, 128),   # a 200-token prompt: chunk of 100
+    (2, 3, 3, 3, 8, 16, 16),       # smoke config, one group per head
+    (1, 2, 6, 2, 64, 64, 128),     # two groups
+    (2, 2, 4, 2, 100, 5, 7),       # odd P and N: ordinary loads, not TMA
+    (1, 1, 2, 1, 1, 5, 7),
 ])
-def test_ssd_kernel_matches_plain(cuda, B, Nc, H, Q, P, N):
+def test_ssd_kernel_matches_plain(cuda, dtype, with_dt, B, Nc, H, G, Q, P,
+                                  N):
+    """float32: the SIMT kernel at ``SSD_RTOL``; bf16: the tensor-core
+    kernel within ``bf16_limits`` (tests/test_torch_ssd_scan.py::
+    test_bf16_route_witness); with dt, the first input is x and the
+    kernels form x * dt."""
     gen = torch.Generator(device=cuda).manual_seed(1)
-    xdt = torch.randn(B, Nc, H, Q, P, device=cuda, generator=gen) * 0.5
-    bm = torch.randn(B, Nc, H, Q, N, device=cuda, generator=gen)
-    cm = torch.randn(B, Nc, H, Q, N, device=cuda, generator=gen)
+    dt = getattr(torch, dtype)
+    xdt = (torch.randn(B, Nc, H, Q, P, device=cuda, generator=gen) * 0.5) \
+        .to(dt)
+    bm = torch.randn(B, Nc, G, Q, N, device=cuda, generator=gen).to(dt)
+    cm = torch.randn(B, Nc, G, Q, N, device=cuda, generator=gen).to(dt)
     da = torch.cumsum(-0.1 * torch.rand(B, Nc, H, Q, device=cuda,
                                         generator=gen), -1)
-    before = ssd_inner.launches
-    y, s = ssd_inner(xdt, bm, cm, da)
-    assert ssd_inner.launches == before + 1
+    dts = 0.3 + torch.rand(B, Nc, H, Q, device=cuda, generator=gen) \
+        if with_dt else None
+    before = ssd_inner.launches, ssd_inner.bf16_launches
+    y, s = ssd_inner(xdt, bm, cm, da, dts)
+    bf16 = int(dt == torch.bfloat16)
+    assert (ssd_inner.launches, ssd_inner.bf16_launches) == (
+        before[0] + 1, before[1] + bf16)
     torch.cuda.synchronize()
-    want_y, want_s = ssd_inner_plain(xdt, bm, cm, da)
+    want_y, want_s = ssd_inner_plain(xdt, bm, cm, da, dts)
+    if bf16:
+        lim_y, lim_s = bf16_limits(xdt, bm, cm, da, dts)
+        for got, want, lim in ((y, want_y, lim_y), (s, want_s, lim_s)):
+            assert bool(((got - want).abs() <= lim).all())
+        return
     for got, want in ((y, want_y), (s, want_s)):
         atol = SSD_RTOL * float(want.abs().max())
         torch.testing.assert_close(got, want, rtol=SSD_RTOL, atol=atol)
