@@ -26,7 +26,9 @@ head dim up to :data:`MAX_HEAD_DIM`.
 :func:`flash_attention` runs the plain version only for tensors on the
 CPU (which only the tests pass).  For CUDA tensors it launches a kernel
 of ``csrc/flash_attention.cu`` on the current stream or raises; any
-other device raises.  The dtype picks the kernel: float32 goes to the
+other device raises, and so does a CUDA call that would need a gradient
+(the kernels have no backward yet: :mod:`repro_torch.kernels._route`).
+The dtype picks the kernel: float32 goes to the
 SIMT kernel, bfloat16 to the tensor-core (``wgmma``) one.  It counts
 its launches in ``flash_attention.launches``.
 """
@@ -37,6 +39,7 @@ import math
 
 import torch
 
+from repro_torch.kernels._route import launches_kernel
 from repro_torch.kernels.flash_attention.build import LIB
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -97,10 +100,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: q on {q.device}, k on "
                          f"{k.device}, v on {v.device}")
-    if q.device.type == "cpu":
+    if not launches_kernel("flash_attention", q, k, v):
         return flash_attention_plain(q, k, v, causal=causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.dtype == torch.float32 and (bsz > 65535 or heads > 65535):
         raise ValueError(f"flash_attention: B = {bsz}, H = {heads}; the "
                          f"float32 kernel's grid takes at most 65535 of each")

@@ -11,4 +11,5 @@ from repro_torch.kernels._build import KernelLibrary
 LIB = KernelLibrary(
     Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu", "rmsnorm",
     {"rmsnorm": ("ptr", "ptr", "ptr", "i64", "i32", "f32", "i32", "i32",
-                 "ptr")})
+                 "ptr"),
+     "rmsnorm_route": ("ptr", "ptr", "ptr", "i64", "i32", "i32")})

@@ -5,25 +5,36 @@
 // y = x * rsqrt(mean(x^2) + eps) * gamma, computed in float32 and cast once to
 // x's dtype.  The TPU form normalises a [block_rows, D] tile per grid step in
 // VMEM; here one warp owns one row, so no block-wide reduction and no shared
-// memory are needed:
+// memory are needed.  Two routes, picked per call by rmsnorm_route():
 //
-//   pass 1  the warp reads its row, 16 bytes per lane per load (8 bf16 or 4
-//           float32 values) when D is a multiple of that width and the
-//           pointers are 16-byte aligned, else one value per lane per load,
-//           and sums the squares in float32; a shuffle tree folds the lanes.
-//   pass 2  the warp reads the row again (it is in L1/L2 after pass 1: at most
-//           32 KB for D = 8,192 in float32), multiplies by rsqrt and by gamma
-//           in float32, and writes in x's dtype.
+//   register  rows of at most 16 vectors of 16 bytes per lane (D <= 4,096 in
+//             bf16, D <= 2,048 in float32) with D a multiple of the vector
+//             width and 16-byte aligned x, gamma and out.  Built for each
+//             kV = ceil(D / (32 * kN)) vectors per lane (kN values per 16
+//             bytes).  A lane issues all of its kV x loads and kV gamma loads
+//             before any arithmetic, so a row costs one memory round trip,
+//             and the row stays in registers: x is read once.
+//   generic   everything else: pass 1 reads the row (16 bytes per lane per
+//             load where the row allows, else one value) and sums the
+//             squares; pass 2 reads it again, multiplies and writes.
 //
-// gamma is read as float32 or bf16; any leading shape is flattened to rows by
-// the wrapper; any D >= 1 works (lanes stride over the row).
+// The register route sums in the order of the generic route's vector loop
+// (aligned x and out, D a multiple of the vector) -- lane l adds the squares of
+// vectors l, l + 32, ..., values 0..kN-1 of each, one after another, then the
+// same __shfl_xor_sync tree folds the lanes -- and both form (x * r) * gamma,
+// so on such rows the two give the same bits.  The generic route's one-value
+// loop sums in another order and agrees with them to one bf16 ulp.
+//
+// Rows per block follow the row count: blocks take up to 8 warps (one row
+// each) but only as many as leave a block for every SM, so the 8 rows of a
+// decode step run on 8 SMs instead of sharing one.
 //
 // Bound on an H100 SXM: memory.  Per call the function must read x and gamma
 // once and write y once: 2 * rows * D * sizeof(x) + D * sizeof(gamma) bytes,
 // i.e. about 12.6 MB for the prefill's [4096, 768] in bf16, 3.8 us at 3.35 TB/s.
 // About 4 flops per element, two orders of magnitude below the float32 peak.
-// The design reads HBM once per element and writes once; the decode step's
-// [8, 768] rows are a single block, where launch latency sets the time.
+// A decode step's [8, D] rows move a few tens of KB: there one memory round
+// trip and the launch set the time, hence the single round trip above.
 //
 // Plain C interface for ctypes: enqueues on the given stream, does not
 // synchronise, allocates nothing and returns cudaGetLastError().
@@ -32,10 +43,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kWarps = 8;              // rows per block
-constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxWarps = 8;           // rows per block, at most
+constexpr int kMaxThreads = 32 * kMaxWarps;
+constexpr int kMaxVectors = 16;        // register route: vectors per lane
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -50,12 +64,94 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even
 }
 
+// The kN gamma values that scale one 16-byte vector of x: 8, 16 or 32 bytes,
+// loaded as one or two vector words.
+template <typename TG, int kN>
+struct GammaVec {
+  static constexpr int kBytes = kN * (int)sizeof(TG);
+  using Word = typename std::conditional<kBytes == 8, uint2, uint4>::type;
+  static constexpr int kWords = kBytes / (int)sizeof(Word);
+  Word w[kWords];
+
+  __device__ __forceinline__ void load(const TG* gamma, int v) {
+    const Word* p = reinterpret_cast<const Word*>(gamma) + (size_t)v * kWords;
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) w[i] = p[i];
+  }
+  __device__ __forceinline__ float at(int k) const {
+    return to_f32(reinterpret_cast<const TG*>(w)[k]);
+  }
+};
+
+__device__ __forceinline__ float warp_sum(float ss) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  return ss;
+}
+
+// Register route: one warp per row, kV vectors of kN values per lane.
+template <typename TX, typename TG, int kV>
+__global__ void __launch_bounds__(kMaxThreads)
+rmsnorm_regs(const TX* __restrict__ x, const TG* __restrict__ gamma,
+             TX* __restrict__ out, long long rows, int d, float eps) {
+  const long long row =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  constexpr int kN = 16 / sizeof(TX);   // values per 16-byte vector
+  const int n_vec = d / kN;
+  const uint4* xv = reinterpret_cast<const uint4*>(x + row * d);
+
+  uint4 xr[kV];
+  GammaVec<TG, kN> g[kV];
+#pragma unroll
+  for (int j = 0; j < kV; ++j) {          // every load before any arithmetic
+    const int v = lane + 32 * j;
+    if (v < n_vec) {
+      xr[j] = xv[v];
+      g[j].load(gamma, v);
+    }
+  }
+
+  float ss = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kV; ++j) {
+    if (lane + 32 * j < n_vec) {
+      const TX* a = reinterpret_cast<const TX*>(&xr[j]);
+#pragma unroll
+      for (int k = 0; k < kN; ++k) {
+        const float f = to_f32(a[k]);
+        ss += f * f;
+      }
+    }
+  }
+  ss = warp_sum(ss);
+  const float r = rsqrtf(ss / (float)d + eps);
+
+  uint4* yv = reinterpret_cast<uint4*>(out + row * d);
+#pragma unroll
+  for (int j = 0; j < kV; ++j) {
+    const int v = lane + 32 * j;
+    if (v < n_vec) {
+      const TX* a = reinterpret_cast<const TX*>(&xr[j]);
+      uint4 packed;
+      TX* b = reinterpret_cast<TX*>(&packed);
+#pragma unroll
+      for (int k = 0; k < kN; ++k)
+        b[k] = from_f32<TX>(to_f32(a[k]) * r * g[j].at(k));
+      yv[v] = packed;
+    }
+  }
+}
+
+// Generic route: one warp per row, two passes over the row.
 template <typename TX, typename TG>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_kernel(const TX* __restrict__ x, const TG* __restrict__ gamma,
-               TX* __restrict__ out, long long rows, int d, float eps,
-               bool vectorised) {
-  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+__global__ void __launch_bounds__(kMaxThreads)
+rmsnorm_generic(const TX* __restrict__ x, const TG* __restrict__ gamma,
+                TX* __restrict__ out, long long rows, int d, float eps,
+                bool vectorised) {
+  const long long row =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= rows) return;
   const int lane = threadIdx.x & 31;
   const TX* xr = x + row * d;
@@ -80,8 +176,7 @@ rmsnorm_kernel(const TX* __restrict__ x, const TG* __restrict__ gamma,
       ss += f * f;
     }
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  ss = warp_sum(ss);
   const float r = rsqrtf(ss / (float)d + eps);
 
   if (vectorised) {
@@ -103,18 +198,71 @@ rmsnorm_kernel(const TX* __restrict__ x, const TG* __restrict__ gamma,
   }
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Vectors per lane of the register route, or 0 for the generic route.
+int vectors_per_lane(const void* x, const void* gamma, const void* out, int d,
+                     int x_bytes) {
+  const int n = 16 / x_bytes;
+  if (d % n != 0 || !aligned16(x) || !aligned16(gamma) || !aligned16(out))
+    return 0;
+  const int kv = (d / n + 31) / 32;
+  return kv <= kMaxVectors ? kv : 0;
+}
+
+// Rows per block: up to kMaxWarps, fewer where that leaves an SM without a
+// block.
+int warps_per_block(long long rows) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 132;
+  }
+  int w = kMaxWarps;
+  while (w > 1 && (rows + w - 1) / w < sms) w >>= 1;
+  return w;
+}
+
+template <typename TX, typename TG, int kV>
+void launch_regs(const void* x, const void* gamma, void* out, long long rows,
+                 int d, float eps, unsigned blocks, int threads,
+                 cudaStream_t stream) {
+  rmsnorm_regs<TX, TG, kV><<<blocks, threads, 0, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TG*>(gamma),
+      static_cast<TX*>(out), rows, d, eps);
+}
+
 template <typename TX, typename TG>
 int launch(const void* x, const void* gamma, void* out, long long rows, int d,
            float eps, cudaStream_t stream) {
-  constexpr int kN = 16 / sizeof(TX);
-  const bool vectorised = d % kN == 0 &&
-                          reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                          reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const long long blocks = (rows + kWarps - 1) / kWarps;
+  const int warps = warps_per_block(rows);
+  const long long blocks = (rows + warps - 1) / warps;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  rmsnorm_kernel<TX, TG><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TG*>(gamma),
-      static_cast<TX*>(out), rows, d, eps, vectorised);
+  const unsigned nb = (unsigned)blocks;
+  const int threads = 32 * warps;
+  switch (vectors_per_lane(x, gamma, out, d, sizeof(TX))) {
+#define RMS_REGS(KV)                                                        \
+  case KV:                                                                  \
+    launch_regs<TX, TG, KV>(x, gamma, out, rows, d, eps, nb, threads,       \
+                            stream);                                        \
+    break;
+    RMS_REGS(1) RMS_REGS(2) RMS_REGS(3) RMS_REGS(4) RMS_REGS(5) RMS_REGS(6)
+    RMS_REGS(7) RMS_REGS(8) RMS_REGS(9) RMS_REGS(10) RMS_REGS(11)
+    RMS_REGS(12) RMS_REGS(13) RMS_REGS(14) RMS_REGS(15) RMS_REGS(16)
+#undef RMS_REGS
+    default: {
+      constexpr int kN = 16 / sizeof(TX);
+      const bool vectorised = d % kN == 0 && aligned16(x) && aligned16(out);
+      rmsnorm_generic<TX, TG><<<nb, threads, 0, stream>>>(
+          static_cast<const TX*>(x), static_cast<const TG*>(gamma),
+          static_cast<TX*>(out), rows, d, eps, vectorised);
+    }
+  }
   return (int)cudaGetLastError();
 }
 
@@ -136,4 +284,15 @@ extern "C" int rmsnorm(const void* x, const void* gamma, void* out,
   return g_bf16 ? launch<float, __nv_bfloat16>(x, gamma, out, rows, d, eps,
                                                stream)
                 : launch<float, float>(x, gamma, out, rows, d, eps, stream);
+}
+
+// The route rmsnorm() takes for these arguments, launching nothing:
+// 256 * kV + warps per block for the register route (kV vectors per lane),
+// warps per block alone for the generic route.  out may be NULL, which counts
+// as aligned (as the allocator's outputs are).
+extern "C" int rmsnorm_route(const void* x, const void* gamma, const void* out,
+                             long long rows, int d, int x_bf16) {
+  if (rows <= 0 || d <= 0) return 0;
+  return 256 * vectors_per_lane(x, gamma, out, d, x_bf16 ? 2 : 4) +
+         warps_per_block(rows);
 }

@@ -5,16 +5,29 @@ eps) * gamma`` over the last axis, in float32, cast once to ``x``'s
 dtype.  ``x`` is float32 or bfloat16 of any leading shape; ``gamma`` is
 ``[D]``, float32 or bfloat16.
 
+On the card the kernel takes one of two routes (:func:`route`): the
+register route, which holds a row in registers and reads it once, where
+D is a multiple of 16 bytes' worth of values, at most 16 such vectors
+per lane (D <= 4,096 in bf16, D <= 2,048 in float32), and x and gamma are
+16-byte aligned; else the generic two-pass route.  The register route
+sums in the order of the generic route's 16-byte loop, so on aligned rows
+the two give the same bits; the generic route's one-value loop (unaligned
+rows, D not a multiple of the vector) sums in another order and agrees
+to one bf16 ulp.
+
 :func:`rmsnorm_fused` runs the plain version only for tensors on the
 CPU (which only the tests pass).  For CUDA tensors it launches the
 kernel of ``csrc/rmsnorm.cu`` on the current stream or raises; any other
-device raises.  It counts its launches in ``rmsnorm_fused.launches``.
+device raises, and so does a CUDA call that would need a gradient (the
+kernel has no backward yet: :mod:`repro_torch.kernels._route`).  It
+counts its launches in ``rmsnorm_fused.launches``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._route import launches_kernel
 from repro_torch.kernels.rmsnorm.build import LIB
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -42,10 +55,8 @@ def rmsnorm_fused(x: torch.Tensor, gamma: torch.Tensor,
         raise ValueError("rmsnorm: x and gamma must be contiguous")
     if gamma.device != x.device:
         raise ValueError(f"rmsnorm: gamma on {gamma.device}, x on {x.device}")
-    if x.device.type == "cpu":
+    if not launches_kernel("rmsnorm", x, gamma):
         return rmsnorm_plain(x, gamma, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm: unsupported device {x.device}")
     d = x.shape[-1]
     if d == 0 or d >= 2**31:
         raise ValueError(f"rmsnorm: D = {d} out of range")
@@ -64,3 +75,17 @@ def rmsnorm_fused(x: torch.Tensor, gamma: torch.Tensor,
 
 
 rmsnorm_fused.launches = 0
+
+
+def route(x: torch.Tensor, gamma: torch.Tensor) -> tuple:
+    """The route :func:`rmsnorm_fused` takes on the card for these
+    CUDA tensors, launching nothing: ``("register", kV, warps)`` with kV
+    16-byte vectors per lane, or ``("generic", 0, warps)``; ``warps`` is
+    rows per block.  Assumes an output from PyTorch's allocator (16-byte
+    aligned), as the wrapper makes."""
+    d = x.shape[-1]
+    code = LIB.load().rmsnorm_route(
+        x.data_ptr(), gamma.data_ptr(), None, x.numel() // d, d,
+        int(x.dtype == torch.bfloat16))
+    kv, warps = divmod(code, 256)
+    return ("register" if kv else "generic", kv, warps)

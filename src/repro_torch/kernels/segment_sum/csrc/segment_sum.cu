@@ -16,20 +16,28 @@
 //                        result is bitwise reproducible from run to run.
 //   segment_sum_scatter  unsorted ids: the NIC injection links, the per-phase
 //                        background tail, planless phases.  One thread per
-//                        pair, atomicAdd into out; ids outside [0, n) are
-//                        skipped (the tail padding relies on it).  The order
-//                        of the atomics varies, so the sums vary in the last
-//                        bits from run to run.
+//                        pair loads the id and the value together and issues
+//                        one fire-and-forget atomic add (red.global.add.f32);
+//                        ids outside [0, n) are skipped (the tail padding
+//                        relies on it).  Blocks are one warp, so a short call
+//                        (a background tail of a few hundred pairs) spreads
+//                        over as many SMs as it has warps.  The order of the
+//                        atomics varies, so the sums vary in the last bits
+//                        from run to run.
 //
 // Both ACCUMULATE into out, so the sorted head and the scattered tail of one
 // link-load sum write the same buffer.
 //
 // Bound on an H100 SXM: memory.  A sorted call reads 4 bytes of value per pair
 // and 4 bytes of offset per segment and reads and writes 4 bytes per segment; a
-// scatter call reads 8 bytes per pair.  At 3.35 TB/s a phase's ~3-4M pairs over
-// 56,448 links come to a few microseconds, about the launch latency, so at this
-// size launch latency and not bandwidth sets the time.  The floating-point work
-// (one add per pair) is negligible.
+// scatter call reads 8 bytes per pair and reads and writes 4 bytes per link it
+// touches.  At 3.35 TB/s a phase's ~3-4M pairs over 56,448 links come to a few
+// microseconds, about the launch latency, so at this size launch latency and
+// the L2's atomic units, not bandwidth, set the time: the scatter form's
+// 120,000 NIC ids take 0.3 us of bytes, but their adds land on 4,608
+// consecutive links, 144 cache lines, about 830 adds each, and on the card
+// they take as long whatever the shape of the grid or the loads (PERF.md,
+// section 6).  The floating-point work (one add per pair) is negligible.
 //
 // Plain C interface for ctypes: every entry point enqueues on the given stream,
 // does not synchronise, allocates nothing and returns cudaGetLastError().
@@ -41,6 +49,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarpsPerBlock = kThreads / 32;
 constexpr int kMaxBlocks = 65535;
+constexpr int kScatterThreads = 32;   // scatter: one-warp blocks
 
 __global__ void segment_sum_sorted_kernel(const float* __restrict__ values,
                                           const int* __restrict__ seg_off,
@@ -61,15 +70,22 @@ __global__ void segment_sum_sorted_kernel(const float* __restrict__ values,
   }
 }
 
-__global__ void segment_sum_scatter_kernel(const float* __restrict__ values,
-                                           const int* __restrict__ ids,
-                                           long long n_pairs, int n_segments,
-                                           float* __restrict__ out) {
+// out[s] += v without reading the result back.  No "memory" clobber: the
+// kernel never reads out, so its loads may be issued ahead of its adds.
+__device__ __forceinline__ void red_add(float* p, float v) {
+  asm volatile("red.global.add.f32 [%0], %1;" ::"l"(p), "f"(v));
+}
+
+__global__ void __launch_bounds__(kScatterThreads)
+segment_sum_scatter_kernel(const float* __restrict__ values,
+                           const int* __restrict__ ids, long long n_pairs,
+                           int n_segments, float* __restrict__ out) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < n_pairs; i += stride) {
     const int s = ids[i];
-    if (s >= 0 && s < n_segments) atomicAdd(out + s, values[i]);
+    const float v = values[i];
+    if ((unsigned)s < (unsigned)n_segments) red_add(out + s, v);
   }
 }
 
@@ -95,9 +111,9 @@ extern "C" int segment_sum_scatter(const float* values, const int* ids,
                                    long long n_pairs, int n_segments,
                                    float* out, cudaStream_t stream) {
   if (n_pairs > 0) {
-    segment_sum_scatter_kernel<<<blocks_for(n_pairs, kThreads), kThreads, 0,
-                                 stream>>>(values, ids, n_pairs, n_segments,
-                                           out);
+    segment_sum_scatter_kernel<<<blocks_for(n_pairs, kScatterThreads),
+                                 kScatterThreads, 0, stream>>>(
+        values, ids, n_pairs, n_segments, out);
   }
   return (int)cudaGetLastError();
 }

@@ -12,13 +12,16 @@ accumulating float32 values into ``out`` (float32 ``[n_segments]``):
 A wrapper runs the plain version only for tensors on the CPU (which only
 the tests pass).  For CUDA tensors it launches the kernel of
 ``csrc/segment_sum.cu`` on the current stream or raises; any other
-device raises.  Each wrapper counts its launches in ``.launches``.
+device raises, and so does a CUDA call that would need a gradient (the
+kernels have no backward yet: :mod:`repro_torch.kernels._route`).  Each
+wrapper counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._route import launches_kernel
 from repro_torch.kernels.segment_sum.build import load_library
 
 
@@ -50,13 +53,6 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} is on {t.device}, values on {device}")
 
 
-def _device_kind(values: torch.Tensor) -> str:
-    kind = values.device.type
-    if kind not in ("cpu", "cuda"):
-        raise ValueError(f"segment sum: unsupported device {values.device}")
-    return kind
-
-
 def _raise_on(err: int, what: str) -> None:
     if err:
         raise RuntimeError(f"{what}: CUDA error {err}")
@@ -70,7 +66,7 @@ def segment_sum_sorted(values: torch.Tensor, seg_off: torch.Tensor,
     _check("out", out, torch.float32, values.device)
     if seg_off.shape[0] != out.shape[0] + 1:
         raise ValueError("seg_off must have n_segments + 1 entries")
-    if _device_kind(values) == "cpu":
+    if not launches_kernel("segment_sum_sorted", values, out):
         return segment_sum_sorted_plain(values, seg_off, out)
     if values.shape[0] >= 2**31:
         raise ValueError("segment_sum_sorted takes fewer than 2**31 values")
@@ -92,7 +88,7 @@ def segment_sum_scatter(values: torch.Tensor, ids: torch.Tensor,
     _check("out", out, torch.float32, values.device)
     if ids.shape[0] != values.shape[0]:
         raise ValueError("ids and values differ in length")
-    if _device_kind(values) == "cpu":
+    if not launches_kernel("segment_sum_scatter", values, out):
         return segment_sum_scatter_plain(values, ids, out)
     if values.shape[0] == 0 or out.shape[0] == 0:
         return out

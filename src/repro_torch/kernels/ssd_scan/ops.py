@@ -31,7 +31,9 @@ passes).
 
 Mixed dtypes raise.  :func:`ssd_inner` runs the plain version of its
 route only for tensors on the CPU (which only the tests pass), launches
-a kernel of ``csrc/ssd_scan.cu`` for CUDA tensors or raises, and counts
+a kernel of ``csrc/ssd_scan.cu`` for CUDA tensors or raises (also
+where an input needs a gradient: the kernels have no backward yet,
+:mod:`repro_torch.kernels._route`), and counts
 its launches in ``ssd_inner.launches`` (those of the tensor-core kernel
 also in ``ssd_inner.bf16_launches``).  :func:`ssd_scan_op` adds the
 chunk reshape, the cumulative decay, the cross-chunk state recurrence
@@ -45,6 +47,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels._route import launches_kernel
 from repro_torch.kernels.ssd_scan.build import LIB
 
 #: the kernels' tile limits (``csrc/ssd_scan.cu``)
@@ -153,10 +156,8 @@ def ssd_inner(xdt: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
         if t.device != xdt.device:
             raise ValueError(f"ssd_inner: {name} on {t.device}, xdt on "
                              f"{xdt.device}")
-    if xdt.device.type == "cpu":
+    if not launches_kernel("ssd_inner", xdt, b_mat, c_mat, dacum, dt):
         return ssd_inner_plain(xdt, b_mat, c_mat, dacum, dt)
-    if xdt.device.type != "cuda":
-        raise ValueError(f"ssd_inner: unsupported device {xdt.device}")
     if not (1 <= q <= MAX_Q and 1 <= n <= MAX_N and 1 <= p <= MAX_P):
         raise ValueError(f"ssd_inner: Q={q}, N={n}, P={p}; the kernel "
                          f"takes Q <= {MAX_Q}, N <= {MAX_N}, P <= {MAX_P}")

@@ -12,7 +12,9 @@ temperature.  The engine runs on the CUDA card unless given
 
 Sampling draws from a ``torch.Generator`` seeded from ``run``'s
 ``seed``; it cannot match the reference's ``jax.random`` draws token for
-token, only in distribution.  Greedy decoding matches exactly.
+token, only in distribution (:func:`sampling_probs`, :func:`next_tokens`;
+tests/test_torch_serve.py holds both against the reference).  Greedy
+decoding matches exactly.
 
 Routing the prefill->decode KV transfer through a communication policy
 (``ServeConfig.comm_policy``, a shared ``comm_engine``,
@@ -62,6 +64,26 @@ def route_kv_transfer(*args, **kwargs):
     raise NotImplementedError(_POLICY_PENDING)
 
 
+def sampling_probs(lg: torch.Tensor, temperature: float) -> torch.Tensor:
+    """The distribution a sampled step draws from: ``softmax(lg /
+    max(T, 1e-6))`` over the last axis of float32 logits ``lg`` (the
+    reference's ``jax.random.categorical`` argument)."""
+    return torch.softmax(lg / max(temperature, 1e-6), dim=-1)
+
+
+def next_tokens(lg: torch.Tensor, temperature: float,
+                gen: torch.Generator) -> torch.Tensor:
+    """``[B]`` int32 tokens from float32 logits ``lg`` ``[B, V]`` (the
+    vocabulary without its padding): the argmax at temperature 0, else a
+    draw from :func:`sampling_probs` with ``gen``."""
+    if temperature > 0:
+        probs = sampling_probs(lg, temperature)
+        tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
+    else:
+        tok = torch.argmax(lg, dim=-1)
+    return tok.to(torch.int32)
+
+
 def make_serve_step(cfg: ModelConfig):
     """One-token decode step: ``(model, token, state, temperature,
     generator) -> (token [B,1] int32, state)``."""
@@ -70,12 +92,7 @@ def make_serve_step(cfg: ModelConfig):
              gen: torch.Generator):
         logits, state = model_registry.decode_step(model, token, cfg, state)
         lg = logits[:, -1, :cfg.vocab].float()          # drop vocab pad
-        if temperature > 0:
-            probs = torch.softmax(lg / max(temperature, 1e-6), dim=-1)
-            tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
-        else:
-            tok = torch.argmax(lg, dim=-1)
-        return tok.to(torch.int32)[:, None], state
+        return next_tokens(lg, temperature, gen)[:, None], state
 
     return step
 

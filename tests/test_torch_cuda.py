@@ -46,6 +46,7 @@ from repro_torch.configs.mamba2_130m import SMOKE
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm_fused, rmsnorm_plain
+from repro_torch.kernels.rmsnorm.ops import route as rms_route
 from repro_torch.kernels.ssd_scan import ssd_inner, ssd_inner_plain
 from repro_torch.kernels.ssd_scan.ops import bf16_limits
 from repro_torch.kernels.segment_sum import (segment_sum_scatter,
@@ -133,6 +134,39 @@ def test_sorted_form_is_deterministic(cuda):
     assert all(torch.equal(runs[0], r) for r in runs[1:])
 
 
+@pytest.mark.parametrize("start", [0, 1, 3])
+@pytest.mark.parametrize("length", list(range(1, 10)))
+def test_scatter_slices_match_plain(cuda, start, length):
+    """Lengths 1-9 at offsets 0, 1 and 3 of 16-byte aligned buffers (one
+    partial warp), with out-of-range ids among the pairs."""
+    rng = np.random.default_rng(10 * start + length)
+    ids = torch.from_numpy(rng.integers(-3, 11, size=16).astype(np.int32))
+    vals = torch.from_numpy(rng.random(16).astype(np.float32))
+    ids, vals = ids.to(cuda), vals.to(cuda)
+    v, i = vals[start:start + length], ids[start:start + length]
+    got = segment_sum_scatter(v, i, torch.zeros(8, device=cuda))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, segment_sum_scatter_plain(v, i, torch.zeros(8, device=cuda)),
+        rtol=TOL, atol=TOL)
+
+
+def test_scatter_with_ids_and_values_off_each_others_alignment(cuda):
+    """ids and values at different offsets from a 16-byte boundary, with
+    repeated and out-of-range ids."""
+    rng = np.random.default_rng(11)
+    ids = torch.from_numpy(rng.integers(-2, 40, size=5001).astype(np.int32))
+    vals = torch.from_numpy(rng.random(5001).astype(np.float32))
+    ids, vals = ids.to(cuda)[1:], vals.to(cuda)[:-1].contiguous()[2:]
+    ids = ids[:vals.shape[0]]
+    got = segment_sum_scatter(vals, ids, torch.zeros(37, device=cuda))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, segment_sum_scatter_plain(vals, ids, torch.zeros(37,
+                                                              device=cuda)),
+        rtol=TOL, atol=TOL)
+
+
 @pytest.mark.parametrize("use_plan", [False, True])
 def test_phase_on_the_card_matches_the_cpu(cuda, use_plan):
     topo = small_topology("aries")
@@ -161,8 +195,17 @@ def test_phase_on_the_card_matches_the_cpu(cuda, use_plan):
     ((3, 5, 100), torch.bfloat16, torch.float32),    # D not a multiple of 8
     ((2, 8192), torch.float32, torch.float32),
     ((7, 8191), torch.float32, torch.bfloat16),
+    ((8, 1536), torch.bfloat16, torch.bfloat16),     # decode, qwen2-1.5b
+    ((16, 4096), torch.bfloat16, torch.bfloat16),    # 16 vectors per lane
+    ((16, 4096), torch.bfloat16, torch.float32),
+    ((5, 264), torch.bfloat16, torch.bfloat16),      # part of a lane empty
+    ((5, 264), torch.float32, torch.bfloat16),
+    ((4100, 768), torch.float32, torch.float32),
 ])
 def test_rmsnorm_kernel_matches_plain(cuda, shape, xdtype, gdtype):
+    """Both routes against the plain version: the register route (every
+    shape whose D is a multiple of 16 bytes, up to 16 vectors per lane),
+    the generic one for the rest."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(shape, device=cuda, generator=gen).to(xdtype)
     gamma = (1 + 0.5 * torch.randn(shape[-1], device=cuda,
@@ -178,6 +221,33 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, xdtype, gdtype):
     else:
         torch.testing.assert_close(got.float(), want.float(),
                                    rtol=BF16_RTOL, atol=0.0)
+
+
+@pytest.mark.parametrize("shape,kv", [((4096, 768), 3), ((8, 1536), 6),
+                                      ((16, 4096), 16), ((5, 264), 2)])
+def test_rmsnorm_routes_match_plain(cuda, shape, kv):
+    """The register route at the serving shapes and at 16 and 2 vectors
+    per lane; x one element off a 16-byte boundary takes the generic
+    route (its one-value loop sums in another order than the vector
+    loop); both match the plain version.  Few rows spread one per
+    block."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(shape, device=cuda, generator=gen).to(torch.bfloat16)
+    gamma = (1 + 0.5 * torch.randn(shape[-1], device=cuda,
+                                   generator=gen)).to(torch.bfloat16)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    shifted = buf[1:].view(shape)
+    shifted.copy_(x)
+    route, kv_got, warps = rms_route(x, gamma)
+    assert (route, kv_got) == ("register", kv)
+    assert warps == (1 if shape[0] <= 132 else 8)
+    assert rms_route(shifted, gamma)[0] == "generic"
+    got, got_generic = rmsnorm_fused(x, gamma), rmsnorm_fused(shifted, gamma)
+    torch.cuda.synchronize()
+    want = rmsnorm_plain(x, gamma).float()
+    for out in (got, got_generic):
+        torch.testing.assert_close(out.float(), want, rtol=BF16_RTOL,
+                                   atol=0.0)
 
 
 @pytest.mark.parametrize("with_dt", [False, True])

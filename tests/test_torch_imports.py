@@ -52,3 +52,14 @@ def test_resolve_device_rejects_other_devices():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_runtime_is_a_package_that_keeps_its_names():
+    """``repro_torch.runtime`` takes the reference's package path
+    (``repro/runtime/``) and still exports what the port imports."""
+    import repro_torch.runtime as runtime
+    assert hasattr(runtime, "__path__")            # a package, not a module
+    assert runtime.__file__.endswith("__init__.py")
+    assert runtime.HOPPER == (9, 0)
+    assert runtime.resolve_device is resolve_device
+    assert callable(runtime.on_hopper)

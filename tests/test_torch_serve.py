@@ -26,7 +26,8 @@ from repro_torch.models.common import Family
 from repro_torch.models.convert import (dense_lm_from_reference,
                                         ssm_lm_from_reference)
 from repro_torch.serve import Request, ServeConfig, ServeEngine
-from repro_torch.serve.engine import route_kv_transfer
+from repro_torch.serve.engine import (next_tokens, route_kv_transfer,
+                                      sampling_probs)
 
 PROMPTS = [[5, 17, 3, 99, 250, 7, 8], [11, 12], [300, 301, 302, 303, 1]]
 NEW = [6, 4, 5]
@@ -87,6 +88,50 @@ def test_sampling_is_seeded(weights):
     a, b = run(3), run(3)
     assert a == b
     assert all(0 <= t < tc.vocab for toks in a for t in toks)
+
+
+def _reference_probs(lg: np.ndarray, temperature: float) -> np.ndarray:
+    """The distribution the reference step draws from:
+    ``jax.random.categorical(rng, lg / max(T, 1e-6))``."""
+    return np.asarray(jax.nn.softmax(
+        jnp.asarray(lg) / jnp.maximum(jnp.float32(temperature), 1e-6),
+        axis=-1))
+
+
+@pytest.mark.parametrize("temperature", [0.3, 0.8, 1.5])
+def test_sampling_probs_match_the_reference(temperature):
+    """Temperature scaling and softmax over the unpadded vocabulary, on
+    the same numpy-seeded float32 logits, at rtol 1e-6."""
+    rng = np.random.default_rng(21)
+    lg = (2.0 * rng.standard_normal((4, 97))).astype(np.float32)
+    got = sampling_probs(torch.from_numpy(lg), temperature)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _reference_probs(lg, temperature),
+                               rtol=1e-6, atol=0.0)
+
+
+def test_sampled_frequencies_follow_the_reference_probs():
+    """20,000 seeded draws over 16 categories: each frequency within 5
+    standard errors of the reference's probability.  The seed is fixed,
+    so the outcome is fixed."""
+    n, temperature = 20_000, 0.8
+    rng = np.random.default_rng(22)
+    lg = rng.standard_normal(16).astype(np.float32)
+    p = _reference_probs(lg, temperature).astype(np.float64)
+    gen = torch.Generator().manual_seed(5)
+    toks = next_tokens(torch.from_numpy(np.tile(lg, (n, 1))), temperature,
+                       gen)
+    assert toks.dtype == torch.int32 and toks.shape == (n,)
+    freq = np.bincount(toks.numpy(), minlength=16) / n
+    se = np.sqrt(p * (1 - p) / n)
+    assert np.all(np.abs(freq - p) <= 5 * se), np.abs(freq - p) / se
+
+
+def test_temperature_zero_is_greedy():
+    rng = np.random.default_rng(23)
+    lg = torch.from_numpy(rng.standard_normal((6, 40)).astype(np.float32))
+    got = next_tokens(lg, 0.0, torch.Generator().manual_seed(0))
+    assert got.tolist() == torch.argmax(lg, dim=-1).tolist()
 
 
 def test_comm_policy_is_refused(weights):
