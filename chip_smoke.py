@@ -15,7 +15,14 @@ Drives the port's three main paths on the card at full width:
   tokens each, greedy;
 * the dense serving path: qwen2-1.5b at its published width (28 layers,
   d_model 1536, 12 heads over 2 KV heads of 128, d_ff 8960, vocab
-  151,936; random weights from a seed), the same requests.
+  151,936; random weights from a seed), the same requests;
+* the paper's §5 protocol with Algorithm 1: fig8's Piz-Daint
+  configuration (``repro_torch.benchmarks.fig8_microbench.run``: the
+  same machine, 1,024 ranks over 6 groups, ``max_flows`` 60,000, planned
+  phases), ADAPTIVE, HIGH BIAS and application-aware routing alternating
+  for 8 iterations, on its ``allreduce`` 262,144-element row (10 phases
+  of 1,024 flows) and its ``alltoall`` 65,536-byte row (1,047,552 flows
+  cut to 60,000).
 
 Phases:
 
@@ -23,8 +30,8 @@ Phases:
 2. build of every kernel library (one ``nvcc`` per source, all started
    together), and a probe of the flash and SSD libraries' SASS for
    ``HGMMA`` (the tensor-core ``wgmma`` of their bf16 kernels);
-3. the segment-sum kernels against their plain PyTorch versions on the
-   card, at the simulator path's shapes (the scatter form also on
+3. the segment-sum kernels against their plain PyTorch versions' sums
+   in float64 on the card, at the simulator path's shapes (the scatter form also on
    slices that start off a 16-byte boundary), with the ids per link the
    scatter form meets, their times (the scatter form's at the NIC and
    background-tail shapes), the plain versions', PyTorch library calls'
@@ -62,7 +69,22 @@ Phases:
    calls) and its bound; B4 at that serve's shapes, as in phase 6;
 10. the dense serving path as phase 7: qwen2-1.5b, every prefill and
     decode step checked for its kernel launches, then profiled;
-11. as phase 8 for qwen2-1.5b at 28 layers and at 2.
+11. as phase 8 for qwen2-1.5b at 28 layers and at 2;
+12. the §5 protocol: B1 against its plain versions (as in phase 3) on
+    the last allreduce phase and the subsampled alltoall phase of two
+    app-aware iterations, with the modes Algorithm 1 chose; then the
+    protocol through the port's fig8 benchmark, every phase checked
+    for a planned phase's B1 launches; per row and arm the median time,
+    the normalised median, Algorithm 1's share of default-routed
+    traffic, wall seconds per iteration and the shares of it spent in
+    ``engine.decide`` and in ``run_phase`` (``trace_protocol``'s
+    records); one app-aware alltoall iteration under
+    ``torch.profiler``; then the same seeded rows (allreduce at 2
+    iterations, alltoall at 1) on the CPU: the card's run, anchored to
+    the CPU run's carried state before each phase, must keep its
+    generator in lockstep, leave the CPU run's carried state before each
+    phase, agree on phase and median times at rtol 2e-2 and choose the
+    same modes under the tie rule (``repro_torch.benchmarks.parity``).
 
 Prints the kernel summary as one JSON line, then the ``ok`` line last.
 Any failed check exits non-zero; so does a machine without CUDA, and a
@@ -73,6 +95,7 @@ directory without the rest of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -85,11 +108,17 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.benchmarks import fig8_microbench as fig8  # noqa: E402
+from repro_torch.benchmarks.common import (DAINT, MODE_LABEL,  # noqa: E402
+                                           bench_topology, group_spread)
+from repro_torch.benchmarks.parity import (compare_traces,  # noqa: E402
+                                           mode_counts, trace_protocol)
 from repro_torch.core.strategies import RoutingMode  # noqa: E402
 from repro_torch.dragonfly import (DragonflySimulator, DragonflyTopology,  # noqa: E402
                                    RoutingPolicy, SimParams, TopologyParams,
                                    make_allocation)
 from repro_torch.dragonfly import torch_backend  # noqa: E402
+from repro_torch.dragonfly import traffic  # noqa: E402
 from repro_torch.faults import FaultSchedule, link_down  # noqa: E402
 from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2  # noqa: E402
 from repro_torch.configs.qwen2_1_5b import CONFIG as QWEN2  # noqa: E402
@@ -111,6 +140,7 @@ from repro_torch.models import attention as model_attention  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.models import mamba2 as model_mamba2  # noqa: E402
 from repro_torch.models import registry as model_registry  # noqa: E402
+from repro_torch.policy import PolicyEngine  # noqa: E402
 from repro_torch.runtime import on_hopper  # noqa: E402
 from repro_torch.serve import Request, ServeConfig, ServeEngine  # noqa: E402
 
@@ -118,9 +148,10 @@ N_GROUPS = 12
 N_FLOWS = 120_000
 FEEDBACK_ITERS = 4
 TIMED_PHASES = 5
-#: kernel vs plain version: float32 sums of positive values in another
-#: order (and, for the scatter form, in atomic order) — a relative error
-#: of a few 1e-7 per term over segments of tens to hundreds of terms
+#: kernel vs the plain version's float64 sums: float32 sums of positive
+#: values (the sorted form's 32 lane sums, then a tree; the scatter
+#: form's in atomic order) — a relative error of a few 1e-7 per term
+#: over a lane's share of a segment
 KERNEL_RTOL = 1e-5
 #: target for the scatter form's time by graph replay at the NIC shape:
 #: reported, not enforced (a miss goes into PERF.md)
@@ -347,33 +378,94 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max())
 
 
-def hold(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    """Kernel result vs plain result on the same inputs."""
+def hold(name: str, got: torch.Tensor, plain) -> float:
+    """Kernel result vs the plain version on the same inputs, which
+    ``plain(dtype)`` computes with the values and the output in
+    ``dtype``: the kernel is held against the float64 sums; the float32
+    plain version's own distance from them is printed beside."""
+    want = plain(torch.float64)
+    want32 = plain(torch.float32)
     torch.cuda.synchronize()
-    err = max_err(got, want)
+    err = max_err(got.double(), want)
     tol = KERNEL_RTOL * float(want.abs().max())
-    ok = bool(torch.allclose(got, want, rtol=KERNEL_RTOL, atol=tol))
-    print(f"  {name}: max_abs_err {err:.3e} (rtol {KERNEL_RTOL}, "
-          f"atol {tol:.3e}) {'ok' if ok else 'MISMATCH'}")
+    ok = bool(torch.allclose(got.double(), want, rtol=KERNEL_RTOL, atol=tol))
+    print(f"  {name}: max_abs_err {err:.3e} against the float64 sums "
+          f"(rtol {KERNEL_RTOL}, atol {tol:.3e}; the float32 plain "
+          f"version's {max_err(want32.double(), want):.3e}) "
+          f"{'ok' if ok else 'MISMATCH'}")
     check(ok, f"{name} disagrees with its plain version")
     return err
 
 
+def sorted_plain(values, seg_off, n: int):
+    return lambda dt: segment_sum_sorted_plain(
+        values.to(dt), seg_off, torch.zeros(n, dtype=dt,
+                                            device=values.device))
+
+
+def scatter_plain(values, ids, n: int):
+    return lambda dt: segment_sum_scatter_plain(
+        values.to(dt), ids, torch.zeros(n, dtype=dt, device=values.device))
+
+
 # ------------------------------------------------------------ phase 3
-def kernel_checks(x: dict, n_links: int) -> list:
-    """Both kernel forms against their plain versions at the shapes of
-    one planned phase ``x`` (prepared pipeline inputs)."""
+def b1_parts(x: dict) -> dict:
+    """The pairs one phase ``x`` (prepared pipeline inputs) hands B1: the
+    spray values over every pair, cut into the plan-sorted head and the
+    background tail, and the NIC ids with their values."""
     dev = x["size_all"].device
     n_all, ncand = x["safe"].shape[0], x["safe"].shape[1]
     w = torch.full((n_all, ncand), 1.0 / ncand, device=dev)
     vals = ((x["size_all"][:, None] * w).reshape(-1)[x["pair_fc"]]
             .contiguous())
+    p_sorted = x["p_sorted"]
+    return dict(vals=vals, head=vals[:p_sorted], tail=vals[p_sorted:],
+                tail_ids=x["pair_links"][p_sorted:], nic_ids=x["nic_ids"],
+                nic_vals=torch.minimum(x["size_all"],
+                                       x["cap_window"][x["nic_ids"]]))
+
+
+def b1_holds(x: dict, n_links: int, what: str) -> tuple:
+    """Both forms of B1 against their plain versions on phase ``x``'s
+    pairs: the sorted head, the NIC ids, the tail, and head and tail
+    summed into one buffer.  Returns the sorted and scatter forms'
+    largest errors."""
+    b = b1_parts(x)
+    seg_off, dev = x["seg_off"], b["vals"].device
+
+    def zeros():
+        return torch.zeros(n_links, device=dev)
+
+    err_sorted = hold(f"{what}sorted head",
+                      segment_sum_sorted(b["head"], seg_off, zeros()),
+                      sorted_plain(b["head"], seg_off, n_links))
+    err_scatter = hold(
+        f"{what}scatter NIC ids",
+        segment_sum_scatter(b["nic_vals"], b["nic_ids"], zeros()),
+        scatter_plain(b["nic_vals"], b["nic_ids"], n_links))
+    err_scatter = max(err_scatter, hold(
+        f"{what}scatter background tail (bucket-padded)",
+        segment_sum_scatter(b["tail"], b["tail_ids"], zeros()),
+        scatter_plain(b["tail"], b["tail_ids"], n_links)))
+    # one buffer for head and tail = the plain sum over every pair
+    both = segment_sum_scatter(b["tail"], b["tail_ids"], segment_sum_sorted(
+        b["head"], seg_off, zeros()))
+    err_sorted = max(err_sorted, hold(
+        f"{what}sorted head + scatter tail into one buffer", both,
+        scatter_plain(b["vals"], x["pair_links"], n_links)))
+    return err_sorted, err_scatter
+
+
+def kernel_checks(x: dict, n_links: int) -> list:
+    """Both kernel forms against their plain versions at the shapes of
+    one planned phase ``x`` (prepared pipeline inputs)."""
+    b = b1_parts(x)
+    dev = b["vals"].device
+    head, tail, tail_ids = b["head"], b["tail"], b["tail_ids"]
+    nic_ids, nic_vals = b["nic_ids"], b["nic_vals"]
     p_sorted, seg_off = x["p_sorted"], x["seg_off"]
-    head, tail = vals[:p_sorted], vals[p_sorted:]
-    tail_ids = x["pair_links"][p_sorted:]
     head_ids = x["pair_links"][:p_sorted].long()
-    nic_ids = x["nic_ids"]
-    nic_vals = torch.minimum(x["size_all"], x["cap_window"][nic_ids])
+    n_all = nic_ids.shape[0]
 
     def zeros():
         return torch.zeros(n_links, device=dev)
@@ -381,12 +473,10 @@ def kernel_checks(x: dict, n_links: int) -> list:
     print(f"phase 3: kernels vs plain on the card (P = {p_sorted} sorted "
           f"pairs, {tail.shape[0]} tail pairs, {n_all} NIC ids, "
           f"{n_links} segments)")
-    # sorted form: the plan-pinned head; real offsets have empty segments
+    # real offsets have empty segments
     n_empty = int((seg_off[1:] == seg_off[:-1]).sum())
     check(n_empty > 0, "the main path's offsets have no empty segment")
-    err_sorted = hold("sorted head",
-                      segment_sum_sorted(head, seg_off, zeros()),
-                      segment_sum_sorted_plain(head, seg_off, zeros()))
+    err_sorted, err_scatter = b1_holds(x, n_links, "")
     # a handful of segments, most of them empty
     few_off = torch.tensor([0, 0, 3, 3, 3, 7, 7], dtype=torch.int32,
                            device=dev)
@@ -394,15 +484,8 @@ def kernel_checks(x: dict, n_links: int) -> list:
     err_sorted = max(err_sorted, hold(
         "sorted, empty segments",
         segment_sum_sorted(few, few_off, torch.zeros(6, device=dev)),
-        segment_sum_sorted_plain(few, few_off, torch.zeros(6, device=dev))))
-    # scatter form: the NIC ids, the padded tail, out-of-range ids
-    err_scatter = hold("scatter NIC ids",
-                       segment_sum_scatter(nic_vals, nic_ids, zeros()),
-                       segment_sum_scatter_plain(nic_vals, nic_ids, zeros()))
-    err_scatter = max(err_scatter, hold(
-        "scatter background tail (bucket-padded)",
-        segment_sum_scatter(tail, tail_ids, zeros()),
-        segment_sum_scatter_plain(tail, tail_ids, zeros())))
+        sorted_plain(few, few_off, 6)))
+    # out-of-range ids vanish
     rng = np.random.default_rng(0)
     bad_ids = torch.from_numpy(rng.choice(
         np.array([-5, -1, n_links, n_links + 7, 3, 17], dtype=np.int32),
@@ -410,13 +493,7 @@ def kernel_checks(x: dict, n_links: int) -> list:
     err_scatter = max(err_scatter, hold(
         "scatter, out-of-range ids",
         segment_sum_scatter(nic_vals, bad_ids, zeros()),
-        segment_sum_scatter_plain(nic_vals, bad_ids, zeros())))
-    # one buffer for head and tail = the plain sum over every pair
-    both = segment_sum_scatter(tail, tail_ids,
-                               segment_sum_sorted(head, seg_off, zeros()))
-    err_sorted = max(err_sorted, hold(
-        "sorted head + scatter tail into one buffer", both,
-        segment_sum_scatter_plain(vals, x["pair_links"], zeros())))
+        scatter_plain(nic_vals, bad_ids, n_links)))
 
     # odd-length slices at an odd offset
     for start, length in ((1, 9), (3, 5), (1, 1)):
@@ -424,9 +501,8 @@ def kernel_checks(x: dict, n_links: int) -> list:
             f"scatter, NIC slice [{start}:{start + length}]",
             segment_sum_scatter(nic_vals[start:start + length],
                                 nic_ids[start:start + length], zeros()),
-            segment_sum_scatter_plain(nic_vals[start:start + length],
-                                      nic_ids[start:start + length],
-                                      zeros())))
+            scatter_plain(nic_vals[start:start + length],
+                          nic_ids[start:start + length], n_links)))
 
     # the ids per link the scatter form's atomics meet
     tail_keep = (tail_ids >= 0) & (tail_ids < n_links)
@@ -1085,6 +1161,216 @@ def cpu_compare(cfg, cuda) -> None:
     check(ok, "card and CPU logits disagree in bf16 at 2 layers")
 
 
+# ----------------------------------------------------------- phase 12
+#: fig8's Piz-Daint rows that phase 12 drives, as
+#: ``repro_torch.benchmarks.fig8_microbench.run`` defines the machine:
+#: 1,024 ranks over 6 of 12 groups, SimParams(seed=0, max_flows=60,000),
+#: planned phases, arms ADAPTIVE_0, ADAPTIVE_3 and "app_aware"
+PROTOCOL_ROWS = {"allreduce": dict(elements=262144),
+                 "alltoall": dict(size_per_pair=65536)}
+PROTOCOL_ITERS = 8
+PROTOCOL_MAX_FLOWS = 60_000
+#: the card-vs-CPU check's iterations per row
+PROTOCOL_CPU_ITERS = {"allreduce": 2, "alltoall": 1}
+#: fig8's DAINT machine (None); rehearsals pass a small spec
+PROTOCOL_TOPOLOGY = None
+#: the adaptive arm (fig8's default policy)
+POLICY_ARM = "app_aware"
+
+
+def protocol_setup(cuda, bench: str):
+    """fig8's machine, allocation and phases for one row, a fresh
+    seed-0 simulator on the card and an engine for the adaptive arm."""
+    topo = bench_topology(PROTOCOL_TOPOLOGY, DAINT)
+    n_ranks = min(1024, topo.n_nodes)
+    sim = DragonflySimulator(topo, SimParams(
+        seed=0, max_flows=PROTOCOL_MAX_FLOWS), device=cuda)
+    alloc = make_allocation(topo, n_ranks, spread=group_spread(topo, 6),
+                            seed=0)
+    phases = traffic.PATTERNS[bench](n_ranks, **PROTOCOL_ROWS[bench])
+    return sim, alloc, phases, traffic.engine_for_arm(POLICY_ARM, sim)
+
+
+def engine_iteration(sim, alloc, phases, engine, bench: str):
+    return traffic.run_iteration_engine(
+        sim, alloc, phases, engine, site=bench,
+        kind=traffic.PATTERN_KIND[bench], use_plans=True)
+
+
+def protocol_kernel_checks(cuda, n_links: int) -> tuple:
+    """B1 against its plain versions at the protocol's shapes, with the
+    modes Algorithm 1 chose: the last phase of two app-aware iterations
+    of each row (an allreduce phase of 1,024 flows; the alltoall's
+    subsampled phase, whose NIC ids crowd onto the allocation's links),
+    rebuilt on the probe simulator that ran them.  Returns the sorted
+    and scatter forms' largest errors."""
+    errs = (0.0, 0.0)
+    for bench in PROTOCOL_ROWS:
+        sim, alloc, phases, engine = protocol_setup(cuda, bench)
+        seen = []
+        with trace_protocol(DragonflySimulator, PolicyEngine,
+                            on_phase=lambda s, a, k, r: seen.append((a, k))):
+            for _ in range(2):
+                engine_iteration(sim, alloc, phases, engine, bench)
+        args, kwargs = seen[-1]
+        check(kwargs.get("modes") is not None and kwargs.get("plan")
+              is not None, f"{bench}: the phase carried no modes or plan")
+        x = torch_backend._prepare_inputs(sim, sim._phase_begin(*args,
+                                                                **kwargs))
+        modes = ", ".join(f"{m} x {n}" for m, n in
+                          mode_counts(kwargs["modes"]))
+        lens = x["seg_off"][1:] - x["seg_off"][:-1]
+        print(f"  {bench} phase: {x['nic_ids'].shape[0]} NIC ids, modes "
+              f"{modes}; P = {x['p_sorted']} sorted pairs over "
+              f"{int((lens > 0).sum())} links (at most {int(lens.max())} "
+              f"on one), {x['pair_links'].shape[0] - x['p_sorted']} tail "
+              f"pairs")
+        errs = tuple(max(e, f) for e, f in zip(
+            errs, b1_holds(x, n_links, f"{bench} ")))
+    return errs
+
+
+@contextlib.contextmanager
+def protocol_timers(want: tuple):
+    """Wall time per arm of the protocol's iterations and, from
+    ``trace_protocol``'s records, of the ``engine.decide`` and
+    ``run_phase`` calls inside them (the recording's own time taken
+    out); every phase's B1 launches are checked against ``want`` (a
+    planned phase's)."""
+    stats: dict = {}
+    saved = (traffic.run_iteration, traffic.run_iteration_engine)
+    last = [launches()]
+
+    def timed(fn, label_of):
+        def iteration(sim, alloc, phases, arm, **kw):
+            st = stats.setdefault(label_of(arm), dict.fromkeys(
+                ("iters", "phases", "wall_s", "decide_s", "run_phase_s"), 0))
+            first = len(trace.phases)
+            t0 = time.perf_counter()
+            res = fn(sim, alloc, phases, arm, **kw)
+            wall = time.perf_counter() - t0
+            recs = trace.phases[first:]
+            st["wall_s"] += wall - sum(r.trace_s for r in recs)
+            st["iters"] += 1
+            st["phases"] += len(recs)
+            st["decide_s"] += sum(r.decide_s for r in recs)
+            st["run_phase_s"] += sum(r.run_phase_s for r in recs)
+            return res
+        return iteration
+
+    def check_launches(sim, args, kwargs, res):
+        now = launches()
+        got = tuple(a - b for a, b in zip(now, last[0]))
+        last[0] = now
+        check(got == want, f"protocol phase: launches {got}, want {want}")
+
+    traffic.run_iteration = timed(saved[0], lambda pol: MODE_LABEL[pol.mode])
+    traffic.run_iteration_engine = timed(
+        saved[1], lambda eng: MODE_LABEL[POLICY_ARM])
+    try:
+        with trace_protocol(DragonflySimulator, PolicyEngine,
+                            on_phase=check_launches) as trace:
+            yield stats
+    finally:
+        traffic.run_iteration, traffic.run_iteration_engine = saved
+
+
+def protocol_path(cuda, want: tuple) -> dict:
+    """Phase 12: fig8's two rows on the card, every phase's B1 launches
+    checked; per row and arm the median time, the normalised median,
+    Algorithm 1's share of default-routed traffic, wall seconds per
+    iteration and the shares of it in decide() and run_phase()."""
+    out = {}
+    for bench, args in PROTOCOL_ROWS.items():
+        with protocol_timers(want) as stats:
+            t0 = time.perf_counter()
+            (key, row), = fig8.run(
+                "daint", iters=PROTOCOL_ITERS, seed=0,
+                max_flows=PROTOCOL_MAX_FLOWS, policy=POLICY_ARM,
+                topology=PROTOCOL_TOPOLOGY, sweep={bench: [args]},
+                device=cuda).items()
+            wall = time.perf_counter() - t0
+        print(f"  fig8.{key}: {wall:.2f} s wall, {PROTOCOL_ITERS} "
+              f"iterations x 3 arms, policy_pct_default_traffic "
+              f"{row['policy_pct_default_traffic']:.1f}")
+        for label, st in stats.items():
+            med = row["default_median_us"] * row[label]["norm_median"]
+            per_iter = st["wall_s"] / st["iters"]
+            st.update(median_time_us=med,
+                      norm_median=row[label]["norm_median"],
+                      wall_s_per_iter=per_iter,
+                      decide_share=st["decide_s"] / st["wall_s"],
+                      run_phase_share=st["run_phase_s"] / st["wall_s"])
+            print(f"    {label:9s} median time_us {med:.3f} norm "
+                  f"{row[label]['norm_median']:.4f}; {per_iter:.4f} s per "
+                  f"iteration ({st['phases'] // st['iters']} phases), "
+                  f"decide {st['decide_share']:.4f}, run_phase "
+                  f"{st['run_phase_share']:.4f} of it")
+            check(np.isfinite(med) and med > 0, f"fig8.{key}.{label}: {med}")
+        out[key] = dict(row=row, wall_s=wall, arms=stats)
+    return out
+
+
+def protocol_profile(cuda) -> None:
+    """One app-aware alltoall iteration under ``torch.profiler`` (after a
+    warm-up iteration that builds its plan): the device idle share."""
+    sim, alloc, phases, engine = protocol_setup(cuda, "alltoall")
+    engine_iteration(sim, alloc, phases, engine, "alltoall")
+    device_profile(lambda: engine_iteration(sim, alloc, phases, engine,
+                                            "alltoall"),
+                   "appaware alltoall iteration")
+
+
+def protocol_cpu_check(cuda) -> None:
+    """The same seeded rows on the CPU and on the card: the card's run is
+    anchored to the CPU's carried state before each phase
+    (``repro_torch.benchmarks.parity``); generators in lockstep, the
+    state the card's own update leaves before each phase, phase times
+    and the rows' median times at rtol 2e-2, modes per phase under the
+    tie rule.  (How soon two free runs part is
+    ``scripts/protocol_drift.py``'s measurement.)"""
+    for bench, args in PROTOCOL_ROWS.items():
+        def run(device):
+            return fig8.run("daint", iters=PROTOCOL_CPU_ITERS[bench], seed=0,
+                            max_flows=PROTOCOL_MAX_FLOWS, policy=POLICY_ARM,
+                            topology=PROTOCOL_TOPOLOGY,
+                            sweep={bench: [args]}, device=device)
+
+        t0 = time.perf_counter()
+        with trace_protocol(DragonflySimulator, PolicyEngine,
+                            record_state=True) as cpu_trace:
+            (key, want), = run("cpu").items()
+        cpu_s = time.perf_counter() - t0
+        with trace_protocol(DragonflySimulator, PolicyEngine,
+                            anchor=cpu_trace) as card_trace:
+            got = run(cuda)[key]
+        n = len(cpu_trace.phases)
+        try:
+            compared = compare_traces(cpu_trace, card_trace, CPU_RTOL)
+        except AssertionError as err:
+            check(False, f"card vs CPU, fig8.{key}: {err}")
+        check(compared >= n / 2, f"card vs CPU, fig8.{key}: {compared} of "
+              f"{n} phases compared")
+        worst = max(abs(b.phase_time_us / a.phase_time_us - 1)
+                    for a, b in zip(cpu_trace.phases[:compared],
+                                    card_trace.phases[:compared]))
+        print(f"  fig8.{key}: CPU run {cpu_s:.2f} s; anchored card run: "
+              f"{compared} of {n} phases compared (carried state "
+              f"included), phase_time_us max rel diff {worst:.3e} "
+              f"(rtol {CPU_RTOL})")
+        if compared == n:
+            for label in ("default", "highbias", MODE_LABEL[POLICY_ARM]):
+                a = want["default_median_us"] * want[label]["norm_median"]
+                b = got["default_median_us"] * got[label]["norm_median"]
+                print(f"    {label:9s} median time_us card {b:.3f} cpu "
+                      f"{a:.3f}")
+                check(bool(np.isclose(b, a, rtol=CPU_RTOL, atol=0.0)),
+                      f"card vs CPU, fig8.{key}.{label}: {b} vs {a}")
+            check(got["policy_pct_default_traffic"]
+                  == want["policy_pct_default_traffic"],
+                  f"card vs CPU, fig8.{key}: policy_pct_default_traffic")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path needs one",
@@ -1195,8 +1481,7 @@ def main() -> int:
     counts = {"segment_sum_sorted": segment_sum_sorted.launches,
               "segment_sum_scatter": segment_sum_scatter.launches}
     for row in kernels:
-        row["launches"] = counts[row["name"]]
-        check(row["launches"] > 0, f"{row['name']} never ran on the path")
+        row["launches_by_path"] = {"simulator phase": counts[row["name"]]}
 
     # phase 5: the same seeded phase on the CPU
     print("phase 5: card vs CPU, one planned phase of seed 7")
@@ -1243,6 +1528,35 @@ def main() -> int:
     print(f"phase 11: card vs CPU, {QWEN2.name} prefill of {CPU_BATCH} x "
           f"{CPU_PROMPT} tokens")
     cpu_compare(QWEN2, cuda)
+
+    # phase 12: the §5 protocol; B1 at its shapes first, then launch
+    # counts from the main path's run are its own
+    print(f"phase 12: the section-5 protocol, fig8's Piz-Daint rows "
+          f"{list(PROTOCOL_ROWS)}, {PROTOCOL_ITERS} iterations")
+    t0 = time.perf_counter()
+    errs = dict(zip(("segment_sum_sorted", "segment_sum_scatter"),
+                    protocol_kernel_checks(cuda, n_links)))
+    for row in (r for r in kernels if r["name"] in errs):
+        row["max_abs_err"] = max(row["max_abs_err"], errs[row["name"]])
+    segment_sum_sorted.launches = 0
+    segment_sum_scatter.launches = 0
+    protocol = protocol_path(cuda, planned)
+    counts = {"segment_sum_sorted": segment_sum_sorted.launches,
+              "segment_sum_scatter": segment_sum_scatter.launches}
+    for row in (r for r in kernels if r["name"] in counts):
+        by_path = row["launches_by_path"]
+        by_path["fig8 protocol"] = counts[row["name"]]
+        check(all(n > 0 for n in by_path.values()),
+              f"{row['name']} never ran on a simulator path: {by_path}")
+        row["launches"] = sum(by_path.values())
+    print("  protocol " + json.dumps(
+        {key: {"wall_s": st["wall_s"], "policy_pct_default_traffic":
+               st["row"]["policy_pct_default_traffic"], "arms": st["arms"]}
+         for key, st in protocol.items()}))
+    protocol_profile(cuda)
+    print("phase 12: card vs CPU")
+    protocol_cpu_check(cuda)
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s wall")
 
     # each kernel's launches on the serving paths that run it
     for row in kernels:

@@ -12,10 +12,13 @@ from repro_torch.dragonfly.topology import (Allocation, DragonflyTopology,
                                             make_allocation, make_topology,
                                             registered_topologies,
                                             small_topology)
-from repro_torch.dragonfly.traffic import (PATTERNS, allreduce, alltoall,
-                                           barrier, broadcast, halo3d,
+from repro_torch.dragonfly.traffic import (PATTERN_KIND, PATTERNS,
+                                           allreduce, alltoall, barrier,
+                                           broadcast, engine_for_arm, halo3d,
                                            moe_alltoall, pingpong,
-                                           run_iteration, sweep3d)
+                                           run_benchmark, run_iteration,
+                                           run_iteration_app_aware,
+                                           run_iteration_engine, sweep3d)
 
 __all__ = [
     "DragonflyTopology", "Topology", "TopologyParams", "Allocation",
@@ -25,5 +28,7 @@ __all__ = [
     "DragonflySimulator", "SimParams", "FlowResult", "PhasePlan",
     "TenantSegments",
     "pingpong", "allreduce", "alltoall", "barrier", "broadcast", "halo3d",
-    "sweep3d", "moe_alltoall", "PATTERNS", "run_iteration",
+    "sweep3d", "moe_alltoall", "PATTERNS", "PATTERN_KIND", "run_iteration",
+    "run_iteration_engine", "run_iteration_app_aware", "engine_for_arm",
+    "run_benchmark",
 ]

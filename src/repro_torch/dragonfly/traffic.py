@@ -1,27 +1,31 @@
 """Communication patterns of the paper's microbenchmarks (§5.1) and the
-fixed-mode iteration runner (§5 protocol).
+benchmark runner that alternates routing modes per iteration (§5 protocol).
 
 A pattern is a generator of *phases*; one phase is a (src_ranks, dst_ranks,
 bytes) triple of concurrent flows.  Rank->node resolution happens against a
 fixed Allocation (§3.1).
 
-Port of ``repro/dragonfly/traffic.py``: the pattern generators and
-``run_iteration`` (a static :class:`RoutingPolicy`).  The policy-engine
-runners (``run_iteration_engine``, ``engine_for_arm``,
-``run_benchmark``) wait for the port of ``repro.policy``.
+Port of ``repro/dragonfly/traffic.py``: the pattern generators, the
+static ``run_iteration`` and the policy-engine runners
+(``run_iteration_engine``, ``engine_for_arm``, ``run_benchmark``) over
+the port's simulator and its copy of ``repro.policy``.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Sequence
+from typing import Callable, Iterable, Sequence
 
 import numpy as np
 
+from repro_torch.core.strategies import RoutingMode
 from repro_torch.dragonfly.routing import RoutingPolicy
 from repro_torch.dragonfly.simulator import DragonflySimulator
 from repro_torch.dragonfly.topology import Allocation
+from repro_torch.policy import (AppAwareConfig, DecisionBatch, KIND_ALLREDUCE,
+                                KIND_ALLTOALL, KIND_BROADCAST, KIND_PT2PT,
+                                PolicyEngine, TelemetryBus, make_engine)
 
 Phase = tuple[np.ndarray, np.ndarray, np.ndarray]  # (src_ranks, dst_ranks, bytes)
 
@@ -240,3 +244,166 @@ def run_iteration(sim: DragonflySimulator, alloc: Allocation,
         mean_stalls=float(np.average(st, weights=w)) if st else 0.0,
         nonmin_fraction=float(np.average(nmf, weights=w)) if nmf else 0.0,
     )
+
+
+#: pattern name -> DecisionBatch collective kind (Algorithm 1 only
+#: special-cases alltoall; the rest is labeling for telemetry/policies).
+PATTERN_KIND = {
+    "pingpong": KIND_PT2PT,
+    "allreduce": KIND_ALLREDUCE,
+    "alltoall": KIND_ALLTOALL,
+    "barrier": KIND_PT2PT,
+    "broadcast": KIND_BROADCAST,
+    "halo3d": KIND_PT2PT,
+    "sweep3d": KIND_PT2PT,
+    "moe_alltoall": KIND_ALLTOALL,
+}
+
+
+def run_iteration_engine(sim: DragonflySimulator, alloc: Allocation,
+                         phases: Sequence[Phase], engine: PolicyEngine, *,
+                         site: str = "default", kind: str = KIND_PT2PT,
+                         base_policy: RoutingPolicy | None = None,
+                         counter_read_overhead_us: float = 0.35,
+                         use_plans: bool = False
+                         ) -> IterationResult:
+    """One iteration with a PolicyEngine choosing modes per phase.
+
+    This is the vectorized successor of the per-message router protocol:
+    ONE engine.decide() per phase (thousands of flows in a single
+    NumPy-shaped batch), modes applied per flow inside the simulator, and
+    one TelemetryBus publish of the phase's per-flow (L, s) — the
+    counters are read after the send, so the policy stays one phase
+    behind (paper §4.3), paying the same §5.1 counter-read overhead."""
+    base_policy = base_policy or RoutingPolicy(RoutingMode.ADAPTIVE_0)
+    total_us = 0.0
+    lat, st, nmf, wts = [], [], [], []
+    mode_bytes: dict = {}
+    nodes = np.asarray(alloc.nodes)
+    for (s, d, b) in phases:
+        batch = DecisionBatch.of(b, site=site, kind=kind)
+        modes = engine.decide(batch)          # ONE call for the whole phase
+        plan = sim.plan_for(nodes[s], nodes[d], b) if use_plans else None
+        res = sim.run_phase(nodes[s], nodes[d], b, base_policy, alloc,
+                            modes=modes, plan=plan)
+        # post-send counter read (never delays the message itself)
+        if res.t_us.size == len(batch):
+            engine.bus.publish_flow_arrays(res.latency_us,
+                                           res.stalls_per_flit,
+                                           notified=res.notified)
+        elif res.t_us.size:
+            # the simulator statistically subsampled the phase: publish
+            # the phase-mean sample (engine broadcasts it over the batch)
+            engine.bus.publish_flow_arrays(
+                [float(res.latency_us.mean())],
+                [float(res.stalls_per_flit.mean())],
+                notified=None if res.notified is None
+                else [float(res.notified.mean())])
+        host = sim.params.host_overhead_us * sim.rng.lognormal(
+            0.0, sim.params.host_noise_sigma) + counter_read_overhead_us
+        total_us += res.phase_time_us + host
+        for mode in {m for m in modes}:
+            mode_bytes[mode] = mode_bytes.get(mode, 0.0) \
+                + float(b[modes == mode].sum())
+        if res.t_us.size:
+            lat.append(res.latency_us.mean())
+            st.append(res.stalls_per_flit.mean())
+            nmf.append(res.nonmin_fraction)
+            wts.append(b.sum())
+    w = np.asarray(wts) if wts else np.ones(1)
+    return IterationResult(
+        time_us=total_us,
+        mean_latency_us=float(np.average(lat, weights=w)) if lat else 0.0,
+        mean_stalls=float(np.average(st, weights=w)) if st else 0.0,
+        nonmin_fraction=float(np.average(nmf, weights=w)) if nmf else 0.0,
+        mode_bytes=mode_bytes,
+    )
+
+
+def run_iteration_app_aware(sim: DragonflySimulator, alloc: Allocation,
+                            phases: Sequence[Phase],
+                            router, *,
+                            alltoall_site: bool = False,
+                            counter_read_overhead_us: float = 0.35
+                            ) -> IterationResult:
+    """DEPRECATED: one iteration with the legacy scalar router protocol.
+
+    Kept for the seed API; new code should pass a PolicyEngine to
+    run_iteration_engine.  The router selects before each phase using the
+    *previous* phase's counters (the paper's one-message-behind protocol)
+    and pays a small counter-read overhead (§5.1 observes this overhead
+    on 1KiB alltoalls)."""
+    total_us = 0.0
+    lat, st, nmf, wts = [], [], [], []
+    mode_bytes: dict = {}
+    for (s, d, b) in phases:
+        msg = float(b.max()) if b.size else 0.0
+        mode = router.select(int(msg), alltoall=alltoall_site)
+        policy = RoutingPolicy(mode)
+        nodes = np.asarray(alloc.nodes)
+        res = sim.run_phase(nodes[s], nodes[d], b, policy, alloc)
+        # post-send counter read (never delays the message itself)
+        if res.t_us.size:
+            router.observe(res.latency_us.mean() * 1e3 *
+                           sim.params.nic_clock_ghz,
+                           res.stalls_per_flit.mean())
+        host = sim.params.host_overhead_us * sim.rng.lognormal(
+            0.0, sim.params.host_noise_sigma) + counter_read_overhead_us
+        total_us += res.phase_time_us + host
+        mode_bytes[mode] = mode_bytes.get(mode, 0.0) + float(b.sum())
+        if res.t_us.size:
+            lat.append(res.latency_us.mean())
+            st.append(res.stalls_per_flit.mean())
+            nmf.append(res.nonmin_fraction)
+            wts.append(b.sum())
+    w = np.asarray(wts) if wts else np.ones(1)
+    return IterationResult(
+        time_us=total_us,
+        mean_latency_us=float(np.average(lat, weights=w)) if lat else 0.0,
+        mean_stalls=float(np.average(st, weights=w)) if st else 0.0,
+        nonmin_fraction=float(np.average(nmf, weights=w)) if nmf else 0.0,
+        mode_bytes=mode_bytes,
+    )
+
+
+def engine_for_arm(arm: str, sim: DragonflySimulator,
+                   router_config: AppAwareConfig | None = None,
+                   seed: int = 0) -> PolicyEngine:
+    """Build the PolicyEngine for one adaptive benchmark arm
+    ("app_aware" | "eps_greedy" | "static"), clocked to the simulator."""
+    bus = TelemetryBus(clock_ghz=sim.params.nic_clock_ghz)
+    return make_engine(arm, config=router_config, granularity="phase",
+                       seed=seed, bus=bus)
+
+
+def run_benchmark(sim: DragonflySimulator, alloc: Allocation, pattern: str,
+                  pattern_args: dict, iterations: int,
+                  modes: Iterable = (RoutingMode.ADAPTIVE_0,
+                                     RoutingMode.ADAPTIVE_3, "app_aware"),
+                  router_config: AppAwareConfig | None = None,
+                  use_plans: bool = False) -> dict:
+    """Paper §5 protocol: alternate routing strategies on successive
+    iterations inside ONE allocation, so transient noise hits all modes
+    equally.  Returns {mode: [IterationResult, ...]}.
+
+    `modes` entries are RoutingMode members (static arms) or policy
+    names from repro_torch.policy ("app_aware", "eps_greedy", "static") — each
+    named arm gets its own PolicyEngine whose state persists across the
+    alternating iterations, exactly like the paper's long-running
+    application."""
+    phases = PATTERNS[pattern](alloc.n_ranks, **pattern_args)
+    kind = PATTERN_KIND.get(pattern, KIND_PT2PT)
+    results: dict = {m: [] for m in modes}
+    engines = {m: engine_for_arm(m, sim, router_config)
+               for m in modes if isinstance(m, str)}
+    for _ in range(iterations):
+        for mode in modes:
+            if isinstance(mode, str):
+                results[mode].append(run_iteration_engine(
+                    sim, alloc, phases, engines[mode],
+                    site=pattern, kind=kind, use_plans=use_plans))
+            else:
+                results[mode].append(run_iteration(
+                    sim, alloc, phases, RoutingPolicy(mode),
+                    use_plans=use_plans))
+    return results

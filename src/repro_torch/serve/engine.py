@@ -18,8 +18,9 @@ decoding matches exactly.
 
 Routing the prefill->decode KV transfer through a communication policy
 (``ServeConfig.comm_policy``, a shared ``comm_engine``,
-``route_kv_transfer``) waits for the policy and collectives port
-(ROADMAP A.2 / A.4) and raises ``NotImplementedError`` until then.
+``route_kv_transfer``) waits for the collectives port (ROADMAP A.4;
+the policy engine it drives is ``repro_torch.policy``) and raises
+``NotImplementedError`` until then.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.runtime import resolve_device
 
 _POLICY_PENDING = ("KV-transfer routing through a communication policy "
-                   "is not ported yet (ROADMAP A.2 / A.4)")
+                   "is not ported yet (ROADMAP A.4)")
 
 
 @dataclass
@@ -60,7 +61,7 @@ class ServeConfig:
 
 
 def route_kv_transfer(*args, **kwargs):
-    """Not ported yet: see ROADMAP A.2 / A.4."""
+    """Not ported yet: see ROADMAP A.4."""
     raise NotImplementedError(_POLICY_PENDING)
 
 
