@@ -22,7 +22,15 @@ Drives the port's three main paths on the card at full width:
   phases), ADAPTIVE, HIGH BIAS and application-aware routing alternating
   for 8 iterations, on its ``allreduce`` 262,144-element row (10 phases
   of 1,024 flows) and its ``alltoall`` 65,536-byte row (1,047,552 flows
-  cut to 60,000).
+  cut to 60,000);
+* the multi-tenant simulator: the interference matrix's first column
+  (``repro_torch.benchmarks.interference_matrix``: ``halo3d-vs-alltoall``
+  at its published 64 and 96 ranks, the victim arms adaptive, minimal
+  and app_aware, ``SimParams(seed=7, bg_enable=False)``) on the same
+  Aries machine, in lockstep through ``repro_torch.tenancy.sweep`` (one
+  batched dispatch of the 3 cells' phases per round, B1 over 3 x 56,448
+  segments), and the published interference matrix (8 rounds, its
+  384-node machine and the Dragonfly+ row).
 
 Phases:
 
@@ -84,7 +92,22 @@ Phases:
     the CPU run's carried state before each phase, must keep its
     generator in lockstep, leave the CPU run's carried state before each
     phase, agree on phase and median times at rtol 2e-2 and choose the
-    same modes under the tie rule (``repro_torch.benchmarks.parity``).
+    same modes under the tie rule (``repro_torch.benchmarks.parity``);
+13. the lockstep tenancy sweep: one round's batch of the column
+    (``torch_backend.prepare_batch``), its B1 launches per dispatch
+    asserted equal to one phase's, both B1 forms at the batched shape
+    held against their plain versions' float64 sums (the sorted form
+    over the round's pairs sorted by id) and timed by graph replay; the
+    same seeded column through ``run_phase_batch`` and through
+    sequential ``run_phase`` for 3 rounds, ``t_us`` per cell within
+    1e-4; the column's 8 rounds and baselines through the sweep in
+    turns, lockstep, sequential, sequential, lockstep (B1's launches
+    counted from 0 over the first and asserted: 6 scatter per dispatch),
+    with each run's wall seconds, the ratio of the sums and the
+    dispatches per round; one lockstep round under ``torch.profiler``;
+    the published interference matrix in lockstep, every cell and the
+    checks held against the committed ``BENCH_interference.json`` at
+    rtol 2e-2.
 
 Prints the kernel summary as one JSON line, then the ``ok`` line last.
 Any failed check exits non-zero; so does a machine without CUDA, and a
@@ -96,6 +119,7 @@ directory without the rest of the repository.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -109,6 +133,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.benchmarks import fig8_microbench as fig8  # noqa: E402
+from repro_torch.benchmarks import interference_matrix  # noqa: E402
+from repro_torch.benchmarks.hold import differences  # noqa: E402
 from repro_torch.benchmarks.common import (DAINT, MODE_LABEL,  # noqa: E402
                                            bench_topology, group_spread)
 from repro_torch.benchmarks.parity import (compare_traces,  # noqa: E402
@@ -119,6 +145,7 @@ from repro_torch.dragonfly import (DragonflySimulator, DragonflyTopology,  # noq
                                    make_allocation)
 from repro_torch.dragonfly import torch_backend  # noqa: E402
 from repro_torch.dragonfly import traffic  # noqa: E402
+from repro_torch.dragonfly.simulator import run_phase_batch  # noqa: E402
 from repro_torch.faults import FaultSchedule, link_down  # noqa: E402
 from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2  # noqa: E402
 from repro_torch.configs.qwen2_1_5b import CONFIG as QWEN2  # noqa: E402
@@ -143,6 +170,7 @@ from repro_torch.models import registry as model_registry  # noqa: E402
 from repro_torch.policy import PolicyEngine  # noqa: E402
 from repro_torch.runtime import on_hopper  # noqa: E402
 from repro_torch.serve import Request, ServeConfig, ServeEngine  # noqa: E402
+from repro_torch.tenancy import InterferenceEngine, sweep  # noqa: E402
 
 N_GROUPS = 12
 N_FLOWS = 120_000
@@ -410,19 +438,22 @@ def scatter_plain(values, ids, n: int):
 
 # ------------------------------------------------------------ phase 3
 def b1_parts(x: dict) -> dict:
-    """The pairs one phase ``x`` (prepared pipeline inputs) hands B1: the
-    spray values over every pair, cut into the plan-sorted head and the
-    background tail, and the NIC ids with their values."""
+    """The pairs one phase or one batch ``x`` (prepared pipeline inputs:
+    ``_prepare_inputs`` or ``prepare_batch``) hands B1: the spray values
+    over every pair, cut into the sorted head and the unsorted tail, and
+    the NIC ids with their values."""
     dev = x["size_all"].device
-    n_all, ncand = x["safe"].shape[0], x["safe"].shape[1]
-    w = torch.full((n_all, ncand), 1.0 / ncand, device=dev)
-    vals = ((x["size_all"][:, None] * w).reshape(-1)[x["pair_fc"]]
+    shape = x["safe"].shape[:-1]                  # [(B,) n, ncand]
+    w = torch.full(shape, 1.0 / shape[-1], device=dev)
+    vals = ((x["size_all"][..., None] * w).reshape(-1)[x["pair_fc"]]
             .contiguous())
     p_sorted = x["p_sorted"]
     return dict(vals=vals, head=vals[:p_sorted], tail=vals[p_sorted:],
-                tail_ids=x["pair_links"][p_sorted:], nic_ids=x["nic_ids"],
+                tail_ids=x["pair_links"][p_sorted:],
+                nic_ids=x["nic_ids"].reshape(-1).contiguous(),
                 nic_vals=torch.minimum(x["size_all"],
-                                       x["cap_window"][x["nic_ids"]]))
+                                       x["cap_window"][x["nic_ids"]])
+                .reshape(-1).contiguous())
 
 
 def b1_holds(x: dict, n_links: int, what: str) -> tuple:
@@ -1371,6 +1402,292 @@ def protocol_cpu_check(cuda) -> None:
                   f"card vs CPU, fig8.{key}: policy_pct_default_traffic")
 
 
+# ----------------------------------------------------------- phase 13
+#: the interference matrix's first column (``halo3d-vs-alltoall``, its
+#: published ranks 64 and 96, the victim arms adaptive, minimal and
+#: app_aware, ``SimParams(seed=7, bg_enable=False)``) on the default Aries
+#: machine (None: ``TopologyParams(n_groups=12)``; rehearsals pass a
+#: small spec)
+TENANCY_TOPOLOGY = None
+TENANCY_SEED = 7
+TENANCY_ROUNDS = 8
+#: rounds of the batched-vs-sequential check
+TENANCY_CHECK_ROUNDS = 3
+#: batched vs sequential on the card, per cell: the same draws; only the
+#: scatter form's atomic order differs
+BATCH_RTOL = 1e-4
+#: the published interference matrix, held against the committed
+#: reference output (read as data) at the jax engine's JAX_RTOL
+INTERFERENCE_JSON = ROOT / "BENCH_interference.json"
+INTERFERENCE_ROUNDS, INTERFERENCE_SCALE = 8, 1.0
+
+
+def tenancy_column():
+    """(machine, mix, params, cells) of the column."""
+    topo = bench_topology(TENANCY_TOPOLOGY, TopologyParams(n_groups=N_GROUPS))
+    mix = interference_matrix.make_mixes(1.0)[0]
+    params = SimParams(seed=TENANCY_SEED, bg_enable=False)
+    cells = [mix.with_victim_arm(arm)
+             for arm in interference_matrix.ARMS.values()]
+    return topo, mix, params, cells
+
+
+def column_steps(cuda) -> list:
+    """The column's cells as the lockstep driver runs them: one
+    ``_run_steps`` generator each, on a fresh engine and simulator."""
+    topo, _, params, cells = tenancy_column()
+    gens = []
+    for cell in cells:
+        eng = InterferenceEngine(topo, params, seed=TENANCY_SEED,
+                                 device=cuda)
+        gens.append(eng._run_steps(
+            cell.workloads, cell.materialize(topo, seed=TENANCY_SEED),
+            TENANCY_ROUNDS, topo=topo))
+    return gens
+
+
+def sorted_layout(x: dict, n_seg: int) -> dict:
+    """A batch ``x`` whose pairs are all unsorted (planless phases) with
+    a sorted head added: its in-range pairs ordered by id over the
+    ``n_seg`` segments, so that the sorted form runs at the batched
+    shape; the original pairs stay as the tail."""
+    pl, fc = x["pair_links"][x["p_sorted"]:], x["pair_fc"][x["p_sorted"]:]
+    keep = pl < n_seg
+    ids = pl[keep].long()
+    order = torch.argsort(ids, stable=True)
+    off = torch.zeros(n_seg + 1, dtype=torch.int64, device=ids.device)
+    off[1:] = torch.cumsum(torch.bincount(ids, minlength=n_seg), 0)
+    return dict(x, pair_links=torch.cat([pl[keep][order], pl]),
+                pair_fc=torch.cat([fc[keep][order], fc]),
+                seg_off=off.to(torch.int32), p_sorted=int(keep.sum()))
+
+
+def b1_batched_times(x: dict, n_seg: int) -> dict:
+    """B1 at the batched shape by graph replay: the sorted form over the
+    sorted head, the scatter form over the batch's pairs (5 of a
+    dispatch's 6 launches) and over its NIC ids; the plain versions',
+    ``Tensor.index_add_``'s (by graph replay) and the bounds."""
+    b = b1_parts(x)
+    out = torch.zeros(n_seg, device=b["vals"].device)
+    seg_off, head = x["seg_off"], b["head"]
+    n_sorted = head.shape[0]
+    nonempty = int((seg_off[1:] > seg_off[:-1]).sum())
+    rows = {}
+    for key, name, kernel, plain, ids, vals, nbytes, n_pairs in (
+            ("segment_sum_sorted", "sorted head",
+             lambda: segment_sum_sorted(head, seg_off, out),
+             lambda: segment_sum_sorted_plain(head, seg_off, out),
+             None, head,
+             4 * n_sorted + 4 * (n_seg + 1) + 8 * nonempty, n_sorted),
+            ("segment_sum_scatter", "scatter pairs",
+             lambda: segment_sum_scatter(b["tail"], b["tail_ids"], out),
+             lambda: segment_sum_scatter_plain(b["tail"], b["tail_ids"],
+                                               out),
+             b["tail_ids"], b["tail"], None, b["tail"].shape[0]),
+            ("segment_sum_scatter", "scatter NIC ids",
+             lambda: segment_sum_scatter(b["nic_vals"], b["nic_ids"], out),
+             lambda: segment_sum_scatter_plain(b["nic_vals"], b["nic_ids"],
+                                               out),
+             b["nic_ids"], b["nic_vals"], None, b["nic_ids"].shape[0])):
+        if ids is not None:
+            keep = (ids >= 0) & (ids < n_seg)
+            in_ids, in_vals = ids[keep].long(), vals[keep]
+            touched = int((torch.bincount(in_ids, minlength=n_seg) > 0)
+                          .sum())
+            nbytes = 8 * ids.shape[0] + 8 * touched
+        else:
+            in_ids = torch.repeat_interleave(
+                torch.arange(n_seg, device=out.device),
+                (seg_off[1:] - seg_off[:-1]).long(), output_size=n_sorted)
+            in_vals = head
+        ms = graph_ms(kernel, 200)
+        plain_ms = cuda_ms(plain, 20)
+        library_ms = graph_ms(lambda: out.index_add_(0, in_ids, in_vals),
+                              200)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = n_pairs / F32_FLOP_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        print(f"  {name} at {n_seg} segments, {n_pairs} pairs: "
+              f"{ms * 1e3:.2f} us/launch (graph replay), plain "
+              f"{plain_ms * 1e3:.2f} us, Tensor.index_add_ "
+              f"{library_ms * 1e3:.2f} us (graph replay), bound "
+              f"{bound_ms * 1e3:.2f} us ({nbytes} bytes)")
+        prefix = "batched_nic_" if "NIC" in name else "batched_"
+        rows.setdefault(key, {})
+        rows[key].update({
+            f"{prefix}segments": n_seg, f"{prefix}pairs": n_pairs,
+            f"{prefix}ms": ms, f"{prefix}plain_ms": plain_ms,
+            f"{prefix}bound_ms": bound_ms,
+            f"{prefix}bound_by": "bytes" if bytes_ms >= ops_ms
+            else "operations",
+            f"{prefix}library_ms": library_ms,
+            f"{prefix}library_call": "Tensor.index_add_"})
+    return rows
+
+
+def tenancy_kernel_checks(cuda, n_links: int) -> tuple:
+    """B1 at the lockstep round's batched shape: one round's batch of the
+    column, its launches per dispatch against one phase's, both forms
+    held against the plain versions' float64 sums and timed.  Returns
+    (the forms' largest errors, per-kernel row additions)."""
+    gens = column_steps(cuda)
+    reqs = [g.send(None) for g in gens]
+    batch = [(sim, sim._phase_begin(**kw)) for sim, kw in reqs]
+    sigs = {torch_backend.batch_signature(sim, ctx) for sim, ctx in batch}
+    check(len(sigs) == 1, f"the column's phases split into {len(sigs)} "
+          "groups")
+    x = torch_backend.prepare_batch(batch)
+    n_seg = len(batch) * n_links
+    print(f"  one round: {len(batch)} cells x "
+          f"{batch[0][1]['safe'].shape[0]} flows, "
+          f"{x['pair_links'].shape[0]} pairs (padded) over {n_seg} "
+          f"segments")
+    before = launches()
+    torch_backend.fixed_point_torch(*batch[0])
+    one = tuple(a - b for a, b in zip(launches(), before))
+    before = launches()
+    torch_backend.fixed_point_torch_batch(batch)
+    got = tuple(a - b for a, b in zip(launches(), before))
+    print(f"  launches sorted/scatter: one phase {one[0]}/{one[1]}, the "
+          f"batched dispatch of {len(batch)} {got[0]}/{got[1]}")
+    check(got == one and sum(one) > 0,
+          f"batched dispatch launched {got}, one phase {one}")
+    xs = sorted_layout(x, n_seg)
+    errs = b1_holds(xs, n_seg, "batched ")
+    return errs, b1_batched_times(xs, n_seg)
+
+
+def tenancy_batch_check(cuda) -> float:
+    """The same seeded column through run_phase_batch and through
+    sequential run_phase, TENANCY_CHECK_ROUNDS rounds; per cell t_us
+    within BATCH_RTOL.  Returns the largest relative gap."""
+    batched, sequential = column_steps(cuda), column_steps(cuda)
+    res_b = res_s = [None] * len(batched)
+    worst = 0.0
+    for r in range(TENANCY_CHECK_ROUNDS):
+        req_b = [g.send(x) for g, x in zip(batched, res_b)]
+        req_s = [g.send(x) for g, x in zip(sequential, res_s)]
+        res_b = run_phase_batch(req_b)
+        res_s = [sim.run_phase(**kw) for sim, kw in req_s]
+        for i, (a, b) in enumerate(zip(res_b, res_s)):
+            check(np.array_equal(a.flits, b.flits),
+                  f"round {r} cell {i}: flits differ batched vs sequential")
+            gap = float(np.max(np.abs(a.t_us - b.t_us) / np.abs(b.t_us)))
+            worst = max(worst, gap)
+            check(bool(np.allclose(a.t_us, b.t_us, rtol=BATCH_RTOL,
+                                   atol=0.0)),
+                  f"round {r} cell {i}: t_us batched vs sequential, "
+                  f"largest relative gap {gap:.3e} (rtol {BATCH_RTOL})")
+    print(f"  batched vs sequential run_phase, {TENANCY_CHECK_ROUNDS} "
+          f"rounds x {len(batched)} cells: t_us largest relative gap "
+          f"{worst:.3e} (rtol {BATCH_RTOL})")
+    return worst
+
+
+def tenancy_column_timed(cuda) -> dict:
+    """The column through the port's sweep, TENANCY_ROUNDS rounds plus
+    each tenant's run-alone baselines, in turns: lockstep, sequential,
+    sequential, lockstep (B1's launches counted from 0 over the first
+    lockstep run: the tenancy path's own); wall seconds of each run, the
+    ratio of the sums, dispatches per round; records held at CPU_RTOL."""
+    topo, mix, params, _ = tenancy_column()
+    n_cells = len(interference_matrix.ARMS)
+    # lockstep rounds: the mix's, then each tenant's baselines'
+    n_rounds = TENANCY_ROUNDS * (1 + len(mix))
+    out = {"lockstep": {"wall_s": []}, "sequential": {"wall_s": []}}
+    recs = {}
+    for lockstep in (True, False, False, True):
+        label = "lockstep" if lockstep else "sequential"
+        first = label not in recs
+        if lockstep and first:
+            segment_sum_sorted.launches = 0
+            segment_sum_scatter.launches = 0
+        before = dict(torch_backend.PIPELINE_CALLS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = sweep(topo, [mix], interference_matrix.ARMS, params=params,
+                    rounds=TENANCY_ROUNDS, seed=TENANCY_SEED, device=cuda,
+                    lockstep=lockstep)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        calls = {k: torch_backend.PIPELINE_CALLS[k] - before[k]
+                 for k in before}
+        recs.setdefault(label, rec)
+        out[label]["wall_s"].append(wall)
+        out[label].update(dispatches=calls, dispatches_per_round=sum(
+            calls.values()) / n_rounds)
+        if lockstep and first:
+            out["launches"] = launches()
+            check(out["launches"] == (0, 6 * n_rounds),
+                  f"tenancy lockstep launches {out['launches']}, want "
+                  f"(0, {6 * n_rounds}): 6 scatter sums per planless "
+                  "dispatch")
+        want = {"single": 0, "batched": n_rounds} if lockstep \
+            else {"single": n_cells * n_rounds, "batched": 0}
+        check(calls == want, f"{label} dispatches {calls}, want {want}")
+        print(f"  column {mix.name}, {n_cells} cells, {TENANCY_ROUNDS} "
+              f"rounds + baselines ({n_rounds} rounds): {label} "
+              f"{wall:.3f} s wall, dispatches {calls} "
+              f"({out[label]['dispatches_per_round']:g} per round)")
+    ratio = sum(out["sequential"]["wall_s"]) / sum(out["lockstep"]["wall_s"])
+    out["sequential_over_lockstep"] = ratio
+    print(f"  sequential / lockstep wall, summed over both turns: "
+          f"{ratio:.3f}; B1 launches on the first lockstep run "
+          f"sorted/scatter {out['launches'][0]}/{out['launches'][1]}")
+    worst = 0.0
+    for a, b in zip(recs["lockstep"], recs["sequential"]):
+        for key in ("victim_time_us", "victim_alone_us", "victim_slowdown"):
+            gap = abs(a[key] / b[key] - 1)
+            worst = max(worst, gap)
+            check(gap <= CPU_RTOL, f"lockstep vs sequential {a['policy']}."
+                  f"{key}: {a[key]} vs {b[key]}")
+        print(f"    {a['policy']:9s} victim_slowdown {a['victim_slowdown']:.4f}"
+              f" (sequential {b['victim_slowdown']:.4f}), victim_time_us "
+              f"{a['victim_time_us']:.3f}")
+    out["records_max_rel_gap"] = worst
+    return out
+
+
+def tenancy_profile(cuda) -> None:
+    """One lockstep round of the column under ``torch.profiler`` (its
+    second round, after one that builds nothing the profiled one reuses
+    but warms the path): the device idle share."""
+    gens = column_steps(cuda)
+    reqs = [g.send(None) for g in gens]
+    res = run_phase_batch(reqs)
+    reqs = [g.send(r) for g, r in zip(gens, res)]
+    device_profile(lambda: run_phase_batch(reqs), "tenancy lockstep round")
+
+
+def published_interference(cuda) -> dict:
+    """interference_matrix.run(8, 1.0, seed=7) on the card in lockstep,
+    every cell and the checks held against BENCH_interference.json."""
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        doc = interference_matrix.run(INTERFERENCE_ROUNDS,
+                                      INTERFERENCE_SCALE,
+                                      seed=TENANCY_SEED, device=cuda)
+    wall = time.perf_counter() - t0
+    doc = json.loads(json.dumps(doc))           # as the JSON file holds it
+    want = json.loads(INTERFERENCE_JSON.read_text())
+    diffs, worst = differences(doc, want)
+    n_cells = sum(len(row) for row in doc["matrix"].values())
+    print(f"  interference_matrix.run({INTERFERENCE_ROUNDS}, "
+          f"{INTERFERENCE_SCALE}, seed={TENANCY_SEED}): {wall:.2f} s wall, "
+          f"{n_cells} cells; against {INTERFERENCE_JSON.name}: "
+          f"{len(diffs)} differences, largest relative gap {worst:.3e} "
+          f"(rtol {CPU_RTOL}); checks {doc['checks']}")
+    for d in diffs:
+        print("    DIFFERS", d)
+    check(not diffs, f"the interference matrix differs from "
+          f"{INTERFERENCE_JSON.name} in {len(diffs)} places")
+    check(doc["checks"] == want["checks"], "interference matrix checks")
+    for mix, row in doc["matrix"].items():
+        print(f"    {mix:28s} " + ", ".join(
+            f"{pol} {c['victim_slowdown']:.4f}" for pol, c in row.items()))
+    return dict(wall_s=wall, cells=n_cells, max_rel_gap=worst)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path needs one",
@@ -1557,6 +1874,32 @@ def main() -> int:
     print("phase 12: card vs CPU")
     protocol_cpu_check(cuda)
     print(f"phase 12: {time.perf_counter() - t0:.1f} s wall")
+
+    # phase 13: the lockstep tenancy sweep; B1 at the batched shape
+    # first, then launch counts from the lockstep run are its own
+    print(f"phase 13: the lockstep tenancy sweep, the interference "
+          f"matrix's first column on {n_links} links, "
+          f"{TENANCY_ROUNDS} rounds")
+    t0 = time.perf_counter()
+    errs, batched_rows = tenancy_kernel_checks(cuda, n_links)
+    errs = dict(zip(("segment_sum_sorted", "segment_sum_scatter"), errs))
+    for row in (r for r in kernels if r["name"] in errs):
+        row["max_abs_err"] = max(row["max_abs_err"], errs[row["name"]])
+        row.update(batched_rows[row["name"]])
+    tenancy_batch_check(cuda)
+    column = tenancy_column_timed(cuda)
+    counts = dict(zip(("segment_sum_sorted", "segment_sum_scatter"),
+                      column["launches"]))
+    for row in (r for r in kernels if r["name"] in counts):
+        row["launches_by_path"]["tenancy lockstep"] = counts[row["name"]]
+        row["launches"] = sum(row["launches_by_path"].values())
+    tenancy_profile(cuda)
+    interference = published_interference(cuda)
+    print("  tenancy " + json.dumps(
+        {"column": {k: v for k, v in column.items() if k != "launches"},
+         "published_interference": interference,
+         "idle": PROFILES.get("tenancy lockstep round")}))
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s wall")
 
     # each kernel's launches on the serving paths that run it
     for row in kernels:

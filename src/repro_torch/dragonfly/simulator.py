@@ -54,7 +54,9 @@ from repro_torch.dragonfly.routing import (RoutingPolicy,
                                            row_bias_terms)
 from repro_torch.dragonfly.topology import (PAD, Allocation, Topology,
                                             make_topology)
-from repro_torch.dragonfly.torch_backend import fixed_point_torch
+from repro_torch.dragonfly.torch_backend import (batch_signature,
+                                                 fixed_point_torch,
+                                                 fixed_point_torch_batch)
 from repro_torch.runtime import resolve_device
 
 
@@ -1015,3 +1017,47 @@ class DragonflySimulator:
         if include_estimates:
             self.est_memory_s[:] = 0.0
 
+
+def run_phase_batch(calls) -> list:
+    """Run several simulators' phases, fusing compatible pipelines.
+
+    ``calls``: sequence of ``(sim, kwargs)`` pairs — each ``kwargs`` is
+    one `DragonflySimulator.run_phase` argument dict; one simulator may
+    not appear twice in a batch (raises ValueError).  Per-sim host
+    halves (`_phase_begin` / `_phase_finish`) run exactly as in
+    sequential ``run_phase`` calls, in call order — same RNG draws, same
+    state updates — while phases whose
+    :func:`~repro_torch.dragonfly.torch_backend.batch_signature`s agree
+    (same device, same shapes) are evaluated through ONE batched
+    pipeline dispatch (`torch_backend.fixed_point_torch_batch`).  A
+    phase alone in its group runs its pipeline per-sim.  Returns the
+    [FlowResult] list in call order.
+
+    This is the tenancy lockstep driver's primitive: whole sweep
+    columns (same mix, different victim arms) advance round-for-round
+    with every cell's phase batched into one dispatch."""
+    if len({id(sim) for sim, _ in calls}) != len(calls):
+        raise ValueError("run_phase_batch: a simulator appears twice in "
+                         "one batch")
+    ctxs = [sim._phase_begin(**kw) for sim, kw in calls]
+    outs: dict = {}
+    groups: dict = {}
+    for i, ((sim, _), ctx) in enumerate(zip(calls, ctxs)):
+        if ctx["result"] is None:
+            groups.setdefault(batch_signature(sim, ctx), []).append(i)
+    for idxs in groups.values():
+        if len(idxs) < 2:
+            continue
+        batch = [(calls[i][0], ctxs[i]) for i in idxs]
+        for i, o in zip(idxs, fixed_point_torch_batch(batch)):
+            outs[i] = o
+    results = []
+    for i, ((sim, _), ctx) in enumerate(zip(calls, ctxs)):
+        if ctx["result"] is not None:
+            results.append(ctx["result"])
+            continue
+        out = outs.get(i)
+        if out is None:
+            out = sim._run_kernel(ctx)
+        results.append(sim._phase_finish(ctx, out))
+    return results

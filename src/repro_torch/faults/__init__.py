@@ -1,7 +1,10 @@
-"""The port's copy of ``repro.faults.spec``: declarative, phase-indexed
-fault schedules bound to a topology.  The heartbeat detection front end
-(``repro.faults.detection``) is not ported yet."""
+"""The port's copy of ``repro.faults``: declarative, phase-indexed
+fault schedules bound to a topology (``faults/spec.py``), and the
+heartbeat-driven detection front end over ``runtime.fault_tolerance``
+(``faults/detection.py``)."""
 
+from repro_torch.faults.detection import (DetectionReport, HeartbeatDriver,
+                                          remap_allocation)
 from repro_torch.faults.spec import (BoundFaultSchedule, FaultSchedule,
                                      FaultSpec, FaultState, counter_dropout,
                                      link_degrade, link_down, link_flap,
@@ -12,4 +15,5 @@ __all__ = [
     "FaultSpec", "FaultSchedule", "BoundFaultSchedule", "FaultState",
     "link_down", "link_degrade", "router_down", "link_flap",
     "counter_dropout", "random_links", "random_routers",
+    "HeartbeatDriver", "DetectionReport", "remap_allocation",
 ]

@@ -1,6 +1,9 @@
-"""Device resolution for the PyTorch port.
+"""Device resolution for the PyTorch port, and the control-plane state
+machines of ``repro/runtime/`` (fault tolerance, straggler mitigation,
+elastic scaling; NumPy copies in this package).
 
-Counterpart of ``repro/compat/runtime.py``.  The reference degrades to
+``resolve_device``, ``on_hopper`` and ``HOPPER`` are the counterpart of
+``repro/compat/runtime.py``.  The reference degrades to
 NumPy when its accelerator stack is missing; the port does not.  Its
 entry points run on the CUDA card unless the caller asks for the CPU
 explicitly (``device="cpu"``, as the tests do), and a CUDA request on a
@@ -10,6 +13,19 @@ machine without CUDA raises instead of carrying on on the CPU.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.runtime.elastic import ElasticConfig, ElasticPlanner
+from repro_torch.runtime.fault_tolerance import (FaultToleranceConfig,
+                                                 HeartbeatMonitor, NodeState,
+                                                 RestartPolicy)
+from repro_torch.runtime.straggler import StragglerConfig, StragglerMitigator
+
+__all__ = [
+    "HOPPER", "resolve_device", "on_hopper",
+    "HeartbeatMonitor", "FaultToleranceConfig", "RestartPolicy", "NodeState",
+    "StragglerMitigator", "StragglerConfig",
+    "ElasticPlanner", "ElasticConfig",
+]
 
 #: the compute capability the hand-written kernels are built for (sm_90a)
 HOPPER = (9, 0)

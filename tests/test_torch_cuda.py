@@ -188,6 +188,58 @@ def test_phase_on_the_card_matches_the_cpu(cuda, use_plan):
             sims[1].rng.bit_generator.state
 
 
+def _column(device, planned):
+    """A sweep column on one device: a simulator per arm, same seed."""
+    topo = small_topology("aries")
+    rng = np.random.default_rng(9)
+    src = rng.integers(0, topo.n_nodes, size=400)
+    dst = (src + rng.integers(1, topo.n_nodes, size=400)) % topo.n_nodes
+    size = rng.pareto(1.2, size=400) * 65536 + 1024
+    calls = []
+    for mode in (RoutingMode.ADAPTIVE_0, RoutingMode.ADAPTIVE_3,
+                 RoutingMode.MIN_HASH):
+        sim = DragonflySimulator(topo, SimParams(seed=11), device=device)
+        kw = dict(src_nodes=src, dst_nodes=dst, bytes_=size,
+                  policy=RoutingPolicy(mode))
+        if planned:
+            kw["plan"] = sim.plan_for(src, dst, size)
+        calls.append((sim, kw))
+    return calls
+
+
+@pytest.mark.parametrize("planned", [False, True])
+def test_batched_phases_on_the_card(cuda, planned):
+    """run_phase_batch on the card: one dispatch launching B1 as often as
+    one phase; t_us within JAX_RTOL of the batch on the CPU, and of
+    sequential run_phase on the card: within 1e-4 on the first round,
+    where both start from one state and only the scatter form's atomic
+    order differs (a random summation order moves t_us by under 1e-5:
+    tests/test_torch_batch.py::test_summation_order_witness), within
+    JAX_RTOL after it, where the carried queues amplify that order
+    (1.6e-4 by the second round of this column's planless phases)."""
+    from repro_torch.dragonfly import torch_backend
+    from repro_torch.dragonfly.simulator import run_phase_batch
+    batched, sequential, cpu = (_column(cuda, planned),
+                                _column(cuda, planned),
+                                _column("cpu", planned))
+    for r in range(3):
+        before = (segment_sum_sorted.launches, segment_sum_scatter.launches,
+                  dict(torch_backend.PIPELINE_CALLS))
+        got = run_phase_batch(batched)
+        launched = (segment_sum_sorted.launches - before[0],
+                    segment_sum_scatter.launches - before[1])
+        assert torch_backend.PIPELINE_CALLS["batched"] == \
+            before[2]["batched"] + 1
+        assert launched == ((5, 6) if planned else (0, 6))
+        seq = [sim.run_phase(**kw) for sim, kw in sequential]
+        ref = run_phase_batch(cpu)
+        for a, b, c in zip(got, seq, ref):
+            np.testing.assert_allclose(a.t_us, b.t_us,
+                                       rtol=1e-4 if r == 0 else JAX_RTOL)
+            np.testing.assert_allclose(a.t_us, c.t_us, rtol=JAX_RTOL)
+            assert np.array_equal(a.flits, c.flits)
+
+
 @pytest.mark.parametrize("shape,xdtype,gdtype", [
     ((4096, 768), torch.bfloat16, torch.bfloat16),   # prefill ln / ln_f
     ((4096, 1536), torch.bfloat16, torch.bfloat16),  # prefill gated norm

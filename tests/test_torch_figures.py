@@ -23,13 +23,22 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from benchmarks import fig7_routing_pingpong as ref_fig7  # noqa: E402
 from benchmarks import fig8_microbench as ref_fig8        # noqa: E402
 from benchmarks import fig10_applications as ref_fig10    # noqa: E402
+from benchmarks import fig3_allocation as ref_fig3        # noqa: E402
+from benchmarks import fig4_fig5_hostnoise as ref_fig45   # noqa: E402
+from benchmarks import model_validation as ref_mv         # noqa: E402
+from benchmarks import table1_correlation as ref_table1   # noqa: E402
 from repro.dragonfly import DragonflySimulator as RefSim  # noqa: E402
+from repro.dragonfly import TopologyParams as RefTopologyParams  # noqa: E402
 from repro.dragonfly import make_topology as ref_make_topology  # noqa: E402
 from repro.policy import PolicyEngine as RefEngine        # noqa: E402
 from repro_torch.benchmarks import common                 # noqa: E402
 from repro_torch.benchmarks import fig7_routing_pingpong as fig7  # noqa: E402
 from repro_torch.benchmarks import fig8_microbench as fig8  # noqa: E402
 from repro_torch.benchmarks import fig10_applications as fig10  # noqa: E402
+from repro_torch.benchmarks import fig3_allocation as fig3  # noqa: E402
+from repro_torch.benchmarks import fig4_fig5_hostnoise as fig45  # noqa: E402
+from repro_torch.benchmarks import model_validation as mv  # noqa: E402
+from repro_torch.benchmarks import table1_correlation as table1  # noqa: E402
 from repro_torch.benchmarks.parity import (compare_traces,  # noqa: E402
                                            trace_protocol)
 from repro_torch.dragonfly import DragonflySimulator as PortSim  # noqa: E402
@@ -40,6 +49,13 @@ from test_torch_simulator import JAX_RTOL  # noqa: E402
 
 #: the golden tests' small machine
 SMALL = "aries:n_groups=4,chassis_per_group=2,blades_per_chassis=4"
+#: the same machine as the parameters the reference drivers that
+#: hard-code DAINT are given (monkeypatched, as
+#: tests/test_benchmarks_golden.py patches fig8's SWEEP)
+SMALL_PARAMS = RefTopologyParams(n_groups=4, chassis_per_group=2,
+                                 blades_per_chassis=4)
+#: model validation's sizes at test scale
+MV_SIZES = (128, 16384, 4 << 20)
 FIG8_SWEEP = {"alltoall": [dict(size_per_pair=1024)],
               "halo3d": [dict(nx=256)]}
 
@@ -177,7 +193,8 @@ def test_common_helpers_match_the_reference():
         ref_common.group_spread(ref_make_topology(SMALL), 6)
 
 
-@pytest.mark.parametrize("figure", ["fig7", "fig8", "fig10"])
+@pytest.mark.parametrize("figure", ["fig7", "fig8", "fig10", "fig3",
+                                    "fig5", "table1", "model_validation"])
 def test_figures_default_to_the_card(figure):
     """No device means CUDA; without one the figure runs raise."""
     if __import__("torch").cuda.is_available():
@@ -188,6 +205,102 @@ def test_figures_default_to_the_card(figure):
         elif figure == "fig8":
             fig8.run(machine="cori", iters=1, topology=SMALL,
                      sweep=FIG8_SWEEP)
-        else:
+        elif figure == "fig10":
             fig10.run_app(make_topology(SMALL), "bfs", "alltoall",
                           dict(size_per_pair=2048), 8, 0.5, iters=1)
+        elif figure == "fig3":
+            fig3.run(iters=1, seeds=1, topology=SMALL)
+        elif figure == "fig5":
+            fig45.fig5_qcd_exec_vs_latency(iters=1, seeds=1,
+                                           topology=SMALL)
+        elif figure == "table1":
+            table1.run(idle_seconds=(1e-4,), topology=SMALL)
+        else:
+            mv.run(n_allocations=1, iters=1, topology=SMALL)
+
+
+# ------------------------------------------ fig3, fig4/5, table 1, §2.4
+@pytest.fixture
+def small_daint(monkeypatch):
+    """The reference drivers that hard-code DAINT, on the small machine;
+    model validation at three sizes in both packages."""
+    for mod in (ref_fig3, ref_fig45, ref_table1, ref_mv):
+        monkeypatch.setattr(mod, "DAINT", SMALL_PARAMS)
+    monkeypatch.setattr(ref_mv, "SIZES", MV_SIZES)
+    monkeypatch.setattr(mv, "SIZES", MV_SIZES)
+
+
+def test_fig3_matches_the_reference(small_daint):
+    with _paired() as (ref_run, port_run, traces):
+        with ref_run():
+            want = ref_fig3.run(iters=4, seeds=2)
+        with port_run():
+            got = fig3.run(iters=4, seeds=2, topology=SMALL, device="cpu")
+    # a static arm: nothing can flip, every phase is held
+    assert _held(traces, got, want, "fig3") == len(traces["ref"].phases)
+
+
+def test_fig4_equals_the_reference():
+    """Fig. 4 runs no simulator: its own generator, equal draws."""
+    assert fig45.fig4_same_node_alltoall(iters=50) == \
+        ref_fig45.fig4_same_node_alltoall(iters=50)
+
+
+def test_fig5_matches_the_reference(small_daint):
+    sizes = (128, 16384, 4 << 20)
+    with _paired() as (ref_run, port_run, traces):
+        with ref_run():
+            want = ref_fig45.fig5_qcd_exec_vs_latency(sizes=sizes, iters=4,
+                                                      seeds=2)
+        with port_run():
+            got = fig45.fig5_qcd_exec_vs_latency(sizes=sizes, iters=4,
+                                                 seeds=2, topology=SMALL,
+                                                 device="cpu")
+    assert _held(traces, got, want, "fig5") == len(traces["ref"].phases)
+
+
+def test_table1_matches_the_reference(small_daint):
+    idle = (0.002, 0.004)                  # 40 and 80 idle phases
+    with _paired() as (ref_run, port_run, traces):
+        with ref_run():
+            want = ref_table1.run(idle_seconds=idle)
+        with port_run():
+            got = table1.run(idle_seconds=idle, topology=SMALL,
+                             device="cpu")
+    assert _held(traces, got, want, "table1") == len(traces["ref"].phases)
+    assert [r["flits"] for r in got] == [r["flits"] for r in want]
+
+
+def test_model_validation_matches_the_reference(small_daint):
+    with _paired() as (ref_run, port_run, traces):
+        buf_ref, buf_port = io.StringIO(), io.StringIO()
+        with ref_run(), contextlib.redirect_stdout(buf_ref):
+            want = ref_mv.run(n_allocations=4, iters=2)
+        with port_run(), contextlib.redirect_stdout(buf_port):
+            got = mv.run(n_allocations=4, iters=2, topology=SMALL,
+                         device="cpu")
+    assert _held(traces, got, want, "model_validation") == \
+        len(traces["ref"].phases)
+    assert list(_rows(buf_port.getvalue())) == \
+        list(_rows(buf_ref.getvalue()))
+
+
+@pytest.mark.parametrize("figure", ["fig3", "fig4_fig5", "model_validation"])
+def test_new_figure_main_prints_the_reference_rows(figure, small_daint):
+    """The printed rows of each reduced ``main()`` (the CLI contract)."""
+    ref_mod, mod = {"fig3": (ref_fig3, fig3),
+                    "fig4_fig5": (ref_fig45, fig45),
+                    "model_validation": (ref_mv, mv)}[figure]
+    with _paired() as (ref_run, port_run, traces):
+        buf_ref, buf_port = io.StringIO(), io.StringIO()
+        with ref_run(), contextlib.redirect_stdout(buf_ref):
+            ref_mod.main()
+        with port_run(), contextlib.redirect_stdout(buf_port):
+            mod.main(topology=SMALL, device="cpu")
+    assert compare_traces(traces["ref"], traces["port"], JAX_RTOL) == \
+        len(traces["ref"].phases)
+    want, got = _rows(buf_ref.getvalue()), _rows(buf_port.getvalue())
+    assert list(got) == list(want)
+    for name, (us, _) in want.items():
+        np.testing.assert_allclose(got[name][0], us, rtol=JAX_RTOL,
+                                   atol=1e-3, err_msg=name)

@@ -35,7 +35,7 @@ def test_port_imports_no_jax_and_no_reference():
     n_modules, rest = out.stdout.split(" ", 1)
     bad, names = rest.split("] ", 1)
     names = set(names.split())
-    assert int(n_modules) >= 66          # every module was imported
+    assert int(n_modules) >= 83          # every module was imported
     assert bad.strip() == "["
     # the policy engine and the figure benchmarks are among them
     for pkg in ("policy", "benchmarks"):
@@ -48,6 +48,18 @@ def test_port_imports_no_jax_and_no_reference():
         "fig10_applications")} <= names
     assert {f"repro_torch.core.{m}" for m in (
         "noise", "calibration", "app_aware")} <= names
+    # the multi-tenant slice: tenancy, the fault path's NumPy copies,
+    # the last figure drivers, the matrix drivers and perf_sim
+    assert {f"repro_torch.tenancy.{m}" for m in (
+        "spec", "engine", "sweep")} <= names
+    assert {f"repro_torch.runtime.{m}" for m in (
+        "fault_tolerance", "straggler", "elastic")} <= names
+    assert {"repro_torch.faults.detection",
+            "repro_torch.dragonfly.invariants"} <= names
+    assert {f"repro_torch.benchmarks.{m}" for m in (
+        "fig3_allocation", "fig4_fig5_hostnoise", "table1_correlation",
+        "model_validation", "interference_matrix", "fault_matrix",
+        "notification_matrix", "perf_sim")} <= names
 
 
 def test_simulator_without_device_raises_when_cuda_is_absent(monkeypatch):
@@ -93,3 +105,30 @@ def test_policy_imports_are_not_circular(first):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "repro_torch.core.app_aware"
+
+
+@pytest.mark.parametrize("entry", ["sweep", "interference_matrix",
+                                   "fault_matrix", "notification_matrix",
+                                   "perf_sim"])
+def test_tenancy_entry_points_default_to_the_card(entry, monkeypatch):
+    """No device means CUDA: without it the tenancy sweep, the matrix
+    drivers and perf_sim raise before any phase runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.benchmarks import (fault_matrix, interference_matrix,
+                                        notification_matrix, perf_sim)
+    from repro_torch.tenancy import TenancyMix, Workload, sweep
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if entry == "sweep":
+            sweep("aries:n_groups=4,chassis_per_group=2,"
+                  "blades_per_chassis=4",
+                  [TenancyMix("m", (Workload("a", "alltoall", 8,
+                                             {"size_per_pair": 64}),))],
+                  {"a0": "app_aware"}, rounds=1)
+        elif entry == "interference_matrix":
+            interference_matrix.run(1, 0.1, seed=7)
+        elif entry == "fault_matrix":
+            fault_matrix.run(1, 0.1, seed=7)
+        elif entry == "notification_matrix":
+            notification_matrix.run(1, 0.1, 1, seed=7)
+        else:
+            perf_sim.run(100, 1)

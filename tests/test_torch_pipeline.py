@@ -4,7 +4,8 @@ One reference ``_phase_begin`` ctx (the third phase of a simulator, so
 queues are non-zero and notification flags visible) goes through
 ``repro.dragonfly.jax_backend._phase_pipeline`` — with its plain
 segment sum and with the Pallas kernel in interpret mode — and through
-``repro_torch.dragonfly.torch_backend.phase_pipeline`` on the CPU.
+``repro_torch.dragonfly.torch_backend.phase_pipeline`` on the CPU, as a
+batch of one phase.
 
 Tolerance, set from seeds 0-4 over every case here: the largest
 elementwise relative difference on entries above 1e-3 of an output's
@@ -88,9 +89,11 @@ def test_pipeline_matches_jax(use_kernel, scenario, use_plan, seed):
     pctx = dict(ctx, plan=None if ctx["plan"] is None
                 else _port_plan(ctx["plan"]))
     got = torch_backend.phase_pipeline(
-        **torch_backend._prepare_inputs(psim, pctx))
+        **torch_backend.prepare_batch([(psim, pctx)]))
 
     for name, g, w in zip(OUTPUTS, got, want):
+        assert g.shape[0] == 1, name        # a batch of one phase
+        g = g[0]
         w = np.asarray(w)
         assert g.shape == w.shape, name
         np.testing.assert_allclose(
