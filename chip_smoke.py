@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-Drives the port's three main paths on the card at full width:
+Drives the port's main paths on the card at full width:
 
 * the simulator path, one Dragonfly phase: the default Aries machine
   (``TopologyParams(n_groups=12)``: 4,608 nodes, 56,448 directed
@@ -23,6 +23,11 @@ Drives the port's three main paths on the card at full width:
   for 8 iterations, on its ``allreduce`` 262,144-element row (10 phases
   of 1,024 flows) and its ``alltoall`` 65,536-byte row (1,047,552 flows
   cut to 60,000);
+* the MoE serving path: granite-moe-3b-a800m at its published width
+  (32 layers, d_model 1536, 24 heads over 8 KV heads of 64, 40 experts
+  top-8 with d_ff 512, vocab 49,155; random weights from a seed) behind
+  ``ServeEngine(..., ServeConfig(comm_policy="app_aware"))``, the same
+  requests, its KV transfer routed by Algorithm 1;
 * the multi-tenant simulator: the interference matrix's first column
   (``repro_torch.benchmarks.interference_matrix``: ``halo3d-vs-alltoall``
   at its published 64 and 96 ranks, the victim arms adaptive, minimal
@@ -107,7 +112,25 @@ Phases:
     dispatches per round; one lockstep round under ``torch.profiler``;
     the published interference matrix in lockstep, every cell and the
     checks held against the committed ``BENCH_interference.json`` at
-    rtol 2e-2.
+    rtol 2e-2;
+14. the MoE serving path: B2 at granite's prefill shape (q
+    ``[8,24,512,64]``, GQA group 3) against its plain version (the bf16
+    limits of phase 9) and timed, B4 at the serve's shapes; one timed
+    ``ServeEngine.run`` with ``comm_policy="app_aware"``, every prefill
+    (32 B2, 65 B4) and decode step (0, 65) checked, the KV transfer's
+    decision and bytes; one prefill and one decode step under
+    ``torch.profiler``; one MoE layer in its parts (router and dispatch,
+    the dispatch einsum, the experts, the combine einsum) and their
+    share of the prefill;
+15. granite card vs CPU at 32 and 2 layers, and qwen2-moe-a2.7b at full
+    width and 2 layers, in float32 and bf16, each card run anchored to
+    the CPU's expert choices, its routing flips counted per layer and
+    held to the tie rule (``moe_cpu_compare``), then the logits as in
+    phases 8 and 11;
+16. the collective schedules in an NCCL world of one on a (1, 1, 1)
+    mesh (each the identity: only that the calls reach NCCL), and
+    ``moe_ep`` against ``moe_ep_ref`` on granite's layer-0 weights and
+    the serve's input to that layer.
 
 Prints the kernel summary as one JSON line, then the ``ok`` line last.
 Any failed check exits non-zero; so does a machine without CUDA, and a
@@ -147,7 +170,16 @@ from repro_torch.dragonfly import torch_backend  # noqa: E402
 from repro_torch.dragonfly import traffic  # noqa: E402
 from repro_torch.dragonfly.simulator import run_phase_batch  # noqa: E402
 from repro_torch.faults import FaultSchedule, link_down  # noqa: E402
+from repro_torch.collectives import (CollectiveMode,  # noqa: E402
+                                     allreduce_direct,
+                                     allreduce_hierarchical, alltoall_direct,
+                                     alltoall_hierarchical, grad_allreduce)
+from repro_torch.collectives.moe_ep import moe_ep, moe_ep_ref  # noqa: E402
+from repro_torch.configs.granite_moe_3b_a800m import \
+    CONFIG as GRANITE  # noqa: E402
 from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2  # noqa: E402
+from repro_torch.configs.qwen2_moe_a2_7b import \
+    CONFIG as QWEN2_MOE  # noqa: E402
 from repro_torch.configs.qwen2_1_5b import CONFIG as QWEN2  # noqa: E402
 from repro_torch.configs.stablelm_1_6b import CONFIG as STABLELM  # noqa: E402
 from repro_torch.kernels import libraries  # noqa: E402
@@ -166,7 +198,10 @@ from repro_torch.kernels.ssd_scan.build import LIB as SSD_LIB  # noqa: E402
 from repro_torch.models import attention as model_attention  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.models import mamba2 as model_mamba2  # noqa: E402
+from repro_torch.models import moe as model_moe  # noqa: E402
+from repro_torch.models import moe_parity  # noqa: E402
 from repro_torch.models import registry as model_registry  # noqa: E402
+from repro_torch.models import transformer as model_tf  # noqa: E402
 from repro_torch.policy import PolicyEngine  # noqa: E402
 from repro_torch.runtime import on_hopper  # noqa: E402
 from repro_torch.serve import Request, ServeConfig, ServeEngine  # noqa: E402
@@ -655,7 +690,8 @@ def run_counted(what: str, want: tuple, fn):
 #: a prefill launches the first once per layer, a decode step never, and
 #: B4 twice per layer and once for the final norm in both
 SERVE_KERNELS = {MAMBA2.name: (ssd_inner, rmsnorm_fused),
-                 QWEN2.name: (flash_attention, rmsnorm_fused)}
+                 QWEN2.name: (flash_attention, rmsnorm_fused),
+                 GRANITE.name: (flash_attention, rmsnorm_fused)}
 
 
 def launch_counts(kernels) -> tuple:
@@ -697,13 +733,15 @@ class Checked:
         return out
 
 
-def serve_engine(cfg, model, cuda, profile=False):
-    """A ServeEngine of ``cfg`` whose prefill and decode steps are
-    Checked for the launches of ``SERVE_KERNELS[cfg.name]``."""
+def serve_engine(cfg, model, cuda, profile=False, **scfg):
+    """A ServeEngine of ``cfg`` (``scfg``: more ServeConfig fields) whose
+    prefill and decode steps are Checked for the launches of
+    ``SERVE_KERNELS[cfg.name]``."""
     n_layers, kernels = cfg.n_layers, SERVE_KERNELS[cfg.name]
     eng = ServeEngine(cfg, model,
                       ServeConfig(batch=SERVE_BATCH,
-                                  max_len=PROMPT_LEN + NEW_TOKENS + 8),
+                                  max_len=PROMPT_LEN + NEW_TOKENS + 8,
+                                  **scfg),
                       device=cuda)
     eng._prefill = Checked(eng._prefill, f"{cfg.name} prefill", kernels,
                            (n_layers, 2 * n_layers + 1),
@@ -723,10 +761,16 @@ def capture_inputs(cfg, model, cuda) -> dict:
     """One warm-up serve; keeps the first inputs of each shape that the
     B2, B3 and B4 wrappers were given (B3's rebuilt from the scan's
     arguments by ``chunk_inputs``, as ``ssd_scan_op`` builds them: x, B,
-    C, dacum and dt on the bf16 route)."""
+    C, dacum and dt on the bf16 route), and the first MoE layer's
+    weights and input of each shape."""
     seen: dict = {}
     real_scan, real_norm, real_flash = model_mamba2.ssd_scan_op, \
         model_common.rmsnorm_fused, model_attention.flash_attention
+    real_moe = model_tf.moe_einsum
+
+    def moe_layer(w, x, cfg):
+        seen.setdefault(("moe",) + tuple(x.shape), [w, x.clone()])
+        return real_moe(w, x, cfg)
 
     def scan(x, dt, a_log, b_mat, c_mat, chunk, **kw):
         key = ("ssd",) + tuple(x.shape)
@@ -747,11 +791,13 @@ def capture_inputs(cfg, model, cuda) -> dict:
 
     model_mamba2.ssd_scan_op, model_common.rmsnorm_fused, \
         model_attention.flash_attention = scan, norm, flash
+    model_tf.moe_einsum = moe_layer
     try:
         serve_engine(cfg, model, cuda).run(serve_requests(cfg), seed=SEED)
     finally:
         model_mamba2.ssd_scan_op, model_common.rmsnorm_fused, \
             model_attention.flash_attention = real_scan, real_norm, real_flash
+        model_tf.moe_einsum = real_moe
     return seen
 
 
@@ -944,8 +990,6 @@ def flash_checks(seen: dict) -> dict:
     stablelm-1.6b's head dim of 64; time, plain and library times and
     bound at the prefill's shape; B4 at that path's shapes.  Returns the
     JSON row (the bf16 prefill; float32 figures under ``f32_*``)."""
-    import torch.nn.functional as F
-
     print("phase 9: flash attention (B2) vs plain on the card, inputs from "
           "a warm-up serve")
     keys = [k for k in seen if k[0] == "flash"]
@@ -973,69 +1017,14 @@ def flash_checks(seen: dict) -> dict:
              ("bf16, Sq = 7, Skv = 333, non-causal",
               (cut(q, 1, 7), cut(k, 1, 333), cut(v, 1, 333)), False),
              (f"bf16, {STABLELM.name} head dim (randn)", hd64, True)]
-    err = 0.0
-    for label, (a, b, c), is_causal in cases:
-        got = flash_attention(a, b, c, causal=is_causal)
-        torch.cuda.synchronize()
-        want = flash_attention_plain(a, b, c, causal=is_causal)
-        e = max_err(got.float(), want.float())
-        if a.dtype == torch.float32:
-            rtol, atol, what = FLASH_TOL, FLASH_TOL, f"atol {FLASH_TOL:.4g}"
-        else:
-            rtol, atol = BF16_RTOL, flash_bf16_atol(a, b, c, is_causal)
-            what = f"atol 2**-7 sum p|v|, {float(atol.min()):.3e} to " \
-                f"{float(atol.max()):.3e}"
-        gap = (got.float() - want.float()).abs()
-        limit = atol + rtol * want.float().abs()
-        ok = bool((gap <= limit).all())
-        share = float((gap / limit.clamp_min(1e-30)).max())
-        print(f"  flash_attention {label} q {tuple(a.shape)} k "
-              f"{tuple(b.shape)}: max_abs_err {e:.3e} (rtol {rtol:.4g}, "
-              f"{what}; largest gap {share:.3f} of its limit; "
-              f"{int((got != want).sum())} of {got.numel()} differ) "
-              f"{'ok' if ok else 'MISMATCH'}")
-        check(ok, f"flash_attention {label} disagrees with its plain version")
-        err = max(err, e)
-
-    # the function's own work: q.k and p.v over the causal pairs
-    flops = 4 * hd * bsz * heads * seq * (seq + 1) // 2
+    err = max(flash_hold(label, a, b, c, is_causal)
+              for label, (a, b, c), is_causal in cases)
     row = {"name": "flash_attention", "route": "cuda",
            "source": FLASH_SOURCE, "replaces": FLASH_TPU, "launches": 0,
            "max_abs_err": err, "shape": [bsz, heads, kv_heads, seq, hd]}
     for prefix, (a, b, c) in (("", (q, k, v)), ("f32_", f32)):
-        nbytes = (2 * a.numel() + b.numel() + c.numel()) * a.element_size()
-        ms = graph_ms(lambda: flash_attention(a, b, c), 20)
-        plain_ms = cuda_ms(lambda: flash_attention_plain(a, b, c), 10)
-        def sdpa():
-            return F.scaled_dot_product_attention(a, b, c, is_causal=True,
-                                                  enable_gqa=True)
-
-        library_ms = cuda_ms(sdpa, 20)
-        library_graph_ms = graph_ms(sdpa, 20)
-        # bf16 runs on the tensor cores, float32 on the FMA pipe
-        peak = BF16_FLOP_PER_S if a.dtype == torch.bfloat16 \
-            else F32_FLOP_PER_S
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / peak * 1e3
-        print(f"  flash_attention {str(a.dtype)[6:]} {tuple(a.shape)} / "
-              f"{tuple(b.shape)}: {ms * 1e3:.2f} us/launch (graph replay), "
-              f"plain {plain_ms * 1e3:.2f} us, SDPA {library_ms * 1e3:.2f} "
-              f"us (graph replay {library_graph_ms * 1e3:.2f} us), bound "
-              f"{max(bytes_ms, ops_ms) * 1e3:.2f} us ({flops} "
-              f"flop at {peak:.3g} flop/s: {ops_ms * 1e3:.2f} us; {nbytes} "
-              f"bytes: {bytes_ms * 1e3:.2f} us), "
-              f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
-        if a.dtype == torch.bfloat16:
-            factor = ms / library_graph_ms
-            print(f"  bf16 B2 / SDPA (graph replay) = {factor:.3f}: "
-                  f"{'within' if factor <= FLASH_SDPA_FACTOR else 'MISSES'}"
-                  f" {FLASH_SDPA_FACTOR}x")
-            row["sdpa_factor"] = factor
-        row.update({f"{prefix}ms": ms, f"{prefix}plain_ms": plain_ms,
-                    f"{prefix}bound_ms": max(bytes_ms, ops_ms),
-                    f"{prefix}bound_by": "bytes" if bytes_ms >= ops_ms
-                    else "operations", f"{prefix}library_ms": library_ms,
-                    f"{prefix}library_graph_ms": library_graph_ms})
+        row.update({prefix + key: val
+                    for key, val in flash_times(a, b, c).items()})
 
     for key in sorted(k for k in seen if k[0] == "rms"):
         x, gamma, eps = seen[key]
@@ -1043,16 +1032,86 @@ def flash_checks(seen: dict) -> dict:
     return row
 
 
-def serve_path(cfg, model, cuda, phase: int) -> dict:
-    """Phases 7 and 10: a serving path, counted and timed, then
-    profiled."""
+def flash_hold(label: str, a, b, c, is_causal: bool) -> float:
+    """B2 against its plain version on q, k, v = ``a``, ``b``, ``c``:
+    float32 at ``FLASH_TOL``, bf16 at one bf16 ulp plus
+    ``flash_bf16_atol``; returns the largest gap."""
+    got = flash_attention(a, b, c, causal=is_causal)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(a, b, c, causal=is_causal)
+    e = max_err(got.float(), want.float())
+    if a.dtype == torch.float32:
+        rtol, atol, what = FLASH_TOL, FLASH_TOL, f"atol {FLASH_TOL:.4g}"
+    else:
+        rtol, atol = BF16_RTOL, flash_bf16_atol(a, b, c, is_causal)
+        what = f"atol 2**-7 sum p|v|, {float(atol.min()):.3e} to " \
+            f"{float(atol.max()):.3e}"
+    gap = (got.float() - want.float()).abs()
+    limit = atol + rtol * want.float().abs()
+    ok = bool((gap <= limit).all())
+    share = float((gap / limit.clamp_min(1e-30)).max())
+    print(f"  flash_attention {label} q {tuple(a.shape)} k "
+          f"{tuple(b.shape)}: max_abs_err {e:.3e} (rtol {rtol:.4g}, "
+          f"{what}; largest gap {share:.3f} of its limit; "
+          f"{int((got != want).sum())} of {got.numel()} differ) "
+          f"{'ok' if ok else 'MISMATCH'}")
+    check(ok, f"flash_attention {label} disagrees with its plain version")
+    return e
+
+
+def flash_times(a, b, c) -> dict:
+    """B2's causal time on q, k, v = ``a``, ``b``, ``c`` by graph replay,
+    the plain version's and SDPA's, and the bound (the function's own
+    work: q.k and p.v over the causal pairs)."""
+    import torch.nn.functional as F
+
+    bsz, heads, seq, hd = a.shape
+    flops = 4 * hd * bsz * heads * seq * (seq + 1) // 2
+    nbytes = (2 * a.numel() + b.numel() + c.numel()) * a.element_size()
+    ms = graph_ms(lambda: flash_attention(a, b, c), 20)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(a, b, c), 10)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(a, b, c, is_causal=True,
+                                              enable_gqa=True)
+
+    library_ms = cuda_ms(sdpa, 20)
+    library_graph_ms = graph_ms(sdpa, 20)
+    # bf16 runs on the tensor cores, float32 on the FMA pipe
+    peak = BF16_FLOP_PER_S if a.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / peak * 1e3
+    print(f"  flash_attention {str(a.dtype)[6:]} {tuple(a.shape)} / "
+          f"{tuple(b.shape)}: {ms * 1e3:.2f} us/launch (graph replay), "
+          f"plain {plain_ms * 1e3:.2f} us, SDPA {library_ms * 1e3:.2f} "
+          f"us (graph replay {library_graph_ms * 1e3:.2f} us), bound "
+          f"{max(bytes_ms, ops_ms) * 1e3:.2f} us ({flops} "
+          f"flop at {peak:.3g} flop/s: {ops_ms * 1e3:.2f} us; {nbytes} "
+          f"bytes: {bytes_ms * 1e3:.2f} us), "
+          f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+    out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": library_ms, "library_graph_ms": library_graph_ms}
+    if a.dtype == torch.bfloat16:
+        factor = ms / library_graph_ms
+        print(f"  bf16 B2 / SDPA (graph replay) = {factor:.3f}: "
+              f"{'within' if factor <= FLASH_SDPA_FACTOR else 'MISSES'}"
+              f" {FLASH_SDPA_FACTOR}x")
+        out["sdpa_factor"] = factor
+    return out
+
+
+def serve_path(cfg, model, cuda, phase: int, **scfg) -> dict:
+    """Phases 7, 10 and 14: a serving path (``scfg``: more ServeConfig
+    fields), counted and timed, then profiled."""
     n_layers = cfg.n_layers
     mixer, norm = SERVE_KERNELS[cfg.name]
     print(f"phase {phase}: serve {cfg.name} ({n_layers} layers, d_model "
           f"{cfg.d_model}, vocab {cfg.vocab}), {SERVE_BATCH} requests "
-          f"x {PROMPT_LEN} prompt tokens, {NEW_TOKENS} new tokens, greedy")
+          f"x {PROMPT_LEN} prompt tokens, {NEW_TOKENS} new tokens, greedy"
+          + "".join(f", {k} {v}" for k, v in scfg.items()))
     torch.cuda.reset_peak_memory_stats()   # the serve's own peak
-    eng = serve_engine(cfg, model, cuda)
+    eng = serve_engine(cfg, model, cuda, **scfg)
     reqs = serve_requests(cfg)
     mixer.launches = norm.launches = ssd_inner.bf16_launches = 0
     t0 = time.perf_counter()
@@ -1091,11 +1150,18 @@ def serve_path(cfg, model, cuda, phase: int) -> dict:
           f"step 0/{2 * n_layers + 1}), peak "
           f"memory {stats['peak_mem_gb']:.2f} GB")
     print(f"  req0 tokens: {out[0].out_tokens[:12]}")
-    prof = serve_engine(cfg, model, cuda, profile=True)
+    if eng.policy_decisions:
+        stats["kv_transfer"] = [[n, m.value]
+                                for n, m in eng.policy_decisions]
+        print(f"  KV transfer ({scfg.get('comm_policy')}): "
+              + ", ".join(f"{n} bytes -> {m.value}"
+                          for n, m in eng.policy_decisions))
+    prof = serve_engine(cfg, model, cuda, profile=True, **scfg)
     prof.run(serve_requests(cfg), seed=SEED)
     for label in ("prefill", "decode step"):
-        stats[f"{label.split()[0]}_idle_share"] = \
-            PROFILES.get(f"{cfg.name} {label}", {}).get("idle_share")
+        got = PROFILES.get(f"{cfg.name} {label}", {})
+        stats[f"{label.split()[0]}_idle_share"] = got.get("idle_share")
+        stats[f"{label.split()[0]}_busy_s"] = got.get("busy_s")
     return stats
 
 
@@ -1688,6 +1754,278 @@ def published_interference(cuda) -> dict:
     return dict(wall_s=wall, cells=n_cells, max_rel_gap=worst)
 
 
+# ----------------------------------------------------------- phases 14-16
+#: card vs CPU depths of phase 15: granite-moe-3b-a800m at full depth and
+#: at 2 layers; qwen2-moe-a2.7b at full width and 2 layers (its 24 layers
+#: need 57.3 GB of float32 masters and a 28.6 GB bf16 copy, more than the
+#: card holds)
+MOE_CPU_LAYERS = {GRANITE.name: (GRANITE.n_layers, 2), QWEN2_MOE.name: (2,)}
+#: the CPU's float32 prefill at full depth should take at most this many
+#: seconds; a slower run is reported (ROADMAP: then compare at 8 layers)
+MOE_CPU_S = 120.0
+
+
+def recast(model, cfg) -> None:
+    """Compute with ``model``'s masters in ``cfg.dtype`` from here on."""
+    model.cfg = cfg
+    model._cw = None
+
+
+def moe_breakdown(w: dict, h: torch.Tensor, cfg, n_layers: int,
+                  busy_s) -> dict:
+    """One MoE layer of the prefill (``moe_einsum`` on the layer-0 input
+    ``h`` of the serve) in its parts, by CUDA events over eager calls:
+    the router and ``topk_dispatch``, the dispatch einsum, the experts,
+    the combine einsum; and their share of the prefill's device busy
+    time over ``n_layers`` layers."""
+    bsz, seq, d = h.shape
+    n_tok = bsz * seq
+    g = max(1, n_tok // model_moe.MOE_GROUP)
+    while n_tok % g:
+        g -= 1
+    sg = n_tok // g
+    cap = max(cfg.top_k, int(np.ceil(sg * cfg.top_k * 1.25
+                                     / cfg.n_experts)))
+    xg = h.reshape(n_tok, d)
+    xt = xg.reshape(g, sg, d)
+    probs = model_moe.router_probs(w, xg, cfg).reshape(g, sg, -1)
+    disp, comb, _ = model_moe.topk_dispatch(probs, cfg, cap)
+    xe = torch.einsum("gsec,gsd->egcd", disp.to(cfg.dtype), xt)
+    ye = model_moe.expert_ffn(w, xe, cfg)
+    parts = {
+        "route": lambda: model_moe.topk_dispatch(
+            model_moe.router_probs(w, xg, cfg).reshape(g, sg, -1), cfg, cap),
+        "dispatch_einsum": lambda: torch.einsum(
+            "gsec,gsd->egcd", disp.to(cfg.dtype), xt),
+        "experts": lambda: model_moe.expert_ffn(w, xe, cfg),
+        "combine_einsum": lambda: torch.einsum(
+            "gsec,egcd->gsd", comb.to(cfg.dtype), ye),
+        "moe_einsum": lambda: model_moe.moe_einsum(w, h, cfg)}
+    ms = {name: cuda_ms(fn, 10) for name, fn in parts.items()}
+    einsum_s = n_layers * (ms["dispatch_einsum"] + ms["combine_einsum"]) \
+        * 1e-3
+    out = {"groups": g, "capacity": cap, "ms": ms,
+           "dispatch_einsums_s": einsum_s,
+           "moe_s": n_layers * ms["moe_einsum"] * 1e-3}
+    if busy_s:
+        out["dispatch_einsums_share"] = einsum_s / busy_s
+        out["moe_share"] = out["moe_s"] / busy_s
+    print(f"  MoE layer at {tuple(h.shape)} ({g} groups, capacity {cap}; "
+          "CUDA events over eager calls): " + ", ".join(
+              f"{k} {v * 1e3:.1f} us" for k, v in ms.items())
+          + f"; x {n_layers} layers: dispatch + combine einsums "
+          f"{einsum_s * 1e3:.2f} ms, the MoE layers {out['moe_s'] * 1e3:.2f}"
+          f" ms" + (f", of a prefill busy {busy_s * 1e3:.2f} ms: "
+                    f"{out['dispatch_einsums_share']:.3f} and "
+                    f"{out['moe_share']:.3f}" if busy_s else ""))
+    return out
+
+
+def granite_flash_check(seen: dict) -> dict:
+    """Phase 14: B2 at granite's prefill shape (head dim 64, GQA group 3)
+    against its plain version on the serve's own inputs, then timed;
+    B4 at the serve's shapes.  Returns a ``by_shape`` entry."""
+    keys = [k for k in seen if k[0] == "flash"]
+    check(len(keys) == 1, f"the granite serve gave B2 shapes {keys}")
+    q, k, v, causal = seen[keys[0]]
+    want = (SERVE_BATCH, GRANITE.n_heads, PROMPT_LEN, GRANITE.hd)
+    check(causal and q.dtype == torch.bfloat16 and tuple(q.shape) == want
+          and k.shape[1] == GRANITE.n_kv_heads,
+          f"B2 saw q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}")
+    err = flash_hold(f"bf16, {GRANITE.name} prefill", q, k, v, True)
+    err = max(err, flash_hold(f"bf16, {GRANITE.name}, S = 200",
+                              *[t[:2, :, :200].contiguous()
+                                for t in (q, k, v)], True))
+    entry = {"shape": [q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                       q.shape[3]], "max_abs_err": err}
+    entry.update(flash_times(q, k, v))
+    for key in sorted(k for k in seen if k[0] == "rms"):
+        x, gamma, eps = seen[key]
+        rms_hold(x.reshape(-1, x.shape[-1]), gamma, eps)
+    return entry
+
+
+def moe_cpu_compare(cfg, cuda, card=None) -> dict:
+    """Phase 15: the same seeded model on the card and on the CPU,
+    last-token prefill logits of ``CPU_BATCH`` x ``CPU_PROMPT`` tokens
+    at each depth of ``MOE_CPU_LAYERS`` in float32 and bf16.
+
+    Each card run is anchored to the CPU run of its dtype
+    (``repro_torch.models.moe_parity``): it takes the CPU's expert
+    choices, and every choice of its own that differs (a routing flip)
+    is counted per layer and held to the tie rule: the CPU's logit margin
+    between its expert and the card's at that (token, layer) is at most
+    ``2 * 2**-8 * sum_d |x_d| |R_da - R_dc|``, what one bf16 rounding of
+    each element of the router's input in each run can move.  The logits
+    are then held: float32 at ``LOGITS_F32_TOL``; bf16 as phases 8 and 11
+    hold it at full depth, no farther from the CPU's float32 logits than
+    ``BF16_ACCURACY_RATIO`` times the CPU's bf16 ones (largest and mean
+    difference), with the same argmax at full depth.  At these widths the
+    bf16 model's own error against float32 exceeds the tests' 4e-2
+    already at 2 layers (granite 9.1e-2, qwen2-moe 7.1e-2), so two bf16
+    runs that round in other places are not held to 4e-2 of each other
+    (qwen2-moe-a2.7b's read 4.9e-2); the gap is printed.  ``card``: the
+    model of that config already on the card (its masters are copied to
+    the CPU)."""
+    toks = torch.from_numpy(np.array(
+        prompts(cfg.vocab, CPU_BATCH, CPU_PROMPT, 1)))
+    report = {}
+    for n_layers in MOE_CPU_LAYERS[cfg.name]:
+        c = cfg.scaled(n_layers=n_layers)
+        t0 = time.perf_counter()
+        if card is not None and n_layers == cfg.n_layers:
+            on_card = card
+            host = model_tf.DenseLM(c, device="cpu")
+            host.load_state_dict(card.state_dict())
+        else:
+            host = model_registry.init_params(c, SEED, "cpu")
+            on_card = model_tf.DenseLM(c, device=cuda)
+            on_card.load_state_dict(host.state_dict())
+        print(f"  {cfg.name}, {n_layers} layers: the model on both "
+              f"devices in {time.perf_counter() - t0:.2f} s")
+        logits = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            cd = c.scaled(dtype=dtype)
+            for m in (host, on_card):
+                recast(m, cd)
+
+            def last(model, dev):
+                state = model_registry.make_decode_state(
+                    cd, CPU_BATCH, CPU_PROMPT, device=dev)
+                lg, _ = model_registry.prefill(
+                    model, {"tokens": toks.to(dev)}, cd, state)
+                return lg[:, -1, :cfg.vocab].float().cpu()
+
+            t0 = time.perf_counter()
+            with moe_parity.recording(moe_parity.RouterTrace()) as anchor:
+                host_lg = last(host, torch.device("cpu"))
+            cpu_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with moe_parity.anchored(anchor,
+                                     moe_parity.RouterTrace()) as own:
+                card_lg = last(on_card, cuda)
+            card_s = time.perf_counter() - t0
+            fl = moe_parity.flips(own, anchor, n_layers)
+            name = str(dtype)[6:]
+            print(f"  {name}, {n_layers} layers: CPU prefill {cpu_s:.2f} s, "
+                  f"card {card_s:.2f} s; routing flips card vs CPU "
+                  f"{fl['n']} in {fl['calls']} router calls of "
+                  f"{CPU_BATCH * CPU_PROMPT} tokens, per layer "
+                  f"{fl['per_layer']}; largest margin {fl['share']:.4f} of "
+                  f"its tie bound {'ok' if fl['share'] <= 1 else 'BEYOND'}")
+            check(fl["share"] <= 1.0, f"{cfg.name} {name} {n_layers} layers:"
+                  f" a routing flip beyond the tie rule ({fl})")
+            if dtype == torch.float32 and n_layers == cfg.n_layers:
+                print(f"  CPU float32 prefill at {n_layers} layers: "
+                      f"{cpu_s:.2f} s: "
+                      f"{'within' if cpu_s <= MOE_CPU_S else 'OVER'} "
+                      f"{MOE_CPU_S} s")
+            logits[dtype] = (card_lg, host_lg)
+            report[f"{n_layers}_{name}"] = {
+                "flips": fl["n"], "flips_per_layer": fl["per_layer"],
+                "tie_share": fl["share"], "cpu_s": cpu_s, "card_s": card_s,
+                "max_abs_err": max_err(card_lg, host_lg)}
+        card32, host32 = logits[torch.float32]
+        check(bool(torch.isfinite(card32).all()), "non-finite logits")
+        err = max_err(card32, host32)
+        ok = bool(torch.allclose(card32, host32, rtol=LOGITS_F32_TOL,
+                                 atol=LOGITS_F32_TOL))
+        print(f"  float32, {n_layers} layers: logits max_abs_err {err:.3e} "
+              f"(max |logit| {float(host32.abs().max()):.3f}; rtol = atol = "
+              f"{LOGITS_F32_TOL}) {'ok' if ok else 'MISMATCH'}")
+        check(ok, f"{cfg.name}: card and CPU logits disagree in float32 at "
+              f"{n_layers} layers")
+        bf_card, bf_host = logits[torch.bfloat16]
+        err = max_err(bf_card, bf_host)
+        spread = max_err(bf_host, host32)
+        acc = max_err(bf_card, host32)
+        acc_mean = float((bf_card - host32).abs().mean())
+        spread_mean = float((bf_host - host32).abs().mean())
+        same = bool((bf_card.argmax(-1) == bf_host.argmax(-1)).all())
+        ok = (acc <= BF16_ACCURACY_RATIO * spread and acc_mean
+              <= BF16_ACCURACY_RATIO * spread_mean
+              and bool(torch.isfinite(bf_card).all())
+              and (same or n_layers < cfg.n_layers))
+        within = bool(torch.allclose(bf_card, bf_host, rtol=LOGITS_BF16_TOL,
+                                     atol=LOGITS_BF16_TOL))
+        print(f"  bfloat16, {n_layers} layers: card vs CPU max_abs_err "
+              f"{err:.3e} (mean {float((bf_card - bf_host).abs().mean()):.3e}"
+              f"; {'within' if within else 'beyond'} the tests' "
+              f"{LOGITS_BF16_TOL}, shown, not held); CPU bf16 vs float32 "
+              f"{spread:.3e} (mean {spread_mean:.3e}); card bf16 vs float32 "
+              f"{acc:.3e} (mean {acc_mean:.3e}): ratios {acc / spread:.3f} "
+              f"and {acc_mean / spread_mean:.3f} (limit "
+              f"{BF16_ACCURACY_RATIO}); argmax {'same' if same else 'DIFFERS'}"
+              f"{'' if n_layers == cfg.n_layers else ' (held at full depth)'}"
+              f" {'ok' if ok else 'MISMATCH'}")
+        report[f"{n_layers}_bfloat16"].update(
+            accuracy_ratio=acc / spread, accuracy_ratio_mean=acc_mean
+            / spread_mean, cpu_bf16_vs_f32=spread)
+        check(ok, f"{cfg.name}: card and CPU logits disagree in bf16 at "
+              f"{n_layers} layers")
+        del host, on_card
+        torch.cuda.empty_cache()
+    return report
+
+
+def collectives_on_card(cuda, w: dict, h: torch.Tensor, cfg) -> dict:
+    """Phase 16: the collective schedules in an NCCL world of one on a
+    (1, 1, 1) mesh: each returns its input, which shows only that the
+    port's calls reach NCCL on CUDA tensors; then ``moe_ep`` (ep = 1,
+    both schedules) against ``moe_ep_ref`` on granite's layer-0 weights
+    ``w`` and the serve's prefill input ``h`` to that layer, at one bf16
+    ulp of the value."""
+    import os
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    out = {}
+    try:
+        mesh = init_device_mesh("cuda", (1, 1, 1),
+                                mesh_dim_names=("pod", "data", "model"))
+        gen = torch.Generator(device=cuda).manual_seed(SEED)
+        x = torch.randn((1000, 37), generator=gen, device=cuda)
+        cases = {
+            "allreduce_direct": lambda: allreduce_direct(x, mesh,
+                                                         ("pod", "data")),
+            "allreduce_hierarchical": lambda: allreduce_hierarchical(
+                x, mesh, "pod", "data"),
+            "alltoall_direct": lambda: alltoall_direct(x, mesh, "model"),
+            "alltoall_hierarchical": lambda: alltoall_hierarchical(
+                x, mesh, "pod", "model")}
+        for mode in CollectiveMode:
+            cases[f"grad_allreduce {mode.value}"] = (
+                lambda mode=mode: grad_allreduce({"g": x}, mesh,
+                                                 mode=mode)["g"])
+        for name, fn in cases.items():
+            got = fn()
+            torch.cuda.synchronize()
+            same = got.device == x.device and bool(torch.equal(got, x))
+            print(f"  {name}: {'identity' if same else 'NOT the identity'}")
+            check(same, f"{name} in a world of one is not the identity")
+        want, aux_ref = moe_ep_ref(w, h, cfg)
+        for mode in CollectiveMode:
+            got, aux = moe_ep(w, h, cfg, mesh, mode=mode)
+            torch.cuda.synchronize()
+            gap = (got.float() - want.float()).abs()
+            ok = bool((gap <= BF16_RTOL * want.float().abs()).all()) and \
+                abs(float(aux) - float(aux_ref)) <= 1e-6 * abs(float(aux_ref))
+            print(f"  moe_ep {mode.value} (ep = 1) vs moe_ep_ref at "
+                  f"{tuple(h.shape)}: max_abs_err {float(gap.max()):.3e} "
+                  f"({int((got != want).sum())} of {got.numel()} differ; "
+                  f"rtol {BF16_RTOL:.4g}), aux {float(aux):.6f} against "
+                  f"{float(aux_ref):.6f} {'ok' if ok else 'MISMATCH'}")
+            check(ok, f"moe_ep {mode.value} disagrees with moe_ep_ref")
+            out[mode.value] = float(gap.max())
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path needs one",
@@ -1900,6 +2238,50 @@ def main() -> int:
          "published_interference": interference,
          "idle": PROFILES.get("tenancy lockstep round")}))
     print(f"phase 13: {time.perf_counter() - t0:.1f} s wall")
+
+    # phase 14: the MoE serving path, granite-moe-3b-a800m at full width
+    # with its KV transfer routed by Algorithm 1; B2 at its shape first,
+    # then launch counts from the serve are its own
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = model_registry.init_params(GRANITE, SEED, cuda)
+    print(f"phase 14: MoE serving model {GRANITE.name}: "
+          f"{sum(p.numel() for p in model.parameters())} parameters, "
+          f"built in {time.perf_counter() - t0:.2f} s")
+    seen = capture_inputs(GRANITE, model, cuda)
+    entry = granite_flash_check(seen)
+    flash_row = next(r for r in kernels if r["name"] == "flash_attention")
+    flash_row["by_shape"] = [
+        {k: flash_row[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "library_graph_ms", "sdpa_factor")},
+        entry]
+    flash_row["max_abs_err"] = max(flash_row["max_abs_err"],
+                                   entry["max_abs_err"])
+    stats = serve_stats[GRANITE.name] = serve_path(
+        GRANITE, model, cuda, 14, comm_policy="app_aware")
+    w0, h0 = seen[("moe", SERVE_BATCH, PROMPT_LEN, GRANITE.d_model)]
+    stats["moe_layer"] = moe_breakdown(w0, h0, GRANITE, GRANITE.n_layers,
+                                       stats["prefill_busy_s"])
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s wall")
+
+    # phase 15: card vs CPU, anchored routing under the tie rule
+    t0 = time.perf_counter()
+    print(f"phase 15: card vs CPU, {GRANITE.name} and {QWEN2_MOE.name} "
+          f"prefill of {CPU_BATCH} x {CPU_PROMPT} tokens")
+    moe_cpu = {GRANITE.name: moe_cpu_compare(GRANITE, cuda, card=model)}
+    del model
+    torch.cuda.empty_cache()
+    moe_cpu[QWEN2_MOE.name] = moe_cpu_compare(QWEN2_MOE, cuda)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s wall")
+
+    # phase 16: the collectives in an NCCL world of one
+    print("phase 16: the collective schedules and moe_ep on the card, an "
+          "NCCL world of one")
+    collectives = collectives_on_card(cuda, w0, h0, GRANITE)
+    del seen, w0, h0
+    print("  moe " + json.dumps({"card_vs_cpu": moe_cpu,
+                                 "moe_ep_vs_ref": collectives}))
 
     # each kernel's launches on the serving paths that run it
     for row in kernels:

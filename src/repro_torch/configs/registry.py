@@ -1,7 +1,8 @@
 """--arch <id> registry over the reference's 10 architectures.
 
-mamba2-130m and the four dense archs (qwen2-1.5b, stablelm-1.6b,
-llama3-8b, codeqwen1.5-7b) are ported; asking for any other of the ten
+mamba2-130m, the four dense archs (qwen2-1.5b, stablelm-1.6b,
+llama3-8b, codeqwen1.5-7b) and the two MoE archs (granite-moe-3b-a800m,
+qwen2-moe-a2.7b) are ported; asking for any other of the ten
 raises ``NotImplementedError`` pointing to its ROADMAP item, and an id
 outside the ten raises ``KeyError``.
 """
@@ -18,14 +19,14 @@ _MODULES = {
     "codeqwen1.5-7b": "repro_torch.configs.codeqwen15_7b",
     "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
 }
 
 #: the reference's architectures that are not ported yet, with where
 #: each is queued
 PENDING = {
     "paligemma-3b": "ROADMAP A.4 (VLM family)",
-    "granite-moe-3b-a800m": "ROADMAP A.4 (MoE family, after collectives)",
-    "qwen2-moe-a2.7b": "ROADMAP A.4 (MoE family, after collectives)",
     "zamba2-7b": "ROADMAP A.4 (hybrid family)",
     "whisper-large-v3": "ROADMAP A.4 (enc-dec family)",
 }

@@ -4,10 +4,16 @@
         --requests 8 --prompt-len 512 --new-tokens 32      # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --smoke --device cpu                               # on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-3b-a800m --requests 8 --prompt-len 512 \
+        --new-tokens 32                                    # MoE, on the card
 
 ``--arch`` takes any ported architecture (``repro_torch.configs.PORTED``:
-mamba2-130m and the dense qwen2-1.5b, stablelm-1.6b, llama3-8b,
-codeqwen1.5-7b).  The weights are random, drawn from ``--seed``.
+mamba2-130m, the dense qwen2-1.5b, stablelm-1.6b, llama3-8b,
+codeqwen1.5-7b, and the MoE granite-moe-3b-a800m and qwen2-moe-a2.7b;
+qwen2-moe-a2.7b's 14.3 B parameters do not fit one 80 GB card in float32
+masters plus their bf16 copies).  The weights are random, drawn from
+``--seed``.
 ``--device`` defaults to the CUDA card; without one the launcher raises.
 """
 

@@ -8,8 +8,9 @@ Counterpart of ``repro/models/registry.py``::
     prefill(model, batch, cfg, state)              -> (logits, state)
     decode_step(model, token, cfg, state)          -> (logits, state)
 
-``batch`` is a dict with ``tokens [B,S]``.  The SSM family (mamba2-130m)
-and the dense family (qwen2, llama3, stablelm, codeqwen) are ported;
+``batch`` is a dict with ``tokens [B,S]``.  The SSM family (mamba2-130m),
+the dense family (qwen2, llama3, stablelm, codeqwen) and the MoE family
+(granite-moe, qwen2-moe; the transformer with MoE layers) are ported;
 every other family raises ``NotImplementedError`` naming the ROADMAP
 item that ports it.
 """
@@ -25,7 +26,6 @@ from repro_torch.runtime import resolve_device
 
 #: where each family that is not ported yet is queued
 PENDING = {
-    Family.MOE: "ROADMAP A.4 (MoE models, after the collectives)",
     Family.HYBRID: "ROADMAP A.4 (hybrid zamba2)",
     Family.ENCDEC: "ROADMAP A.4 (whisper enc-dec)",
     Family.VLM: "ROADMAP A.4 (paligemma VLM)",
@@ -35,7 +35,7 @@ PENDING = {
 def _module(cfg: ModelConfig):
     if cfg.family == Family.SSM:
         return _ssm
-    if cfg.family == Family.DENSE:
+    if cfg.family in (Family.DENSE, Family.MOE):
         return _tf
     raise NotImplementedError(
         f"{cfg.name}: the {cfg.family.value} family is not ported to "

@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, the dense family (qwen2, llama3,
-stablelm, codeqwen).
+"""Decoder-only transformer LM: the dense family (qwen2, llama3,
+stablelm, codeqwen) and the MoE family (granite-moe, qwen2-moe).
 
 Counterpart of ``repro/models/transformer.py``.  The reference scans
 stacked per-layer parameters; here the layers are an ``nn.ModuleList``
@@ -18,7 +18,16 @@ step attends with one query over a partly filled cache in plain PyTorch
 (:func:`~repro_torch.models.attention.gqa_attend`), as the reference
 does outside any kernel.  The KV cache is preallocated per layer and
 written in place: a decode state is consumed by the step that follows
-it.  The MoE family raises ``NotImplementedError``.
+it.
+
+The MoE family (granite-moe, qwen2-moe) builds a ``moe`` submodule
+(:class:`~repro_torch.models.moe.MoE`) in place of ``mlp``.  Its
+compute weights keep the router in float32.  ``block_forward`` follows
+``cfg.moe_impl``: ``"einsum"`` (:func:`~repro_torch.models.moe.
+moe_einsum`), or ``"ep"`` through :func:`~repro_torch.collectives.
+moe_ep.moe_ep` on the ``mesh`` the caller gives (``lm_apply``'s
+``mesh=``), with this rank's experts.  ``block_decode`` always calls
+``moe_einsum``, as the reference does.
 """
 
 from __future__ import annotations
@@ -31,15 +40,8 @@ from torch import nn
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (CastCache, Family, ModelConfig,
                                        dense_init, normal, rmsnorm)
-from repro_torch.models.mlp import mlp
-
-MOE_PENDING = ("the MoE family is not ported to repro_torch yet; see "
-               "ROADMAP A.4 (MoE models, after the collectives)")
-
-
-def _param(shape, cfg: ModelConfig, device, fill: float = 0.0):
-    return nn.Parameter(torch.full(shape, fill, dtype=cfg.param_dtype,
-                                   device=device), requires_grad=False)
+from repro_torch.models.mlp import MLP, mlp, mlp_weights, param
+from repro_torch.models.moe import MoE, init_moe, moe_einsum, moe_weights
 
 
 class Attention(nn.Module):
@@ -52,46 +54,41 @@ class Attention(nn.Module):
         if cfg.qkv_bias:
             shapes.update(bq=(hq,), bk=(hkv,), bv=(hkv,))
         for name, shape in shapes.items():
-            self.register_parameter(name, _param(shape, cfg, device))
-
-
-class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None):
-        super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
-        self.w_in = _param((d, f), cfg, device)
-        self.w_out = _param((f, d), cfg, device)
-        if cfg.glu:
-            self.w_gate = _param((d, f), cfg, device)
+            self.register_parameter(name, param(shape, cfg, device))
 
 
 class DenseBlock(nn.Module):
     """One layer: ``x + attn(rmsnorm(x, ln1))``, then ``+ mlp(rmsnorm(.,
-    ln2))``."""
+    ln2))``, or ``+ moe(...)`` in the MoE family."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        self.ln1 = _param((cfg.d_model,), cfg, device, 1.0)
+        self.ln1 = param((cfg.d_model,), cfg, device, 1.0)
         self.attn = Attention(cfg, device)
-        self.ln2 = _param((cfg.d_model,), cfg, device, 1.0)
-        self.mlp = MLP(cfg, device)
+        self.ln2 = param((cfg.d_model,), cfg, device, 1.0)
+        if cfg.family == Family.MOE:
+            self.moe = MoE(cfg, device)
+        else:
+            self.mlp = MLP(cfg, device)
 
 
 class DenseLM(CastCache):
     """Embedding, ``n_layers`` :class:`DenseBlock`, the final norm and,
-    unless tied, the LM head; parameters allocated on ``device``."""
+    unless tied, the LM head; parameters allocated on ``device``.  The
+    transformer LM of both the dense and the MoE family."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family == Family.MOE:
-            raise NotImplementedError(f"{cfg.name}: {MOE_PENDING}")
+        if cfg.family not in (Family.DENSE, Family.MOE):
+            raise ValueError(f"{cfg.name}: a {cfg.family.value} config, "
+                             f"want the dense or the MoE family")
         self.cfg = cfg
-        self.embed = _param((cfg.vocab_padded, cfg.d_model), cfg, device)
+        self.embed = param((cfg.vocab_padded, cfg.d_model), cfg, device)
         self.blocks = nn.ModuleList(DenseBlock(cfg, device)
                                     for _ in range(cfg.n_layers))
-        self.ln_f = _param((cfg.d_model,), cfg, device, 1.0)
+        self.ln_f = param((cfg.d_model,), cfg, device, 1.0)
         if not cfg.tie_embeddings:
-            self.lm_head = _param((cfg.d_model, cfg.vocab_padded), cfg,
+            self.lm_head = param((cfg.d_model, cfg.vocab_padded), cfg,
                                   device)
 
     @torch.no_grad()
@@ -103,14 +100,18 @@ class DenseLM(CastCache):
         cfg, pd = self.cfg, self.cfg.param_dtype
         self.embed.copy_(normal(gen, self.embed.shape, 0.02, pd))
         for block in self.blocks:
-            a, m = block.attn, block.mlp
+            a = block.attn
             for w in (a.wq, a.wk, a.wv):
                 w.copy_(dense_init(gen, *w.shape, pd))
             a.wo.copy_(dense_init(gen, *a.wo.shape, pd))
-            m.w_in.copy_(dense_init(gen, *m.w_in.shape, pd))
-            m.w_out.copy_(dense_init(gen, *m.w_out.shape, pd))
-            if cfg.glu:
-                m.w_gate.copy_(dense_init(gen, *m.w_gate.shape, pd))
+            if cfg.family == Family.MOE:
+                init_moe(block.moe, gen, cfg)
+            else:
+                m = block.mlp
+                m.w_in.copy_(dense_init(gen, *m.w_in.shape, pd))
+                m.w_out.copy_(dense_init(gen, *m.w_out.shape, pd))
+                if cfg.glu:
+                    m.w_gate.copy_(dense_init(gen, *m.w_gate.shape, pd))
             if cfg.qkv_bias:
                 for b in (a.bq, a.bk, a.bv):
                     b.zero_()
@@ -131,16 +132,15 @@ class DenseLM(CastCache):
 
         blocks = []
         for block in self.blocks:
-            a, m = block.attn, block.mlp
+            a = block.attn
             w = {"ln1": block.ln1.to(dt), "ln2": block.ln2.to(dt),
-                 "wqkv": cat(a.wq, a.wk, a.wv), "wo": a.wo.to(dt),
-                 "w_out": m.w_out.to(dt)}
+                 "wqkv": cat(a.wq, a.wk, a.wv), "wo": a.wo.to(dt)}
             if cfg.qkv_bias:
                 w["bqkv"] = cat(a.bq, a.bk, a.bv)
-            if cfg.glu:
-                w["w_in_gate"] = cat(m.w_in, m.w_gate)
+            if cfg.family == Family.MOE:
+                w["moe"] = moe_weights(block.moe, cfg)
             else:
-                w["w_in"] = m.w_in.to(dt)
+                w.update(mlp_weights(block.mlp, cfg))
             blocks.append(w)
         embed = self.embed.to(dt)
         head = embed.T if cfg.tie_embeddings else self.lm_head.to(dt)
@@ -149,11 +149,29 @@ class DenseLM(CastCache):
 
 
 # ------------------------------------------------------------------- blocks
+def _moe_forward(w: dict, h: torch.Tensor, cfg: ModelConfig, mesh):
+    """The MoE layer of a prefill block, as ``cfg.moe_impl`` says."""
+    if cfg.moe_impl == "einsum":
+        return moe_einsum(w, h, cfg)
+    if cfg.moe_impl != "ep":
+        raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
+    if mesh is None:
+        raise ValueError("moe_impl='ep' needs the DeviceMesh to exchange "
+                         "tokens over (mesh=)")
+    from repro_torch.collectives.modes import CollectiveMode
+    from repro_torch.collectives.moe_ep import local_experts, moe_ep
+    mode = (CollectiveMode.HIERARCHICAL
+            if cfg.moe_a2a_mode == "hierarchical" else CollectiveMode.DIRECT)
+    return moe_ep(local_experts(w, mesh), h, cfg, mesh, mode=mode)
+
+
 def block_forward(w: dict, x: torch.Tensor, cfg: ModelConfig,
                   positions: torch.Tensor, *,
-                  prefix_len: Optional[int] = None):
+                  prefix_len: Optional[int] = None, mesh=None):
     """Training/prefill block over a whole sequence from position 0:
-    ``(x, (k, v, aux))``.  The attention runs on the flash kernel."""
+    ``(x, (k, v, aux))``.  The attention runs on the flash kernel.
+    ``mesh``: the ``DeviceMesh`` of ``moe_impl="ep"``, where x is this
+    rank's data-parallel shard."""
     if prefix_len is not None:
         raise NotImplementedError("prefix-LM attention (the VLM family) is "
                                   "not ported yet; see ROADMAP A.4")
@@ -161,8 +179,11 @@ def block_forward(w: dict, x: torch.Tensor, cfg: ModelConfig,
     q, k, v = attn.qkv_project(w, h, cfg, positions)
     x = x + attn.attn_output(w, attn.flash_attend(q, k, v), cfg)
     h = rmsnorm(x, w["ln2"], cfg.norm_eps)
-    aux = torch.zeros((), device=x.device)
-    return x + mlp(w, h, cfg), (k, v, aux)
+    if "moe" in w:
+        y, aux = _moe_forward(w["moe"], h, cfg, mesh)
+    else:
+        y, aux = mlp(w, h, cfg), torch.zeros((), device=x.device)
+    return x + y, (k, v, aux)
 
 
 def block_decode(w: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -179,7 +200,8 @@ def block_decode(w: dict, x: torch.Tensor, cfg: ModelConfig,
     o = attn.gqa_attend(q, ck, cv, causal=False, kv_valid_len=valid)
     x = x + attn.attn_output(w, o, cfg)
     h = rmsnorm(x, w["ln2"], cfg.norm_eps)
-    return x + mlp(w, h, cfg), ck, cv
+    y = moe_einsum(w["moe"], h, cfg)[0] if "moe" in w else mlp(w, h, cfg)
+    return x + y, ck, cv
 
 
 # ----------------------------------------------------------------------- LM
@@ -199,14 +221,15 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def lm_apply(model: DenseLM, tokens: torch.Tensor, cfg: ModelConfig):
+def lm_apply(model: DenseLM, tokens: torch.Tensor, cfg: ModelConfig, *,
+             mesh=None):
     """tokens ``[B,S]`` -> (logits ``[B,S,Vp]`` in ``cfg.dtype``, aux
-    loss)."""
+    loss).  ``mesh``: as :func:`block_forward`'s."""
     x = _embed(model, tokens)
     positions = _positions(tokens)
     aux = torch.zeros((), device=x.device)
     for w in model.weights()["blocks"]:
-        x, (_, _, a) = block_forward(w, x, cfg, positions)
+        x, (_, _, a) = block_forward(w, x, cfg, positions, mesh=mesh)
         aux = aux + a
     return _logits(model, x), aux
 

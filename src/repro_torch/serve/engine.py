@@ -16,27 +16,32 @@ token, only in distribution (:func:`sampling_probs`, :func:`next_tokens`;
 tests/test_torch_serve.py holds both against the reference).  Greedy
 decoding matches exactly.
 
-Routing the prefill->decode KV transfer through a communication policy
-(``ServeConfig.comm_policy``, a shared ``comm_engine``,
-``route_kv_transfer``) waits for the collectives port (ROADMAP A.4;
-the policy engine it drives is ``repro_torch.policy``) and raises
-``NotImplementedError`` until then.
+Optional comm policy (``repro_torch.policy``): multi-pod serving moves
+the prefill KV cache to the decode replicas; ``ServeConfig.comm_policy``
+routes that transfer per batch through the unified PolicyEngine (DIRECT
+or HIERARCHICAL, :mod:`repro_torch.collectives`), one decision per
+``run()`` before the prefill, fed by the ICI cost model at the port's
+``H100`` spec.  At that spec the cost model's stall term is 0 for both
+modes, so the policy settles on DIRECT (ROADMAP C).  Several engines may
+share one PolicyEngine (``comm_engine=``), each on its allocation's
+scoped site.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.collectives.modes import CollectiveMode
+from repro_torch.collectives.selector import ICICostModel, MeshSpec
 from repro_torch.models import registry as model_registry
 from repro_torch.models.common import ModelConfig
+from repro_torch.policy import DecisionBatch, make_engine
 from repro_torch.runtime import resolve_device
-
-_POLICY_PENDING = ("KV-transfer routing through a communication policy "
-                   "is not ported yet (ROADMAP A.4)")
 
 
 @dataclass
@@ -52,17 +57,75 @@ class ServeConfig:
     batch: int = 8
     max_len: int = 1024
     eos_id: int = -1                 # -1: never stop early
-    #: policy name routing the prefill->decode KV transfer (not ported:
-    #: anything but None raises)
+    #: repro_torch.policy name routing the prefill->decode KV transfer
+    #: (None: no policy, single-replica serving)
     comm_policy: Optional[str] = None
     n_pods: int = 2
     inner_chips: int = 256
+    #: multi-allocation serving: the fabric-level tenant id of this
+    #: engine.  KV-transfer decisions are keyed on the scoped site
+    #: ``(allocation_id, "kv_transfer")`` so several ServeEngines sharing
+    #: one PolicyEngine keep independent Algorithm-1 automatons.
     allocation_id: Optional[str] = None
 
 
-def route_kv_transfer(*args, **kwargs):
-    """Not ported yet: see ROADMAP A.4."""
-    raise NotImplementedError(_POLICY_PENDING)
+def route_kv_transfer(comm_engine, cost_model, nbytes: int, *,
+                      site="kv_transfer", transfer=None, max_retries: int = 2,
+                      backoff_s: float = 0.0, fallback_mode=None,
+                      sleep=None):
+    """One policy decision + model-fed feedback for a KV-cache transfer.
+
+    ``transfer`` (optional) is the callable that moves the bytes with the
+    decided mode; a False return or an exception counts as a failed
+    attempt.  The decided mode is retried up to ``max_retries`` times
+    with exponential backoff (``backoff_s``, doubling; ``sleep`` is
+    injectable and defaults to ``time.sleep``), then the transfer falls
+    back to ``fallback_mode`` (default ``CollectiveMode.DIRECT``, the
+    single-path mode with no hierarchical staging to lose).  Feedback is
+    published for the mode that finally carried the bytes.
+    ``transfer=None`` decides and predicts only.  Returns that mode."""
+    mode = comm_engine.decide(DecisionBatch.single(nbytes, site=site))[0]
+    used = mode
+    if transfer is not None:
+        def attempt(m):
+            try:
+                return transfer(m) is not False
+            except Exception:
+                return False
+
+        if sleep is None:
+            sleep = time.sleep
+        ok = attempt(mode)
+        delay = backoff_s
+        for _ in range(max_retries):
+            if ok:
+                break
+            if delay > 0.0:
+                sleep(delay)
+                delay *= 2.0
+            ok = attempt(mode)
+        if not ok:
+            if fallback_mode is None:
+                fallback_mode = CollectiveMode.DIRECT
+            used = fallback_mode
+            if not attempt(used):
+                raise RuntimeError(
+                    f"kv transfer failed: {max_retries} retries of "
+                    f"{mode} and the {used} fallback all failed")
+    perf = cost_model.predict(nbytes, used)
+    comm_engine.bus.publish_flow_arrays(
+        [perf.latency_cycles / 1e3], [perf.stall_cycles_per_flit],
+        source="model")
+    return used
+
+
+def kv_bytes(cfg: ModelConfig, prompt_tokens: int) -> int:
+    """KV cache volume of one prefilled batch (bf16, all layers), as the
+    reference counts it (head dim ``d_model // n_heads``)."""
+    heads_kv = cfg.n_kv_heads or cfg.n_heads
+    head_dim = cfg.d_model // max(cfg.n_heads, 1)
+    return int(2 * cfg.n_layers * heads_kv * head_dim
+               * prompt_tokens * 2)  # K+V, bf16
 
 
 def sampling_probs(lg: torch.Tensor, temperature: float) -> torch.Tensor:
@@ -108,8 +171,6 @@ def make_prefill(cfg: ModelConfig):
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig,
                  comm_engine=None, device=None):
-        if scfg.comm_policy or comm_engine is not None:
-            raise NotImplementedError(_POLICY_PENDING)
         self.device = resolve_device(device)
         held = {p.device.type for p in params.parameters()}
         if held != {self.device.type}:
@@ -118,6 +179,34 @@ class ServeEngine:
         self.cfg, self.params, self.scfg = cfg, params, scfg
         self._step = make_serve_step(cfg)
         self._prefill = make_prefill(cfg)
+        self.comm_engine = self._cost_model = None
+        #: [(kv_bytes, mode)] per run(): the KV-transfer schedule log
+        self.policy_decisions: list = []
+        if scfg.comm_policy or comm_engine is not None:
+            self._cost_model = ICICostModel(
+                MeshSpec(n_pods=scfg.n_pods, inner_chips=scfg.inner_chips))
+            self.comm_engine = comm_engine if comm_engine is not None \
+                else make_engine(scfg.comm_policy,
+                                 mode_a=CollectiveMode.HIERARCHICAL,
+                                 mode_b=CollectiveMode.DIRECT,
+                                 mode_a_alltoall=CollectiveMode.HIERARCHICAL,
+                                 static_mode=CollectiveMode.DIRECT)
+
+    @property
+    def kv_site(self):
+        """Decision site of this engine's KV transfers: scoped to the
+        allocation when ``ServeConfig.allocation_id`` is set."""
+        if self.scfg.allocation_id is not None:
+            return (self.scfg.allocation_id, "kv_transfer")
+        return "kv_transfer"
+
+    def _route_kv_transfer(self, prompt_tokens: int):
+        """One engine decision for this batch's prefill->decode transfer."""
+        nbytes = kv_bytes(self.cfg, prompt_tokens)
+        mode = route_kv_transfer(self.comm_engine, self._cost_model,
+                                 nbytes, site=self.kv_site)
+        self.policy_decisions.append((nbytes, mode))
+        return mode
 
     def _pad_batch(self, requests: List[Request]) -> torch.Tensor:
         maxp = max(len(r.prompt) for r in requests)
@@ -137,6 +226,8 @@ class ServeEngine:
         batch = {"tokens": toks}
         if extra:
             batch.update(extra)
+        if self.comm_engine is not None:
+            self._route_kv_transfer(self.scfg.batch * toks.shape[1])
         logits, state = self._prefill(self.params, batch, state)
         tok = torch.argmax(logits[:, -1, :self.cfg.vocab],
                            dim=-1).to(torch.int32)[:, None]

@@ -60,6 +60,15 @@ def test_port_imports_no_jax_and_no_reference():
         "fig3_allocation", "fig4_fig5_hostnoise", "table1_correlation",
         "model_validation", "interference_matrix", "fault_matrix",
         "notification_matrix", "perf_sim")} <= names
+    # the MoE and collectives slice: the schedules, the selector, the
+    # hardware spec and the MoE model
+    assert {f"repro_torch.collectives.{m}" for m in (
+        "modes", "selector", "allreduce", "alltoall", "moe_ep")} <= names
+    assert {"repro_torch.collectives", "repro_torch.analysis",
+            "repro_torch.analysis.roofline", "repro_torch.models.moe",
+            "repro_torch.models.moe_parity",
+            "repro_torch.configs.granite_moe_3b_a800m",
+            "repro_torch.configs.qwen2_moe_a2_7b"} <= names
 
 
 def test_simulator_without_device_raises_when_cuda_is_absent(monkeypatch):

@@ -260,7 +260,7 @@ def test_other_architectures_are_refused_not_unknown():
     from repro.configs.registry import ARCHS as REF_ARCHS
     assert set(ARCHS) == set(REF_ARCHS) and set(PORTED) == {
         "mamba2-130m", "qwen2-1.5b", "stablelm-1.6b", "llama3-8b",
-        "codeqwen1.5-7b"}
+        "codeqwen1.5-7b", "granite-moe-3b-a800m", "qwen2-moe-a2.7b"}
     for arch in ARCHS:
         if arch in PORTED:
             continue
@@ -272,8 +272,8 @@ def test_other_architectures_are_refused_not_unknown():
         get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("family", [f for f in Family
-                                    if f not in (Family.SSM, Family.DENSE)])
+@pytest.mark.parametrize("family", [f for f in Family if f not in (
+    Family.SSM, Family.DENSE, Family.MOE)])
 def test_registry_refuses_unported_families(family):
     cfg = SMOKE.scaled(family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

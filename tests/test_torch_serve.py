@@ -4,8 +4,10 @@ Both engines serve the same reference-made weights (carried across by
 ``repro_torch.models.convert``) in float32, where the greedy tokens
 must be identical; the prompts have unequal lengths, so left-padding
 with token 0 and filler requests are exercised.  Every case runs for
-the SMOKE configs of mamba2-130m (SSM family) and qwen2-1.5b (dense
-family, whose prefill runs the flash kernel's plain version here).
+the SMOKE configs of mamba2-130m (SSM family), qwen2-1.5b (dense
+family, whose prefill runs the flash kernel's plain version here) and
+the two MoE archs.  The KV-transfer comm policy is held against the
+reference in tests/test_torch_selector.py.
 """
 
 import jax
@@ -26,12 +28,12 @@ from repro_torch.models.common import Family
 from repro_torch.models.convert import (dense_lm_from_reference,
                                         ssm_lm_from_reference)
 from repro_torch.serve import Request, ServeConfig, ServeEngine
-from repro_torch.serve.engine import (next_tokens, route_kv_transfer,
-                                      sampling_probs)
+from repro_torch.serve.engine import next_tokens, sampling_probs
 
 PROMPTS = [[5, 17, 3, 99, 250, 7, 8], [11, 12], [300, 301, 302, 303, 1]]
 NEW = [6, 4, 5]
-ARCHS = ["mamba2-130m", "qwen2-1.5b"]
+ARCHS = ["mamba2-130m", "qwen2-1.5b", "granite-moe-3b-a800m",
+         "qwen2-moe-a2.7b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -39,8 +41,8 @@ def weights(request):
     jc = ref_smoke_config(request.param).scaled(dtype=jnp.float32)
     tc = get_smoke_config(request.param).scaled(dtype=torch.float32)
     params = ref_registry.init_params(jc, 0)
-    convert = (dense_lm_from_reference if tc.family == Family.DENSE
-               else ssm_lm_from_reference)
+    convert = (ssm_lm_from_reference if tc.family == Family.SSM
+               else dense_lm_from_reference)
     model = convert(jax.tree_util.tree_map(np.asarray, params), tc,
                     device="cpu")
     return jc, tc, params, model
@@ -132,18 +134,6 @@ def test_temperature_zero_is_greedy():
     lg = torch.from_numpy(rng.standard_normal((6, 40)).astype(np.float32))
     got = next_tokens(lg, 0.0, torch.Generator().manual_seed(0))
     assert got.tolist() == torch.argmax(lg, dim=-1).tolist()
-
-
-def test_comm_policy_is_refused(weights):
-    _, tc, _, model = weights
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(tc, model, ServeConfig(comm_policy="app_aware"),
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(tc, model, ServeConfig(), comm_engine=object(),
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        route_kv_transfer(None, None, 1024)
 
 
 def test_no_cuda_means_no_serving(weights, monkeypatch):

@@ -375,12 +375,16 @@ def test_init_lays_out_weights_like_reference(name):
             assert 0.8 < float(v.std()) / scale < 1.2, key
 
 
-def test_moe_family_is_refused():
-    cfg = get_smoke_config("qwen2-1.5b").scaled(family=Family.MOE)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        registry.init_params(cfg, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        transformer.DenseLM(cfg)
+def test_moe_family_builds_moe_layers():
+    """The transformer builds ``moe`` in place of ``mlp`` for the MoE
+    family, and refuses a family it does not hold."""
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+    model = registry.init_params(cfg, 0, "cpu")
+    assert all(hasattr(b, "moe") and not hasattr(b, "mlp")
+               for b in model.blocks)
+    assert all("moe" in w for w in model.weights()["blocks"])
+    with pytest.raises(ValueError, match="dense or the MoE"):
+        transformer.DenseLM(get_smoke_config("mamba2-130m"))
 
 
 def test_convert_checks_shapes():
