@@ -35,7 +35,15 @@ Drives the port's main paths on the card at full width:
   Aries machine, in lockstep through ``repro_torch.tenancy.sweep`` (one
   batched dispatch of the 3 cells' phases per round, B1 over 3 x 56,448
   segments), and the published interference matrix (8 rounds, its
-  384-node machine and the Dragonfly+ row).
+  384-node machine and the Dragonfly+ row);
+* the hybrid serving path: zamba2-7b at its published width and depth
+  (81 Mamba2 layers, d_model 3584, N = 64; the shared attention block,
+  32 heads of 112, applied 12 times; vocab 32,000; random weights from a
+  seed), the same requests: B2, B3 and B4 in one forward;
+* the enc-dec serving path: whisper-large-v3 at its published width and
+  depth (32 encoder and 32 decoder layers, d_model 1280, 20 heads of 64,
+  1504 frames; random weights from a seed), 8 requests of 1504 stub
+  frames and a 128-token decoder prompt each, 32 new tokens.
 
 Phases:
 
@@ -130,7 +138,25 @@ Phases:
 16. the collective schedules in an NCCL world of one on a (1, 1, 1)
     mesh (each the identity: only that the calls reach NCCL), and
     ``moe_ep`` against ``moe_ep_ref`` on granite's layer-0 weights and
-    the serve's input to that layer.
+    the serve's input to that layer;
+17. zamba2-7b built on the card (parameters, build time, peak memory);
+    on a warm-up serve's own inputs B2 at head dim 112 (the 128 build),
+    B3 at N = 64 with 112 heads on both routes and B4 at `[4096,3584]`,
+    `[4096,7168]` (the generic route), `[8,3584]` and `[8,7168]`, each
+    against its plain version under the rules of phases 6 and 9, timed,
+    with its bound (B2 beside SDPA);
+18. the hybrid serving path as phase 7: every prefill (12 B2, 81 B3, 187
+    B4) and decode step (0, 0, 187) checked, then profiled;
+19. whisper-large-v3: B2 at the encoder's non-causal `[8,20,1504,64]`,
+    the cross-attention's non-causal 128 queries over 1504 keys and the
+    decoder's causal `[8,20,128,64]`, B4 at `[12032,1280]`,
+    `[1024,1280]` and `[8,1280]`, held and timed as in phase 17; then
+    the serve (96 B2 and 162 B4 per prefill, 0 and 97 per decode step),
+    with ``encode_s`` inside ``prefill_s``, profiled;
+20. card vs CPU prefill logits for zamba2-7b at 14 layers (2
+    super-blocks, 1 shared-block application, 2 trailing layers) and
+    whisper-large-v3 at 32 + 32 layers, float32 at ``LOGITS_F32_TOL``,
+    bf16 by the accuracy rule of phases 8 and 11.
 
 Prints the kernel summary as one JSON line, then the ``ok`` line last.
 Any failed check exits non-zero; so does a machine without CUDA, and a
@@ -182,6 +208,9 @@ from repro_torch.configs.qwen2_moe_a2_7b import \
     CONFIG as QWEN2_MOE  # noqa: E402
 from repro_torch.configs.qwen2_1_5b import CONFIG as QWEN2  # noqa: E402
 from repro_torch.configs.stablelm_1_6b import CONFIG as STABLELM  # noqa: E402
+from repro_torch.configs.whisper_large_v3 import \
+    CONFIG as WHISPER  # noqa: E402
+from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2  # noqa: E402
 from repro_torch.kernels import libraries  # noqa: E402
 from repro_torch.kernels._build import build_all, find_nvcc  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -197,11 +226,14 @@ from repro_torch.kernels.ssd_scan import ssd_inner, ssd_inner_plain  # noqa: E40
 from repro_torch.kernels.ssd_scan.build import LIB as SSD_LIB  # noqa: E402
 from repro_torch.models import attention as model_attention  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
+from repro_torch.models import encdec as model_encdec  # noqa: E402
 from repro_torch.models import mamba2 as model_mamba2  # noqa: E402
 from repro_torch.models import moe as model_moe  # noqa: E402
 from repro_torch.models import moe_parity  # noqa: E402
 from repro_torch.models import registry as model_registry  # noqa: E402
 from repro_torch.models import transformer as model_tf  # noqa: E402
+from repro_torch.models.common import CastCache, Family  # noqa: E402
+from repro_torch.models.hybrid import hybrid_layout  # noqa: E402
 from repro_torch.policy import PolicyEngine  # noqa: E402
 from repro_torch.runtime import on_hopper  # noqa: E402
 from repro_torch.serve import Request, ServeConfig, ServeEngine  # noqa: E402
@@ -237,6 +269,9 @@ FLASH_SOURCE = \
 FLASH_TPU = "src/repro/kernels/flash_attention/flash_attention.py:84"
 #: serving path: requests x prompt tokens, new tokens, weight seed
 SERVE_BATCH, PROMPT_LEN, NEW_TOKENS, SEED = 8, 512, 32, 0
+#: whisper's decoder prompt (under its 448 decoder positions); its
+#: encoder takes the config's 1504 frames per request
+WHISPER_PROMPT = 128
 #: card vs CPU prefill: prompts x tokens
 CPU_BATCH, CPU_PROMPT = 2, 256
 #: SSD kernel vs plain version in float32: float32 sums of at most 128
@@ -411,7 +446,8 @@ def device_profile(fn, label: str = "phase"):
               "events)")
         return res
     PROFILES[label] = {"wall_s": wall_s, "busy_s": busy_s,
-                       "idle_share": 1 - busy_s / wall_s}
+                       "idle_share": 1 - busy_s / wall_s,
+                       "events": sum(n for n, _ in by_name.values())}
     print(f"  profiled {label}: wall {wall_s:.6f} s, device busy "
           f"{busy_s:.6f} s, device idle share {1 - busy_s / wall_s:.4f}, "
           f"{sum(n for n, _ in by_name.values())} device events")
@@ -686,12 +722,28 @@ def run_counted(what: str, want: tuple, fn):
 
 
 # ----------------------------------------------------------- phases 6-11
-#: the kernels of each serving path: the mixer's (B3 or B2), then B4;
-#: a prefill launches the first once per layer, a decode step never, and
-#: B4 twice per layer and once for the final norm in both
-SERVE_KERNELS = {MAMBA2.name: (ssd_inner, rmsnorm_fused),
-                 QWEN2.name: (flash_attention, rmsnorm_fused),
-                 GRANITE.name: (flash_attention, rmsnorm_fused)}
+def serve_launches(cfg) -> tuple:
+    """The kernels of a serving path and the launches of each in one
+    prefill and in one decode step: ``(kernels, prefill, step)``.  The
+    mixer (B3 or B2) runs once per layer in a prefill and never in a
+    decode step; B4 twice per layer and once for the final norm in both.
+    The hybrid adds B2 and two norms per shared-block application; the
+    enc-dec family runs B2 once per encoder layer and twice per decoder
+    layer in a prefill, and B4 twice per encoder layer, once for the
+    encoder's final norm and three times per decoder layer."""
+    n = cfg.n_layers
+    if cfg.family == Family.SSM:
+        return (ssd_inner, rmsnorm_fused), (n, 2 * n + 1), (0, 2 * n + 1)
+    if cfg.family == Family.HYBRID:
+        n_apps = hybrid_layout(cfg)[3]
+        norms = 2 * n + 2 * n_apps + 1
+        return ((flash_attention, ssd_inner, rmsnorm_fused),
+                (n_apps, n, norms), (0, 0, norms))
+    if cfg.family == Family.ENCDEC:
+        enc = cfg.n_encoder_layers
+        return ((flash_attention, rmsnorm_fused),
+                (enc + 2 * n, 2 * enc + 1 + 3 * n + 1), (0, 3 * n + 1))
+    return (flash_attention, rmsnorm_fused), (n, 2 * n + 1), (0, 2 * n + 1)
 
 
 def launch_counts(kernels) -> tuple:
@@ -702,6 +754,18 @@ def prompts(vocab: int, batch: int, length: int, seed: int) -> list:
     """Random prompts, as ``repro_torch.launch.serve`` draws them."""
     rng = np.random.default_rng(seed)
     return [list(rng.integers(1, vocab, length)) for _ in range(batch)]
+
+
+def prompt_len(cfg) -> int:
+    """Prompt tokens per request: whisper's decoder prompt is shorter."""
+    return WHISPER_PROMPT if cfg.family == Family.ENCDEC else PROMPT_LEN
+
+
+def frames(cfg, batch: int, rng) -> np.ndarray:
+    """The enc-dec family's stub frame embeddings, as
+    ``repro_torch.launch.serve`` draws them after the prompts."""
+    return rng.standard_normal((batch, cfg.encoder_frames, cfg.d_model)) \
+        .astype(np.float32) * 0.02
 
 
 class Checked:
@@ -735,26 +799,31 @@ class Checked:
 
 def serve_engine(cfg, model, cuda, profile=False, **scfg):
     """A ServeEngine of ``cfg`` (``scfg``: more ServeConfig fields) whose
-    prefill and decode steps are Checked for the launches of
-    ``SERVE_KERNELS[cfg.name]``."""
-    n_layers, kernels = cfg.n_layers, SERVE_KERNELS[cfg.name]
+    prefill and decode steps are Checked for the launches
+    ``serve_launches(cfg)`` gives."""
+    kernels, per_prefill, per_step = serve_launches(cfg)
     eng = ServeEngine(cfg, model,
                       ServeConfig(batch=SERVE_BATCH,
-                                  max_len=PROMPT_LEN + NEW_TOKENS + 8,
+                                  max_len=prompt_len(cfg) + NEW_TOKENS + 8,
                                   **scfg),
                       device=cuda)
     eng._prefill = Checked(eng._prefill, f"{cfg.name} prefill", kernels,
-                           (n_layers, 2 * n_layers + 1),
-                           profile_at=(0,) if profile else ())
+                           per_prefill, profile_at=(0,) if profile else ())
     eng._step = Checked(eng._step, f"{cfg.name} decode step", kernels,
-                        (0, 2 * n_layers + 1),
-                        profile_at=(1,) if profile else ())
+                        per_step, profile_at=(1,) if profile else ())
     return eng
 
 
-def serve_requests(cfg) -> list:
-    return [Request(prompt=p, max_new_tokens=NEW_TOKENS)
-            for p in prompts(cfg.vocab, SERVE_BATCH, PROMPT_LEN, SEED)]
+def serve_inputs(cfg) -> tuple:
+    """The serving path's requests and ``run``'s ``extra``, drawn as
+    ``repro_torch.launch.serve`` draws them from ``SEED``: the prompts,
+    then (enc-dec) the frames."""
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(prompt=list(rng.integers(1, cfg.vocab, prompt_len(cfg))),
+                    max_new_tokens=NEW_TOKENS) for _ in range(SERVE_BATCH)]
+    extra = ({"frames": frames(cfg, SERVE_BATCH, rng)}
+             if cfg.family == Family.ENCDEC else None)
+    return reqs, extra
 
 
 def capture_inputs(cfg, model, cuda) -> dict:
@@ -793,7 +862,8 @@ def capture_inputs(cfg, model, cuda) -> dict:
         model_attention.flash_attention = scan, norm, flash
     model_tf.moe_einsum = moe_layer
     try:
-        serve_engine(cfg, model, cuda).run(serve_requests(cfg), seed=SEED)
+        reqs, extra = serve_inputs(cfg)
+        serve_engine(cfg, model, cuda).run(reqs, seed=SEED, extra=extra)
     finally:
         model_mamba2.ssd_scan_op, model_common.rmsnorm_fused, \
             model_attention.flash_attention = real_scan, real_norm, real_flash
@@ -805,14 +875,38 @@ def serve_kernel_checks(seen: dict) -> list:
     """B3 and B4 against their plain versions on the serving path's own
     inputs; times and bounds.  Returns the JSON rows (B3, then B4 at the
     prefill's ``[B*S, d_model]``)."""
-    import torch.nn.functional as F
-
     print("phase 6: SSD and RMSNorm kernels vs plain on the card, inputs "
           "from a warm-up serve")
-    rows = []
     ssd_keys = [k for k in seen if k[0] == "ssd"]
     check(len(ssd_keys) == 1, f"the serve gave B3 shapes {ssd_keys}")
-    bf = seen[ssd_keys[0]]
+    row = ssd_row(seen[ssd_keys[0]])
+    print(f"  B3 bf16 {row['ms'] * 1e3:.2f} us: "
+          f"{'within' if row['ms'] * 1e3 <= SSD_BF16_US else 'MISSES'} "
+          f"{SSD_BF16_US} us; float32 / bf16 = {row['f32_factor']:.2f}: "
+          f"{'within' if row['f32_factor'] >= SSD_F32_FACTOR else 'MISSES'} "
+          f"{SSD_F32_FACTOR}x")
+    rows = [dict(row, by_shape=[ssd_entry(row, MAMBA2.name)])]
+
+    rms_keys = sorted(k for k in seen if k[0] == "rms")
+    rms_rows = [rms_row(*seen[key]) for key in rms_keys]
+    check(len(rms_rows) == 4, f"the serve gave B4 shapes {rms_keys}")
+    row = next(r for r in rms_rows if r["shape"] == [
+        SERVE_BATCH * PROMPT_LEN, MAMBA2.d_model])
+    row["max_abs_err"] = max(r["max_abs_err"] for r in rms_rows)
+    row["by_shape"] = [rms_entry(r, MAMBA2.name) for r in rms_rows]
+    us = row["ms"] * 1e3
+    print(f"  B4 at {row['shape']}: {us:.2f} us: "
+          f"{'within' if us <= RMS_US else 'MISSES'} {RMS_US} us")
+    rows.append(row)
+    return rows
+
+
+def ssd_row(bf) -> dict:
+    """B3 on one serve's inputs ``bf`` (x, B, C, dacum, dt; bf16): its
+    bf16 tensor-core route within ``ssd_ops.bf16_limits`` and its float32
+    SIMT route on the same inputs cast to float32 within ``SSD_RTOL``,
+    both timed by graph replay beside the plain version, with their
+    bounds.  Returns the JSON row (float32 figures under ``f32_*``)."""
     x, bm, cm, da, dt = bf
     bsz, nc, heads, q, p = x.shape
     groups, n = bm.shape[2], bm.shape[-1]
@@ -855,6 +949,7 @@ def serve_kernel_checks(seen: dict) -> list:
             err, share = max(err, float(gap.max())), max(share, sh)
         nbytes = sum(t.numel() * t.element_size() for t in args) + \
             4 * (y.numel() + st.numel())
+        del y, st, want_y, want_st, limits
         ms = graph_ms(lambda: ssd_inner(*args), 20)
         plain_ms = cuda_ms(lambda: ssd_inner_plain(*args), 10)
         plain_graph_ms = graph_ms(lambda: ssd_inner_plain(*args), 10)
@@ -875,85 +970,88 @@ def serve_kernel_checks(seen: dict) -> list:
                     f"{prefix}bound_by": "bytes" if bytes_ms >= ops_ms
                     else "operations", f"{prefix}library_ms": None,
                     f"{prefix}plain_graph_ms": plain_graph_ms})
-    factor = row["f32_ms"] / row["ms"]
-    row["f32_factor"] = factor
-    print(f"  B3 bf16 {row['ms'] * 1e3:.2f} us: "
-          f"{'within' if row['ms'] * 1e3 <= SSD_BF16_US else 'MISSES'} "
-          f"{SSD_BF16_US} us; float32 / bf16 = {factor:.2f}: "
-          f"{'within' if factor >= SSD_F32_FACTOR else 'MISSES'} "
-          f"{SSD_F32_FACTOR}x")
-    rows.append(row)
+    row["f32_factor"] = row["f32_ms"] / row["ms"]
+    return row
 
-    rms_keys = sorted(k for k in seen if k[0] == "rms")
-    rms_rows = []
-    for key in rms_keys:
-        x, gamma, eps = seen[key]
-        x2 = x.reshape(-1, x.shape[-1])
-        e = rms_hold(x2, gamma, eps)
-        d = x2.shape[-1]
-        nbytes = 2 * x2.numel() * x2.element_size() + \
-            d * gamma.element_size()
-        flops = 4 * x2.numel()
-        ms = graph_ms_ring(lambda xi: rmsnorm_fused(xi, gamma, eps), x2, 200)
-        library_graph_ms = graph_ms_ring(
-            lambda xi: F.rms_norm(xi, (d,), gamma, eps), x2, 200)
-        # the same bytes moved by PyTorch's copy kernel: what this card
-        # gives one graph-replayed launch of this size
-        copy_ms = graph_ms_ring(lambda xi: xi.clone(), x2, 200)
-        warm_ms = graph_ms(lambda: rmsnorm_fused(x2, gamma, eps), 200)
-        library_warm_graph_ms = graph_ms(
-            lambda: F.rms_norm(x2, (d,), gamma, eps), 200)
-        plain_ms = cuda_ms(lambda: rmsnorm_plain(x2, gamma, eps), 50)
-        library_ms = cuda_ms(lambda: F.rms_norm(x2, (d,), gamma, eps), 200)
-        plain_graph_ms = graph_ms(lambda: rmsnorm_plain(x2, gamma, eps), 50)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / F32_FLOP_PER_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        print(f"  rmsnorm {tuple(x2.shape)}: {ms * 1e3:.2f} us/launch "
-              f"(graph replay over a ring of x; one x: "
-              f"{warm_ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us "
-              f"(graph replay {plain_graph_ms * 1e3:.2f} us), F.rms_norm "
-              f"{library_ms * 1e3:.2f} us (graph replay over the ring "
-              f"{library_graph_ms * 1e3:.2f} us; one x "
-              f"{library_warm_graph_ms * 1e3:.2f} us), bound "
-              f"{bound_ms * 1e3:.2f} us ({nbytes} bytes, "
-              f"{bound_ms / ms:.1%} of it; a copy of x over the ring "
-              f"{copy_ms * 1e3:.2f} us); B4 / F.rms_norm "
-              f"(ring) = {ms / library_graph_ms:.3f}: "
-              f"{'within' if ms <= library_graph_ms else 'MISSES'} 1")
-        shape_row = {"name": "rmsnorm_fused", "route": "cuda",
-                     "source": RMS_SOURCE, "replaces": RMS_TPU,
-                     "launches": 0, "max_abs_err": e, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": "bytes" if bytes_ms >= ops_ms
-                     else "operations", "library_ms": library_ms,
-                     "shape": list(x2.shape),
-                     "kernel_route": list(rms_ops.route(x2, gamma)),
-                     "plain_graph_ms": plain_graph_ms,
-                     "library_graph_ms": library_graph_ms,
-                     "warm_ms": warm_ms,
-                     "library_warm_graph_ms": library_warm_graph_ms,
-                     "copy_graph_ms": copy_ms}
-        rms_rows.append(shape_row)
-    check(len(rms_rows) == 4, f"the serve gave B4 shapes {rms_keys}")
-    row = next(r for r in rms_rows if r["shape"] == [
-        SERVE_BATCH * PROMPT_LEN, MAMBA2.d_model])
-    row["max_abs_err"] = max(r["max_abs_err"] for r in rms_rows)
-    row["by_shape"] = [{k: r[k] for k in ("shape", "kernel_route", "ms",
-                                          "library_graph_ms", "bound_ms",
-                                          "warm_ms", "library_warm_graph_ms",
-                                          "copy_graph_ms")}
-                       for r in rms_rows]
-    us = row["ms"] * 1e3
-    print(f"  B4 at {row['shape']}: {us:.2f} us: "
-          f"{'within' if us <= RMS_US else 'MISSES'} {RMS_US} us")
-    rows.append(row)
-    return rows
+
+def ssd_entry(row: dict, model: str) -> dict:
+    """B3's ``by_shape`` entry of one row."""
+    return dict({k: row[k] for k in (
+        "shape", "max_abs_err", "limit_share", "ms", "plain_ms", "bound_ms",
+        "bound_by", "library_ms", "f32_ms", "f32_bound_ms")}, model=model)
+
+
+def rms_row(x, gamma, eps, iters: int = 200) -> dict:
+    """B4 at one of a serve's shapes: held (``rms_hold``) and timed, by
+    graph replay over a ring of copies of x and over one x, beside
+    ``F.rms_norm``, a copy of x over the ring and the plain version.
+    ``iters`` calls per timing (each keeps its output)."""
+    import torch.nn.functional as F
+
+    x2 = x.reshape(-1, x.shape[-1])
+    e = rms_hold(x2, gamma, eps)
+    d = x2.shape[-1]
+    nbytes = 2 * x2.numel() * x2.element_size() + d * gamma.element_size()
+    flops = 4 * x2.numel()
+    ms = graph_ms_ring(lambda xi: rmsnorm_fused(xi, gamma, eps), x2, iters)
+    library_graph_ms = graph_ms_ring(
+        lambda xi: F.rms_norm(xi, (d,), gamma, eps), x2, iters)
+    # the same bytes moved by PyTorch's copy kernel: what this card
+    # gives one graph-replayed launch of this size
+    copy_ms = graph_ms_ring(lambda xi: xi.clone(), x2, iters)
+    warm_ms = graph_ms(lambda: rmsnorm_fused(x2, gamma, eps), iters)
+    library_warm_graph_ms = graph_ms(
+        lambda: F.rms_norm(x2, (d,), gamma, eps), iters)
+    plain_ms = cuda_ms(lambda: rmsnorm_plain(x2, gamma, eps), 50)
+    library_ms = cuda_ms(lambda: F.rms_norm(x2, (d,), gamma, eps), iters)
+    plain_graph_ms = graph_ms(lambda: rmsnorm_plain(x2, gamma, eps), 50)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOP_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"  rmsnorm {tuple(x2.shape)}: {ms * 1e3:.2f} us/launch "
+          f"(graph replay over a ring of x; one x: "
+          f"{warm_ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us "
+          f"(graph replay {plain_graph_ms * 1e3:.2f} us), F.rms_norm "
+          f"{library_ms * 1e3:.2f} us (graph replay over the ring "
+          f"{library_graph_ms * 1e3:.2f} us; one x "
+          f"{library_warm_graph_ms * 1e3:.2f} us), bound "
+          f"{bound_ms * 1e3:.2f} us ({nbytes} bytes, "
+          f"{bound_ms / ms:.1%} of it; a copy of x over the ring "
+          f"{copy_ms * 1e3:.2f} us); B4 / F.rms_norm "
+          f"(ring) = {ms / library_graph_ms:.3f}: "
+          f"{'within' if ms <= library_graph_ms else 'MISSES'} 1")
+    return {"name": "rmsnorm_fused", "route": "cuda",
+            "source": RMS_SOURCE, "replaces": RMS_TPU,
+            "launches": 0, "max_abs_err": e, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, "shape": list(x2.shape),
+            "kernel_route": list(rms_ops.route(x2, gamma)),
+            "plain_graph_ms": plain_graph_ms,
+            "library_graph_ms": library_graph_ms, "warm_ms": warm_ms,
+            "library_warm_graph_ms": library_warm_graph_ms,
+            "copy_graph_ms": copy_ms}
+
+
+def rms_entry(row: dict, model: str) -> dict:
+    """B4's ``by_shape`` entry of one shape's row."""
+    return dict({k: row[k] for k in (
+        "shape", "kernel_route", "ms", "library_graph_ms", "bound_ms",
+        "warm_ms", "library_warm_graph_ms", "copy_graph_ms", "max_abs_err",
+        "plain_ms", "library_ms")}, model=model)
+
+
+def register_fits(x2) -> bool:
+    """Whether B4's register route takes rows of ``x2``'s width: whole
+    16-byte vectors, at most 16 per lane of a warp."""
+    row_bytes = x2.shape[-1] * x2.element_size()
+    return row_bytes % 16 == 0 and -(-row_bytes // 16 // 32) <= 16
 
 
 def rms_hold(x2, gamma, eps) -> float:
     """B4 against its plain version at one shape (one bf16 ulp), on the
-    route the shape takes and on the generic route (a copy of ``x`` one
+    route the shape takes (the register route where ``register_fits``,
+    else the generic one) and on the generic route (a copy of ``x`` one
     element off a 16-byte boundary); prints the routes.  Returns the
     largest gap to the plain version."""
     want = rmsnorm_plain(x2, gamma, eps)
@@ -976,7 +1074,8 @@ def rms_hold(x2, gamma, eps) -> float:
               f"{'ok' if ok else 'MISMATCH'}")
         check(ok, f"rmsnorm {tuple(x2.shape)} on the {route[0]} route "
               f"disagrees with its plain version")
-        check(bool(label) == (route[0] == "generic"),
+        check((route[0] == "generic") == (bool(label) or
+                                          not register_fits(x2)),
               f"rmsnorm {tuple(x2.shape)}: {label or 'aligned, '}"
               f"{route[0]} route")
         e = max(e, gap)
@@ -1059,20 +1158,22 @@ def flash_hold(label: str, a, b, c, is_causal: bool) -> float:
     return e
 
 
-def flash_times(a, b, c) -> dict:
-    """B2's causal time on q, k, v = ``a``, ``b``, ``c`` by graph replay,
-    the plain version's and SDPA's, and the bound (the function's own
-    work: q.k and p.v over the causal pairs)."""
+def flash_times(a, b, c, causal: bool = True) -> dict:
+    """B2's time on q, k, v = ``a``, ``b``, ``c`` by graph replay, the
+    plain version's and SDPA's, and the bound (the function's own work:
+    q.k and p.v over the causal pairs, or over every pair)."""
     import torch.nn.functional as F
 
     bsz, heads, seq, hd = a.shape
-    flops = 4 * hd * bsz * heads * seq * (seq + 1) // 2
+    pairs = seq * (seq + 1) // 2 if causal else seq * b.shape[2]
+    flops = 4 * hd * bsz * heads * pairs
     nbytes = (2 * a.numel() + b.numel() + c.numel()) * a.element_size()
-    ms = graph_ms(lambda: flash_attention(a, b, c), 20)
-    plain_ms = cuda_ms(lambda: flash_attention_plain(a, b, c), 10)
+    ms = graph_ms(lambda: flash_attention(a, b, c, causal=causal), 20)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(a, b, c, causal=causal),
+                       10)
 
     def sdpa():
-        return F.scaled_dot_product_attention(a, b, c, is_causal=True,
+        return F.scaled_dot_product_attention(a, b, c, is_causal=causal,
                                               enable_gqa=True)
 
     library_ms = cuda_ms(sdpa, 20)
@@ -1082,7 +1183,8 @@ def flash_times(a, b, c) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / peak * 1e3
     print(f"  flash_attention {str(a.dtype)[6:]} {tuple(a.shape)} / "
-          f"{tuple(b.shape)}: {ms * 1e3:.2f} us/launch (graph replay), "
+          f"{tuple(b.shape)}{'' if causal else ' non-causal'}: "
+          f"{ms * 1e3:.2f} us/launch (graph replay), "
           f"plain {plain_ms * 1e3:.2f} us, SDPA {library_ms * 1e3:.2f} "
           f"us (graph replay {library_graph_ms * 1e3:.2f} us), bound "
           f"{max(bytes_ms, ops_ms) * 1e3:.2f} us ({flops} "
@@ -1102,32 +1204,53 @@ def flash_times(a, b, c) -> dict:
 
 
 def serve_path(cfg, model, cuda, phase: int, **scfg) -> dict:
-    """Phases 7, 10 and 14: a serving path (``scfg``: more ServeConfig
-    fields), counted and timed, then profiled."""
-    n_layers = cfg.n_layers
-    mixer, norm = SERVE_KERNELS[cfg.name]
+    """Phases 7, 10, 14, 18 and 19: a serving path (``scfg``: more
+    ServeConfig fields), counted and timed, then profiled.  For the
+    enc-dec family the encoder's share of the prefill is timed apart
+    (``encode_s``, inside ``prefill_s``)."""
+    n_layers, plen = cfg.n_layers, prompt_len(cfg)
+    kernels, per_prefill, per_step = serve_launches(cfg)
+    names = [k.__name__ for k in kernels]
     print(f"phase {phase}: serve {cfg.name} ({n_layers} layers, d_model "
           f"{cfg.d_model}, vocab {cfg.vocab}), {SERVE_BATCH} requests "
-          f"x {PROMPT_LEN} prompt tokens, {NEW_TOKENS} new tokens, greedy"
+          f"x {plen} prompt tokens, {NEW_TOKENS} new tokens, greedy"
           + "".join(f", {k} {v}" for k, v in scfg.items()))
     torch.cuda.reset_peak_memory_stats()   # the serve's own peak
     eng = serve_engine(cfg, model, cuda, **scfg)
-    reqs = serve_requests(cfg)
-    mixer.launches = norm.launches = ssd_inner.bf16_launches = 0
-    t0 = time.perf_counter()
-    out = eng.run(reqs, seed=SEED)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    counts = {mixer.__name__: mixer.launches, norm.__name__: norm.launches}
+    reqs, extra = serve_inputs(cfg)
+    encode_s = []
+    real_encode = model_encdec.encode
+
+    def timed_encode(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_encode(*args)
+        torch.cuda.synchronize()
+        encode_s.append(time.perf_counter() - t0)
+        return out
+
+    for k in kernels:
+        k.launches = 0
+    ssd_inner.bf16_launches = 0
+    model_encdec.encode = timed_encode
+    try:
+        t0 = time.perf_counter()
+        out = eng.run(reqs, seed=SEED, extra=extra)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        model_encdec.encode = real_encode
+    counts = dict(zip(names, launch_counts(kernels)))
     steps = eng._step.times
     check(len(eng._prefill.times) == 1 and len(steps) == NEW_TOKENS,
           f"{len(eng._prefill.times)} prefills, {len(steps)} decode steps")
-    want = {mixer.__name__: n_layers,
-            norm.__name__: (2 * n_layers + 1) * (1 + NEW_TOKENS)}
+    want = {n: a + NEW_TOKENS * b
+            for n, a, b in zip(names, per_prefill, per_step)}
     check(counts == want, f"serve launches {counts}, want {want}")
-    if mixer is ssd_inner:
-        check(ssd_inner.bf16_launches == n_layers, f"{ssd_inner.bf16_launches}"
-              f" of {n_layers} B3 launches on the tensor-core route")
+    if ssd_inner in kernels:
+        n_ssd = per_prefill[kernels.index(ssd_inner)]
+        check(ssd_inner.bf16_launches == n_ssd, f"{ssd_inner.bf16_launches}"
+              f" of {n_ssd} B3 launches on the tensor-core route")
     toks = [t for r in out for t in r.out_tokens]
     check(len(toks) == SERVE_BATCH * NEW_TOKENS and
           all(0 <= t < cfg.vocab for t in toks),
@@ -1138,16 +1261,21 @@ def serve_path(cfg, model, cuda, phase: int, **scfg) -> dict:
              "decode_step_min_s": float(np.min(steps)),
              "decode_step_max_s": float(np.max(steps)),
              "decode_tok_per_s": SERVE_BATCH / step_s,
-             "prefill_tok_per_s": SERVE_BATCH * PROMPT_LEN / prefill_s,
+             "prefill_tok_per_s": SERVE_BATCH * plen / prefill_s,
              "run_s": run_s, "launches": counts,
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if cfg.family == Family.ENCDEC:
+        check(len(encode_s) == 1, f"{len(encode_s)} encoder runs")
+        stats["encode_s"] = encode_s[0]
     print(f"  prefill_s {prefill_s:.6f} ({stats['prefill_tok_per_s']:.1f} "
-          f"prompt tok/s), decode_step_s {step_s:.6f} (min "
+          f"prompt tok/s"
+          + (f"; encode_s {encode_s[0]:.6f} of it" if encode_s else "")
+          + f"), decode_step_s {step_s:.6f} (min "
           f"{stats['decode_step_min_s']:.6f}, max "
           f"{stats['decode_step_max_s']:.6f}), decode_tok_per_s "
           f"{stats['decode_tok_per_s']:.1f}, run {run_s:.4f} s, launches "
-          f"{counts} (per prefill {n_layers}/{2 * n_layers + 1}, per decode "
-          f"step 0/{2 * n_layers + 1}), peak "
+          f"{counts} (per prefill {'/'.join(map(str, per_prefill))}, per "
+          f"decode step {'/'.join(map(str, per_step))}), peak "
           f"memory {stats['peak_mem_gb']:.2f} GB")
     print(f"  req0 tokens: {out[0].out_tokens[:12]}")
     if eng.policy_decisions:
@@ -1157,11 +1285,13 @@ def serve_path(cfg, model, cuda, phase: int, **scfg) -> dict:
               + ", ".join(f"{n} bytes -> {m.value}"
                           for n, m in eng.policy_decisions))
     prof = serve_engine(cfg, model, cuda, profile=True, **scfg)
-    prof.run(serve_requests(cfg), seed=SEED)
+    reqs, extra = serve_inputs(cfg)
+    prof.run(reqs, seed=SEED, extra=extra)
     for label in ("prefill", "decode step"):
         got = PROFILES.get(f"{cfg.name} {label}", {})
         stats[f"{label.split()[0]}_idle_share"] = got.get("idle_share")
         stats[f"{label.split()[0]}_busy_s"] = got.get("busy_s")
+        stats[f"{label.split()[0]}_device_events"] = got.get("events")
     return stats
 
 
@@ -1766,9 +1896,13 @@ MOE_CPU_S = 120.0
 
 
 def recast(model, cfg) -> None:
-    """Compute with ``model``'s masters in ``cfg.dtype`` from here on."""
-    model.cfg = cfg
-    model._cw = None
+    """Compute with ``model``'s masters in ``cfg.dtype`` from here on
+    (the model and every cast cache in it, such as a hybrid's Mamba2
+    blocks)."""
+    for m in model.modules():
+        if isinstance(m, CastCache):
+            m.cfg = cfg
+            m._cw = None
 
 
 def moe_breakdown(w: dict, h: torch.Tensor, cfg, n_layers: int,
@@ -2024,6 +2158,199 @@ def collectives_on_card(cuda, w: dict, h: torch.Tensor, cfg) -> dict:
     finally:
         dist.destroy_process_group()
     return out
+
+
+# ----------------------------------------------------------- phases 17-20
+#: card vs CPU depths of phase 20: zamba2-7b at 14 layers (2 super-blocks,
+#: 1 shared-block application, 2 trailing layers); whisper-large-v3 at
+#: this many encoder and decoder layers (full depth)
+ZAMBA2_CPU_LAYERS = 14
+WHISPER_CPU_LAYERS = 32
+#: the CPU's float32 prefill in phase 20 should take at most this many
+#: seconds: reported, not enforced (a miss cuts the depth next time)
+FAMILY_CPU_S = 60.0
+#: B4's timing calls at the new families' shapes (each keeps its
+#: output: [4096, 7168] bf16 is 58.7 MB)
+RMS_ITERS = 50
+
+
+def flash_entry(label: str, model: str, q, k, v, causal: bool,
+                ragged: bool = False) -> dict:
+    """B2 on one of a serve's shapes: held against its plain version (and,
+    with ``ragged``, on its first 2 rows cut to 200 tokens), then timed;
+    returns a ``by_shape`` entry."""
+    err = flash_hold(f"bf16, {model} {label}", q, k, v, causal)
+    if ragged:
+        err = max(err, flash_hold(f"bf16, {model} {label}, S = 200",
+                                  *[t[:2, :, :200].contiguous()
+                                    for t in (q, k, v)], causal))
+    entry = {"model": model, "attention": label,
+             "shape": [q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                       k.shape[2], q.shape[3]], "causal": causal,
+             "max_abs_err": err}
+    entry.update(flash_times(q, k, v, causal))
+    return entry
+
+
+def family_rms_rows(seen: dict, n_shapes: int, model: str) -> list:
+    """B4 at each of a serve's ``n_shapes`` shapes, held and timed."""
+    keys = sorted(k for k in seen if k[0] == "rms")
+    check(len(keys) == n_shapes, f"the {model} serve gave B4 shapes {keys}")
+    return [rms_row(*seen[key], iters=RMS_ITERS) for key in keys]
+
+
+def zamba2_kernel_checks(seen: dict) -> dict:
+    """Phase 17: B2 at zamba2's head dim of 112 (served from the 128
+    build, the tensor map zero-padding the columns), B3 at N = 64 with
+    112 heads (padded into the N = 128 build) on both routes, and B4 at
+    widths 3584 and 7168 (7168 past the register route's reach), each on
+    the serve's own inputs against its plain version, timed, with its
+    bound."""
+    keys = [k for k in seen if k[0] == "flash"]
+    check(len(keys) == 1, f"the {ZAMBA2.name} serve gave B2 shapes {keys}")
+    q, k, v, causal = seen[keys[0]]
+    want = (SERVE_BATCH, ZAMBA2.n_heads, PROMPT_LEN, ZAMBA2.hd)
+    check(causal and q.dtype == torch.bfloat16 and tuple(q.shape) == want
+          and tuple(k.shape) == want, f"B2 saw q {tuple(q.shape)} "
+          f"{q.dtype}, k {tuple(k.shape)}")
+    flash = flash_entry("shared block", ZAMBA2.name, q, k, v, True,
+                        ragged=True)
+    ssd_keys = [k for k in seen if k[0] == "ssd"]
+    check(len(ssd_keys) == 1, f"the {ZAMBA2.name} serve gave B3 shapes "
+          f"{ssd_keys}")
+    ssd = ssd_row(seen[ssd_keys[0]])
+    d_inner = ZAMBA2.ssm_expand * ZAMBA2.d_model
+    check(ssd["shape"] == [SERVE_BATCH, PROMPT_LEN // ZAMBA2.ssm_chunk,
+                           d_inner // ZAMBA2.ssm_head_dim, ZAMBA2.ssm_chunk,
+                           ZAMBA2.ssm_head_dim, ZAMBA2.ssm_state, 1],
+          f"B3 saw {ssd['shape']}")
+    rms = family_rms_rows(seen, 4, ZAMBA2.name)
+    return {"flash": flash, "ssd": ssd, "rms": rms}
+
+
+def whisper_kernel_checks(seen: dict) -> dict:
+    """Phase 19: B2 at whisper's three shapes (the encoder's non-causal
+    1504 x 1504 self-attention, the prefill's non-causal cross-attention
+    of 128 queries over 1504 keys, the decoder's causal self-attention)
+    and B4 at its three widths-1280 shapes, each on the serve's own
+    inputs against its plain version, timed, with its bound."""
+    keys = sorted(k for k in seen if k[0] == "flash")
+    check(len(keys) == 3, f"the {WHISPER.name} serve gave B2 shapes {keys}")
+    heads, hd, n_frames = WHISPER.n_heads, WHISPER.hd, WHISPER.encoder_frames
+    want = {"encoder": ((n_frames, n_frames), False),
+            "cross": ((WHISPER_PROMPT, n_frames), False),
+            "decoder self": ((WHISPER_PROMPT, WHISPER_PROMPT), True)}
+    flash = []
+    for label, ((sq, skv), is_causal) in want.items():
+        got = [seen[k] for k in keys if k[3] == sq and k[7] == skv]
+        check(len(got) == 1, f"no B2 call of {label} shape in {keys}")
+        q, k, v, causal = got[0]
+        check(causal == is_causal and q.dtype == torch.bfloat16 and
+              tuple(q.shape) == (SERVE_BATCH, heads, sq, hd) and
+              tuple(k.shape) == (SERVE_BATCH, heads, skv, hd),
+              f"B2 {label} saw q {tuple(q.shape)}, k {tuple(k.shape)}, "
+              f"causal {causal}")
+        flash.append(flash_entry(label, WHISPER.name, q, k, v, causal))
+    rms = family_rms_rows(seen, 3, WHISPER.name)
+    return {"flash": flash, "rms": rms}
+
+
+def family_cpu_compare(cfg, cuda) -> dict:
+    """Phase 20: the same seeded model (``cfg``, cut in depth) on the
+    card and on the CPU, last-token prefill logits of ``CPU_BATCH`` x
+    ``CPU_PROMPT`` tokens (and, for whisper, frames of the config's
+    length), in float32 and bf16.  float32 is held at
+    ``LOGITS_F32_TOL``; bf16 by the accuracy rule of phases 8 and 11:
+    the card's bf16 logits no farther from the CPU's float32 ones than
+    ``BF16_ACCURACY_RATIO`` times the CPU's bf16 ones, in the largest and
+    in the mean difference, with the CPU's argmax at the family's full
+    depth (printed at a cut depth, as phase 15 does)."""
+    full = {ZAMBA2.name: ZAMBA2.n_layers,
+            WHISPER.name: WHISPER.n_layers}[cfg.name]
+    toks = torch.from_numpy(np.array(
+        prompts(cfg.vocab, CPU_BATCH, CPU_PROMPT, 1)))
+    batch = {"tokens": toks}
+    if cfg.family == Family.ENCDEC:
+        batch["frames"] = torch.from_numpy(
+            frames(cfg, CPU_BATCH, np.random.default_rng(2)))
+    t0 = time.perf_counter()
+    host = model_registry.init_params(cfg, SEED, "cpu")
+    on_card = type(host)(cfg, device=cuda)
+    on_card.load_state_dict(host.state_dict())
+    print(f"  {cfg.name}, {cfg.n_layers} layers"
+          + (f" (+ {cfg.n_encoder_layers} encoder layers)"
+             if cfg.family == Family.ENCDEC else "")
+          + f": {sum(p.numel() for p in host.parameters())} parameters on "
+          f"both devices in {time.perf_counter() - t0:.2f} s")
+    logits, report = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cd = cfg.scaled(dtype=dtype)
+        for m in (host, on_card):
+            recast(m, cd)
+
+        def last(model, dev):
+            state = model_registry.make_decode_state(
+                cd, CPU_BATCH, CPU_PROMPT, device=dev)
+            lg, _ = model_registry.prefill(
+                model, {k: t.to(dev) for k, t in batch.items()}, cd, state)
+            return lg[:, -1, :cfg.vocab].float().cpu()
+
+        t0 = time.perf_counter()
+        host_lg = last(host, torch.device("cpu"))
+        cpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        card_lg = last(on_card, cuda)
+        card_s = time.perf_counter() - t0
+        name = str(dtype)[6:]
+        print(f"  {name}: CPU prefill {cpu_s:.2f} s, card {card_s:.2f} s"
+              + (f": {'within' if cpu_s <= FAMILY_CPU_S else 'OVER'} "
+                 f"{FAMILY_CPU_S} s" if dtype == torch.float32 else ""))
+        logits[dtype] = (card_lg, host_lg)
+        report[name] = {"cpu_s": cpu_s, "card_s": card_s,
+                        "max_abs_err": max_err(card_lg, host_lg)}
+    card32, host32 = logits[torch.float32]
+    check(bool(torch.isfinite(card32).all()), "non-finite logits")
+    err, scale = max_err(card32, host32), float(host32.abs().max())
+    limit = LOGITS_F32_TOL * max(1.0, scale)
+    per_element = bool(torch.allclose(card32, host32, rtol=LOGITS_F32_TOL,
+                                      atol=LOGITS_F32_TOL))
+    print(f"  float32: logits max_abs_err {err:.3e} (max |logit| "
+          f"{scale:.3f}; limit {LOGITS_F32_TOL} x max(1, max |logit|) = "
+          f"{limit:.3e}, {err / limit:.3f} of it; per element at rtol = "
+          f"atol = {LOGITS_F32_TOL}: {'within' if per_element else 'beyond'}"
+          f", shown, not held) {'ok' if err <= limit else 'MISMATCH'}")
+    report["float32"]["limit_share"] = err / limit
+    check(err <= limit, f"{cfg.name}: card and CPU logits disagree in "
+          f"float32")
+    bf_card, bf_host = logits[torch.bfloat16]
+    spread, acc = max_err(bf_host, host32), max_err(bf_card, host32)
+    spread_mean = float((bf_host - host32).abs().mean())
+    acc_mean = float((bf_card - host32).abs().mean())
+    same = bool((bf_card.argmax(-1) == bf_host.argmax(-1)).all())
+    ok = (acc <= BF16_ACCURACY_RATIO * spread
+          and acc_mean <= BF16_ACCURACY_RATIO * spread_mean
+          and bool(torch.isfinite(bf_card).all())
+          and (same or cfg.n_layers < full))
+    within = bool(torch.allclose(bf_card, bf_host, rtol=LOGITS_BF16_TOL,
+                                 atol=LOGITS_BF16_TOL))
+    print(f"  bfloat16: card vs CPU max_abs_err "
+          f"{max_err(bf_card, bf_host):.3e} (mean "
+          f"{float((bf_card - bf_host).abs().mean()):.3e}; "
+          f"{'within' if within else 'beyond'} the tests' "
+          f"{LOGITS_BF16_TOL}, shown, not held); CPU bf16 vs float32 "
+          f"{spread:.3e} (mean {spread_mean:.3e}); card bf16 vs float32 "
+          f"{acc:.3e} (mean {acc_mean:.3e}): ratios {acc / spread:.3f} and "
+          f"{acc_mean / spread_mean:.3f} (limit {BF16_ACCURACY_RATIO}); "
+          f"argmax {'same' if same else 'DIFFERS'}"
+          f"{'' if cfg.n_layers == full else ' (held at full depth)'} "
+          f"{'ok' if ok else 'MISMATCH'}")
+    report["bfloat16"].update(accuracy_ratio=acc / spread,
+                              accuracy_ratio_mean=acc_mean / spread_mean,
+                              cpu_bf16_vs_f32=spread, argmax_same=same)
+    check(ok, f"{cfg.name}: card and CPU logits disagree in bf16")
+    del host, on_card
+    torch.cuda.empty_cache()
+    return report
 
 
 def main() -> int:
@@ -2282,6 +2609,74 @@ def main() -> int:
     del seen, w0, h0
     print("  moe " + json.dumps({"card_vs_cpu": moe_cpu,
                                  "moe_ep_vs_ref": collectives}))
+
+    # phases 17-18: the hybrid family, zamba2-7b at full width and depth;
+    # its kernels at their shapes first, then launch counts from the
+    # serve are its own
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = model_registry.init_params(ZAMBA2, SEED, cuda)
+    torch.cuda.synchronize()
+    print(f"phase 17: hybrid serving model {ZAMBA2.name} ({ZAMBA2.n_layers} "
+          f"Mamba2 layers, shared block every {ZAMBA2.shared_attn_period}, "
+          f"d_model {ZAMBA2.d_model}): "
+          f"{sum(p.numel() for p in model.parameters())} parameters, built "
+          f"in {time.perf_counter() - t0:.2f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    zamba2 = zamba2_kernel_checks(capture_inputs(ZAMBA2, model, cuda))
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    serve_stats[ZAMBA2.name] = serve_path(ZAMBA2, model, cuda, 18)
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s wall")
+
+    # phase 19: the enc-dec family, whisper-large-v3 at full width and depth
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = model_registry.init_params(WHISPER, SEED, cuda)
+    torch.cuda.synchronize()
+    print(f"phase 19: enc-dec serving model {WHISPER.name} "
+          f"({WHISPER.n_encoder_layers} + {WHISPER.n_layers} layers, "
+          f"d_model {WHISPER.d_model}, {WHISPER.encoder_frames} frames): "
+          f"{sum(p.numel() for p in model.parameters())} parameters, built "
+          f"in {time.perf_counter() - t0:.2f} s")
+    whisper = whisper_kernel_checks(capture_inputs(WHISPER, model, cuda))
+    serve_stats[WHISPER.name] = serve_path(WHISPER, model, cuda, 19)
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s wall")
+
+    # the new shapes join each kernel's row
+    rows = {r["name"]: r for r in kernels}
+    new_flash = [zamba2["flash"]] + whisper["flash"]
+    rows["flash_attention"]["by_shape"] += new_flash
+    rows["ssd_inner"]["by_shape"].append(ssd_entry(zamba2["ssd"],
+                                                   ZAMBA2.name))
+    rows["rmsnorm_fused"]["by_shape"] += \
+        [rms_entry(r, ZAMBA2.name) for r in zamba2["rms"]] + \
+        [rms_entry(r, WHISPER.name) for r in whisper["rms"]]
+    for name, errs in (("flash_attention", [e["max_abs_err"]
+                                            for e in new_flash]),
+                       ("ssd_inner", [zamba2["ssd"]["max_abs_err"]]),
+                       ("rmsnorm_fused", [r["max_abs_err"] for r in
+                                          zamba2["rms"] + whisper["rms"]])):
+        rows[name]["max_abs_err"] = max([rows[name]["max_abs_err"]] + errs)
+
+    # phase 20: card vs CPU for both families
+    t0 = time.perf_counter()
+    print(f"phase 20: card vs CPU, {ZAMBA2.name} at {ZAMBA2_CPU_LAYERS} "
+          f"layers and {WHISPER.name} at {WHISPER_CPU_LAYERS} + "
+          f"{WHISPER_CPU_LAYERS} layers, prefill of {CPU_BATCH} x "
+          f"{CPU_PROMPT} tokens")
+    family_cpu = {
+        ZAMBA2.name: family_cpu_compare(
+            ZAMBA2.scaled(n_layers=ZAMBA2_CPU_LAYERS), cuda),
+        WHISPER.name: family_cpu_compare(
+            WHISPER.scaled(n_layers=WHISPER_CPU_LAYERS,
+                           n_encoder_layers=WHISPER_CPU_LAYERS), cuda)}
+    print("  families " + json.dumps(family_cpu))
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s wall")
 
     # each kernel's launches on the serving paths that run it
     for row in kernels:

@@ -1,8 +1,9 @@
 """--arch <id> registry over the reference's 10 architectures.
 
 mamba2-130m, the four dense archs (qwen2-1.5b, stablelm-1.6b,
-llama3-8b, codeqwen1.5-7b) and the two MoE archs (granite-moe-3b-a800m,
-qwen2-moe-a2.7b) are ported; asking for any other of the ten
+llama3-8b, codeqwen1.5-7b), the two MoE archs (granite-moe-3b-a800m,
+qwen2-moe-a2.7b), the hybrid zamba2-7b and the enc-dec whisper-large-v3
+are ported; asking for the other of the ten (paligemma-3b)
 raises ``NotImplementedError`` pointing to its ROADMAP item, and an id
 outside the ten raises ``KeyError``.
 """
@@ -21,14 +22,14 @@ _MODULES = {
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
     "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "whisper-large-v3": "repro_torch.configs.whisper_large_v3",
 }
 
-#: the reference's architectures that are not ported yet, with where
-#: each is queued
+#: the reference's architecture that is not ported yet, with where it
+#: is queued
 PENDING = {
     "paligemma-3b": "ROADMAP A.4 (VLM family)",
-    "zamba2-7b": "ROADMAP A.4 (hybrid family)",
-    "whisper-large-v3": "ROADMAP A.4 (enc-dec family)",
 }
 
 ARCHS = ("paligemma-3b", "stablelm-1.6b", "llama3-8b", "codeqwen1.5-7b",

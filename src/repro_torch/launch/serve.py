@@ -7,13 +7,21 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch granite-moe-3b-a800m --requests 8 --prompt-len 512 \
         --new-tokens 32                                    # MoE, on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --requests 8 --prompt-len 512 --new-tokens 32      # hybrid, on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-large-v3 --requests 8 --prompt-len 128 \
+        --new-tokens 32                                    # enc-dec, on the card
 
 ``--arch`` takes any ported architecture (``repro_torch.configs.PORTED``:
 mamba2-130m, the dense qwen2-1.5b, stablelm-1.6b, llama3-8b,
-codeqwen1.5-7b, and the MoE granite-moe-3b-a800m and qwen2-moe-a2.7b;
-qwen2-moe-a2.7b's 14.3 B parameters do not fit one 80 GB card in float32
-masters plus their bf16 copies).  The weights are random, drawn from
-``--seed``.
+codeqwen1.5-7b, the MoE granite-moe-3b-a800m and qwen2-moe-a2.7b, the
+hybrid zamba2-7b and the enc-dec whisper-large-v3; qwen2-moe-a2.7b's
+14.3 B parameters do not fit one 80 GB card in float32 masters plus
+their bf16 copies).  The weights are random, drawn from ``--seed``; for
+whisper the frame embeddings ``[requests, encoder_frames, d_model]``
+are ``standard_normal * 0.02`` from the same generator, after the
+prompts.
 ``--device`` defaults to the CUDA card; without one the launcher raises.
 """
 
@@ -27,6 +35,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import registry as model_registry
+from repro_torch.models.common import Family
 from repro_torch.runtime import resolve_device
 from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
 
@@ -53,8 +62,13 @@ def main(argv=None):
                                              args.prompt_len)),
                     max_new_tokens=args.new_tokens)
             for _ in range(args.requests)]
+    extra = {}
+    if cfg.family == Family.ENCDEC:
+        extra["frames"] = rng.standard_normal(
+            (args.requests, cfg.encoder_frames, cfg.d_model)
+        ).astype(np.float32) * 0.02
     t0 = time.perf_counter()
-    out = engine.run(reqs, seed=args.seed)
+    out = engine.run(reqs, seed=args.seed, extra=extra or None)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0

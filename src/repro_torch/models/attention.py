@@ -32,9 +32,11 @@ NEG_INF = -1e30
 
 
 def qkv_project(w: dict, x: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor):
+                positions, *, rope: bool = True):
     """x ``[B,S,D]`` -> q ``[B,S,H,hd]``, k and v ``[B,S,Hkv,hd]``, RoPE
-    applied to q and k at ``positions`` ``[B,S]``."""
+    applied to q and k at ``positions`` ``[B,S]`` unless ``rope`` is
+    False (the enc-dec family's encoder and cross-attention, where
+    ``positions`` is not read)."""
     bsz, seq, _ = x.shape
     hd, heads, kv_heads = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     qkv = x @ w["wqkv"]
@@ -45,15 +47,19 @@ def qkv_project(w: dict, x: torch.Tensor, cfg: ModelConfig,
     q = q.reshape(bsz, seq, heads, hd)
     k = k.reshape(bsz, seq, kv_heads, hd)
     v = v.reshape(bsz, seq, kv_heads, hd)
+    if not rope:
+        return q, k, v
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def flash_attend(q: torch.Tensor, k: torch.Tensor,
-                 v: torch.Tensor) -> torch.Tensor:
-    """Causal attention of a whole sequence from position 0 through the
-    flash kernel (B2).  q ``[B,S,H,hd]``, k and v ``[B,S,Hkv,hd]`` ->
-    ``[B,S,H,hd]``, with the reference's head grouping."""
+def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool = True) -> torch.Tensor:
+    """Attention through the flash kernel (B2), with the reference's head
+    grouping.  q ``[B,Sq,H,hd]``, k and v ``[B,Skv,Hkv,hd]`` ->
+    ``[B,Sq,H,hd]``.  ``causal``: a whole sequence from position 0
+    (``Sq == Skv``, the kernel's top-left mask); otherwise every query
+    sees every key (an encoder, or cross-attention with ``Sq != Skv``)."""
     bsz, seq, heads, hd = q.shape
     kv_heads = k.shape[2]
     group = heads // kv_heads
@@ -61,7 +67,7 @@ def flash_attend(q: torch.Tensor, k: torch.Tensor,
     qk = q.reshape(bsz, seq, group, kv_heads, hd).permute(0, 3, 2, 1, 4) \
         .contiguous().view(bsz, heads, seq, hd)
     o = flash_attention(qk, k.transpose(1, 2).contiguous(),
-                        v.transpose(1, 2).contiguous(), causal=True)
+                        v.transpose(1, 2).contiguous(), causal=causal)
     return o.view(bsz, kv_heads, group, seq, hd).permute(0, 3, 2, 1, 4) \
         .reshape(bsz, seq, heads, hd)
 
@@ -110,9 +116,11 @@ class KVCache(NamedTuple):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device=None) -> KVCache:
-    """The reference's stacked cache: leading dim ``cfg.n_layers``."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+               n_layers: int | None = None, device=None) -> KVCache:
+    """The reference's stacked cache: leading dim ``n_layers`` (default
+    ``cfg.n_layers``)."""
+    n_layers = cfg.n_layers if n_layers is None else n_layers
+    shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
     return KVCache(
         k=torch.zeros(shape, dtype=cfg.dtype, device=device),
         v=torch.zeros(shape, dtype=cfg.dtype, device=device),

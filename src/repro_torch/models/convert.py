@@ -14,14 +14,26 @@ tree_map(np.asarray, params)``) are a nested dict of NumPy arrays::
     MoE:   as dense, with "moe" in place of "mlp":
            {"router": [L, D, E], "w_in": [L, E, D, F], "w_gate": ...,
             "w_out": [L, E, F, D], ("shared": {"w_in": [L, D, Fs], ...})}
+    hybrid: {"embed", "ln_f", "lm_head",
+             "main": {"ln": [n_super, period, D], "mamba": {...}},
+             "shared": {"ln1": [D], "attn": {"wq": [D, H hd], ...},
+                        "ln2": [D], "mlp": {...}},
+             ("trailing": {"ln": [rem, D], "mamba": {...}})}
+    enc-dec: {"embed", "pos_enc": [F, D], "enc_ln", "ln_f", "lm_head",
+              "enc_blocks": {"ln1", "attn", "ln2", "mlp"} stacked [Le, ...],
+              "dec_blocks": {"ln1", "self_attn", "ln_x", "cross_attn",
+                             "ln2", "mlp"} stacked [L, ...]}
 
-:func:`ssm_lm_from_reference` and :func:`dense_lm_from_reference`
-unstack the per-layer leaves into the port's
-:class:`~repro_torch.models.ssm_lm.SSMLM` and
-:class:`~repro_torch.models.transformer.DenseLM` (keeping ``embed`` at
-its ``vocab_padded`` rows, the MoE router in float32 and the other
-masters in ``cfg.param_dtype``), so both compute the same functions.
-This module imports nothing of ``repro``.
+:func:`ssm_lm_from_reference`, :func:`dense_lm_from_reference`,
+:func:`hybrid_from_reference` and :func:`encdec_from_reference` unstack
+the per-layer leaves into the port's
+:class:`~repro_torch.models.ssm_lm.SSMLM`,
+:class:`~repro_torch.models.transformer.DenseLM`,
+:class:`~repro_torch.models.hybrid.HybridLM` and
+:class:`~repro_torch.models.encdec.EncDecLM` (keeping ``embed`` at its
+``vocab_padded`` rows, the MoE router in float32 and the other masters
+in ``cfg.param_dtype``), so both compute the same functions.  This
+module imports nothing of ``repro``.
 """
 
 from __future__ import annotations
@@ -30,6 +42,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import Family, ModelConfig
+from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.hybrid import HybridLM, hybrid_layout
 from repro_torch.models.ssm_lm import SSMLM
 from repro_torch.models.transformer import DenseLM
 from repro_torch.runtime import resolve_device
@@ -40,10 +54,19 @@ def _tensor(a, cfg: ModelConfig, dtype=None) -> torch.Tensor:
         dtype or cfg.param_dtype)
 
 
+def _stacked(leaf, want: tuple, what: str) -> None:
+    """Checks the leading (stacked) dims of ``leaf``."""
+    got = np.asarray(leaf).shape[:len(want)]
+    if got != want:
+        raise ValueError(f"{what}: {got} stacked layers, config has "
+                         f"{want}")
+
+
 def _common(params: dict, cfg: ModelConfig, families: tuple,
-            first_leaf: str) -> dict:
-    """Checks the family, ``embed``'s shape and the layer count; returns
-    the state dict's ``embed`` and ``ln_f``."""
+            first_leaf: str | None = None) -> dict:
+    """Checks the family, ``embed``'s shape and, given ``first_leaf``, the
+    layer count of ``blocks``; returns the state dict's ``embed`` and
+    ``ln_f``."""
     if cfg.family not in families:
         raise NotImplementedError(
             f"{cfg.family.value}: want the "
@@ -52,10 +75,8 @@ def _common(params: dict, cfg: ModelConfig, families: tuple,
     if embed.shape != (cfg.vocab_padded, cfg.d_model):
         raise ValueError(f"embed {embed.shape}, config wants "
                          f"{(cfg.vocab_padded, cfg.d_model)}")
-    n_layers = np.asarray(params["blocks"][first_leaf]).shape[0]
-    if n_layers != cfg.n_layers:
-        raise ValueError(f"{n_layers} stacked layers, config has "
-                         f"{cfg.n_layers}")
+    if first_leaf is not None:
+        _stacked(params["blocks"][first_leaf], (cfg.n_layers,), "blocks")
     return {"embed": _tensor(embed, cfg), "ln_f": _tensor(params["ln_f"], cfg)}
 
 
@@ -115,4 +136,57 @@ def dense_lm_from_reference(params: dict, cfg: ModelConfig,
     load."""
     model = DenseLM(cfg, device=resolve_device(device))
     model.load_state_dict(dense_state_dict(params, cfg), strict=True)
+    return model
+
+
+def hybrid_state_dict(params: dict, cfg: ModelConfig) -> dict:
+    """The port's hybrid state dict for the reference parameters
+    ``params``: ``main`` unstacked over ``[n_super, period]``,
+    ``trailing`` over ``[rem]``, ``shared`` as it is."""
+    out = _common(params, cfg, (Family.HYBRID,))
+    n_super, period, rem, _ = hybrid_layout(cfg)
+    _stacked(params["main"]["ln"], (n_super, period), "main")
+    out["lm_head"] = _tensor(params["lm_head"], cfg)
+    for a in range(n_super):
+        for j in range(period):
+            _layer_leaves(out, f"main.{a}.{j}.", params["main"], (a, j), cfg)
+    _layer_leaves(out, "shared.", params["shared"], (), cfg)
+    if rem:
+        _stacked(params["trailing"]["ln"], (rem,), "trailing")
+        for r in range(rem):
+            _layer_leaves(out, f"trailing.{r}.", params["trailing"], r, cfg)
+    return out
+
+
+def hybrid_from_reference(params: dict, cfg: ModelConfig,
+                          device=None) -> HybridLM:
+    """A port model on ``device`` (``None``: the CUDA card) holding the
+    reference hybrid parameters ``params``."""
+    model = HybridLM(cfg, device=resolve_device(device))
+    model.load_state_dict(hybrid_state_dict(params, cfg), strict=True)
+    return model
+
+
+def encdec_state_dict(params: dict, cfg: ModelConfig) -> dict:
+    """The port's enc-dec state dict for the reference parameters
+    ``params``."""
+    out = _common(params, cfg, (Family.ENCDEC,))
+    _stacked(params["enc_blocks"]["ln1"], (cfg.n_encoder_layers,),
+             "enc_blocks")
+    _stacked(params["dec_blocks"]["ln1"], (cfg.n_layers,), "dec_blocks")
+    for name in ("pos_enc", "enc_ln", "lm_head"):
+        out[name] = _tensor(params[name], cfg)
+    for i in range(cfg.n_encoder_layers):
+        _layer_leaves(out, f"enc_blocks.{i}.", params["enc_blocks"], i, cfg)
+    for i in range(cfg.n_layers):
+        _layer_leaves(out, f"dec_blocks.{i}.", params["dec_blocks"], i, cfg)
+    return out
+
+
+def encdec_from_reference(params: dict, cfg: ModelConfig,
+                          device=None) -> EncDecLM:
+    """A port model on ``device`` (``None``: the CUDA card) holding the
+    reference enc-dec parameters ``params``."""
+    model = EncDecLM(cfg, device=resolve_device(device))
+    model.load_state_dict(encdec_state_dict(params, cfg), strict=True)
     return model

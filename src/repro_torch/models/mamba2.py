@@ -109,7 +109,7 @@ class Mamba2Block(CastCache):
     """One Mamba2 mixer; ``forward`` is the reference's
     ``mamba2_forward``, :meth:`decode` its ``mamba2_decode``."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.cfg = cfg
         d, d_inner, heads, groups, n = _dims(cfg)
@@ -128,14 +128,16 @@ class Mamba2Block(CastCache):
         }
         for name, shape in shapes.items():
             self.register_parameter(
-                name, nn.Parameter(torch.zeros(shape, dtype=pd),
+                name, nn.Parameter(torch.zeros(shape, dtype=pd,
+                                               device=device),
                                    requires_grad=False))
 
     @torch.no_grad()
     def init_(self, gen: torch.Generator) -> "Mamba2Block":
         """Random weights from ``gen``, as the reference's
         ``init_mamba2`` lays them out (other draws: ``jax.random`` and
-        ``torch.Generator`` differ)."""
+        ``torch.Generator`` differ).  Each tensor is drawn on the host and
+        copied to the block's device as it is drawn."""
         d, d_inner, heads, groups, n = self.dims
         k, pd = self.cfg.ssm_conv, self.cfg.param_dtype
         for name in _IN_PROJ:

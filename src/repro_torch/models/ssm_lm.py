@@ -22,12 +22,12 @@ from repro_torch.models.mamba2 import (Mamba2Block, Mamba2State,
 class SSMLayer(nn.Module):
     """One residual layer: ``h + mamba(rmsnorm(h, ln))``."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        self.ln = nn.Parameter(torch.ones(cfg.d_model,
-                                          dtype=cfg.param_dtype),
+        self.ln = nn.Parameter(torch.ones(cfg.d_model, dtype=cfg.param_dtype,
+                                          device=device),
                                requires_grad=False)
-        self.mamba = Mamba2Block(cfg)
+        self.mamba = Mamba2Block(cfg, device)
 
 
 class SSMLM(CastCache):

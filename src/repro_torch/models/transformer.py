@@ -100,23 +100,7 @@ class DenseLM(CastCache):
         cfg, pd = self.cfg, self.cfg.param_dtype
         self.embed.copy_(normal(gen, self.embed.shape, 0.02, pd))
         for block in self.blocks:
-            a = block.attn
-            for w in (a.wq, a.wk, a.wv):
-                w.copy_(dense_init(gen, *w.shape, pd))
-            a.wo.copy_(dense_init(gen, *a.wo.shape, pd))
-            if cfg.family == Family.MOE:
-                init_moe(block.moe, gen, cfg)
-            else:
-                m = block.mlp
-                m.w_in.copy_(dense_init(gen, *m.w_in.shape, pd))
-                m.w_out.copy_(dense_init(gen, *m.w_out.shape, pd))
-                if cfg.glu:
-                    m.w_gate.copy_(dense_init(gen, *m.w_gate.shape, pd))
-            if cfg.qkv_bias:
-                for b in (a.bq, a.bk, a.bv):
-                    b.zero_()
-            block.ln1.fill_(1.0)
-            block.ln2.fill_(1.0)
+            init_block_(block, gen, cfg)
         self.ln_f.fill_(1.0)
         if not cfg.tie_embeddings:
             self.lm_head.copy_(dense_init(gen, *self.lm_head.shape, pd,
@@ -126,26 +110,71 @@ class DenseLM(CastCache):
 
     def _cast(self) -> dict:
         cfg, dt = self.cfg, self.cfg.dtype
-
-        def cat(*ws):
-            return torch.cat([w.to(dt) for w in ws], dim=-1)
-
-        blocks = []
-        for block in self.blocks:
-            a = block.attn
-            w = {"ln1": block.ln1.to(dt), "ln2": block.ln2.to(dt),
-                 "wqkv": cat(a.wq, a.wk, a.wv), "wo": a.wo.to(dt)}
-            if cfg.qkv_bias:
-                w["bqkv"] = cat(a.bq, a.bk, a.bv)
-            if cfg.family == Family.MOE:
-                w["moe"] = moe_weights(block.moe, cfg)
-            else:
-                w.update(mlp_weights(block.mlp, cfg))
-            blocks.append(w)
         embed = self.embed.to(dt)
         head = embed.T if cfg.tie_embeddings else self.lm_head.to(dt)
         return {"embed": embed, "head": head, "ln_f": self.ln_f.to(dt),
-                "blocks": blocks}
+                "blocks": [block_weights(b, cfg) for b in self.blocks]}
+
+
+def init_attn_(a: Attention, gen: torch.Generator, cfg: ModelConfig) -> None:
+    """The reference's ``init_attn``: projections N(0, 1/fan_in) (``wo``
+    over ``H hd``), zero biases."""
+    pd = cfg.param_dtype
+    for w in (a.wq, a.wk, a.wv, a.wo):
+        w.copy_(dense_init(gen, *w.shape, pd))
+    if cfg.qkv_bias:
+        for b in (a.bq, a.bk, a.bv):
+            b.zero_()
+
+
+def init_mlp_(m: MLP, gen: torch.Generator, cfg: ModelConfig) -> None:
+    """The reference's ``init_mlp``: N(0, 1/fan_in)."""
+    pd = cfg.param_dtype
+    m.w_in.copy_(dense_init(gen, *m.w_in.shape, pd))
+    m.w_out.copy_(dense_init(gen, *m.w_out.shape, pd))
+    if cfg.glu:
+        m.w_gate.copy_(dense_init(gen, *m.w_gate.shape, pd))
+
+
+@torch.no_grad()
+def init_block_(block: DenseBlock, gen: torch.Generator,
+                cfg: ModelConfig) -> None:
+    """Random weights of one :class:`DenseBlock` from ``gen``, in the
+    order :meth:`DenseLM.init_` has always drawn them; unit norms."""
+    init_attn_(block.attn, gen, cfg)
+    if cfg.family == Family.MOE:
+        init_moe(block.moe, gen, cfg)
+    else:
+        init_mlp_(block.mlp, gen, cfg)
+    block.ln1.fill_(1.0)
+    block.ln2.fill_(1.0)
+
+
+def attn_weights(a: Attention, cfg: ModelConfig) -> dict:
+    """The compute dict of one attention in ``cfg.dtype``: ``wqkv`` (the
+    three input projections side by side), ``bqkv``, ``wo``."""
+    dt = cfg.dtype
+
+    def cat(*ws):
+        return torch.cat([w.to(dt) for w in ws], dim=-1)
+
+    w = {"wqkv": cat(a.wq, a.wk, a.wv), "wo": a.wo.to(dt)}
+    if cfg.qkv_bias:
+        w["bqkv"] = cat(a.bq, a.bk, a.bv)
+    return w
+
+
+def block_weights(block: DenseBlock, cfg: ModelConfig) -> dict:
+    """The compute dict of one :class:`DenseBlock` that
+    :func:`block_forward` and :func:`block_decode` read."""
+    dt = cfg.dtype
+    w = {"ln1": block.ln1.to(dt), "ln2": block.ln2.to(dt)}
+    w.update(attn_weights(block.attn, cfg))
+    if cfg.family == Family.MOE:
+        w["moe"] = moe_weights(block.moe, cfg)
+    else:
+        w.update(mlp_weights(block.mlp, cfg))
+    return w
 
 
 # ------------------------------------------------------------------- blocks
@@ -274,5 +303,7 @@ def lm_decode_step(model: DenseLM, token: torch.Tensor, cfg: ModelConfig,
         cache=cache._replace(length=cache.length + 1), pos=state.pos + 1)
 
 
-__all__ = ["DenseLM", "LMDecodeState", "block_decode", "block_forward",
-           "lm_apply", "lm_decode_step", "lm_make_state", "lm_prefill"]
+__all__ = ["DenseBlock", "DenseLM", "LMDecodeState", "attn_weights",
+           "block_decode", "block_forward", "block_weights", "init_attn_",
+           "init_block_", "init_mlp_", "lm_apply", "lm_decode_step",
+           "lm_make_state", "lm_prefill"]

@@ -7,8 +7,9 @@ max_new_tokens=0)`` fill the batch, the batch is prefilled once and
 then decoded one token per step.  The first token is the argmax of the
 prefill's last logits; each step drops the padded vocabulary and picks
 greedily at temperature 0 or samples at the batch's highest
-temperature.  The engine runs on the CUDA card unless given
-``device="cpu"``.
+temperature.  ``run``'s ``extra`` adds inputs to the prefill batch
+(the enc-dec family's ``frames``), moved to the engine's device.  The
+engine runs on the CUDA card unless given ``device="cpu"``.
 
 Sampling draws from a ``torch.Generator`` seeded from ``run``'s
 ``seed``; it cannot match the reference's ``jax.random`` draws token for
@@ -121,7 +122,11 @@ def route_kv_transfer(comm_engine, cost_model, nbytes: int, *,
 
 def kv_bytes(cfg: ModelConfig, prompt_tokens: int) -> int:
     """KV cache volume of one prefilled batch (bf16, all layers), as the
-    reference counts it (head dim ``d_model // n_heads``)."""
+    reference counts it (head dim ``d_model // n_heads``), over all
+    ``n_layers``: for the hybrid family that counts every Mamba2 layer
+    although only the shared block's applications hold a cache, and for
+    the enc-dec family it leaves the cross-attention K/V out (ROADMAP C10,
+    kept for parity)."""
     heads_kv = cfg.n_kv_heads or cfg.n_heads
     head_dim = cfg.d_model // max(cfg.n_heads, 1)
     return int(2 * cfg.n_layers * heads_kv * head_dim
@@ -224,8 +229,9 @@ class ServeEngine:
         state = model_registry.make_decode_state(
             self.cfg, self.scfg.batch, self.scfg.max_len, device=self.device)
         batch = {"tokens": toks}
-        if extra:
-            batch.update(extra)
+        if extra:   # e.g. the enc-dec family's frames, as arrays
+            batch.update({k: torch.as_tensor(v, device=self.device)
+                          for k, v in extra.items()})
         if self.comm_engine is not None:
             self._route_kv_transfer(self.scfg.batch * toks.shape[1])
         logits, state = self._prefill(self.params, batch, state)

@@ -433,6 +433,130 @@ def test_flash_attention_kernel_refuses_oversized_grids(cuda):
         flash_attention(z, z, z)
 
 
+@pytest.mark.parametrize("q_shape,kv_shape,causal", [
+    ((8, 32, 512, 112), (8, 32, 512, 112), True),   # zamba2 shared block
+    ((8, 20, 1504, 64), (8, 20, 1504, 64), False),  # whisper encoder
+    ((8, 20, 128, 64), (8, 20, 1504, 64), False),   # whisper cross-attention
+    ((8, 20, 128, 64), (8, 20, 128, 64), True),     # whisper decoder self
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_the_hybrid_and_encdec_shapes(cuda, q_shape,
+                                                         kv_shape, causal,
+                                                         dtype):
+    """B2 at zamba2-7b's head dim of 112 (the 128 builds, the bf16 one's
+    tensor map zero-padding the columns) and at whisper-large-v3's three
+    prefill shapes, held as above."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(s, device=cuda, generator=gen).to(dtype)
+               for s in (q_shape, kv_shape, kv_shape))
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, causal=causal)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=FLASH_TOL, atol=FLASH_TOL)
+    else:
+        _assert_flash_bf16_close(got, want, q, k, v, causal)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_at_zamba2_shape(cuda, dtype):
+    """B3 at zamba2-7b's prefill block: 112 heads, N = 64 (padded into the
+    N = 128 build), P = 64, one group, x and dt given."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    B, Nc, H, G, Q, P, N = 8, 4, 112, 1, 128, 64, 64
+    dt = getattr(torch, dtype)
+    x = (torch.randn(B, Nc, H, Q, P, device=cuda, generator=gen) * 0.5) \
+        .to(dt)
+    bm = torch.randn(B, Nc, G, Q, N, device=cuda, generator=gen).to(dt)
+    cm = torch.randn(B, Nc, G, Q, N, device=cuda, generator=gen).to(dt)
+    da = torch.cumsum(-0.1 * torch.rand(B, Nc, H, Q, device=cuda,
+                                        generator=gen), -1)
+    dts = 0.3 + torch.rand(B, Nc, H, Q, device=cuda, generator=gen)
+    y, s = ssd_inner(x, bm, cm, da, dts)
+    torch.cuda.synchronize()
+    want_y, want_s = ssd_inner_plain(x, bm, cm, da, dts)
+    if dt == torch.bfloat16:
+        lim_y, lim_s = bf16_limits(x, bm, cm, da, dts)
+        for got, want, lim in ((y, want_y, lim_y), (s, want_s, lim_s)):
+            assert bool(((got - want).abs() <= lim).all())
+        return
+    for got, want in ((y, want_y), (s, want_s)):
+        atol = SSD_RTOL * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=SSD_RTOL, atol=atol)
+
+
+@pytest.mark.parametrize("shape,route", [
+    ((4096, 3584), "register"),   # zamba2 prefill ln (14 vectors a lane)
+    ((8, 3584), "register"),      # zamba2 decode
+    ((4096, 7168), "generic"),    # zamba2 gated norm over d_inner
+    ((8, 7168), "generic"),
+    ((12032, 1280), "register"),  # whisper encoder
+    ((1024, 1280), "register"),   # whisper decoder prefill
+])
+def test_rmsnorm_at_the_hybrid_and_encdec_shapes(cuda, shape, route):
+    """B4 at zamba2-7b's and whisper-large-v3's serving shapes, in bf16 on
+    the route each takes, and a copy one element off a 16-byte boundary
+    on the generic route; both at one bf16 ulp of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(shape, device=cuda, generator=gen).to(torch.bfloat16)
+    gamma = (1 + 0.5 * torch.randn(shape[-1], device=cuda,
+                                   generator=gen)).to(torch.bfloat16)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    shifted = buf[1:].view(shape)
+    shifted.copy_(x)
+    assert rms_route(x, gamma)[0] == route
+    assert rms_route(shifted, gamma)[0] == "generic"
+    want = rmsnorm_plain(x, gamma).float()
+    for out in (rmsnorm_fused(x, gamma), rmsnorm_fused(shifted, gamma)):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), want, rtol=BF16_RTOL,
+                                   atol=0.0)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-large-v3"])
+def test_hybrid_and_encdec_smoke_serve_on_the_card_matches_the_cpu(cuda,
+                                                                   arch):
+    """The smoke configs in float32 on the card and on the CPU: prefill
+    logits at 1e-4 and the same greedy tokens; the prefill launches the
+    kernels the family's path runs (zamba2: B2 per shared-block
+    application, B3 per Mamba2 layer; whisper: B2 per encoder layer and
+    twice per decoder layer), and none on the CPU."""
+    from repro_torch.models import registry
+    from repro_torch.models.common import Family
+    from repro_torch.models.hybrid import hybrid_layout
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    cfg = get_smoke_config(arch).scaled(dtype=torch.float32)
+    prompts = [[5, 17, 3, 99, 250, 7, 8, 1, 2, 3, 4, 5], [11, 12]]
+    frames = np.random.default_rng(0).standard_normal(
+        (3, cfg.encoder_frames, cfg.d_model)).astype(np.float32) * 0.02
+    extra = {"frames": frames} if cfg.family == Family.ENCDEC else None
+    if cfg.family == Family.HYBRID:
+        want_b2, want_b3 = hybrid_layout(cfg)[3], cfg.n_layers
+    else:
+        want_b2, want_b3 = cfg.n_encoder_layers + 2 * cfg.n_layers, 0
+    runs, logits = [], []
+    for dev in (cuda, torch.device("cpu")):
+        model = registry.init_params(cfg, 0, dev)
+        batch = {"tokens": torch.tensor([prompts[0]], device=dev)}
+        if extra:
+            batch["frames"] = torch.from_numpy(frames[:1]).to(dev)
+        state = registry.make_decode_state(cfg, 1, 16, device=dev)
+        before = flash_attention.launches, ssd_inner.launches
+        lg, _ = registry.prefill(model, batch, cfg, state)
+        after = flash_attention.launches, ssd_inner.launches
+        assert after == ((before[0] + want_b2, before[1] + want_b3)
+                         if dev.type == "cuda" else before)
+        logits.append(lg.float().cpu())
+        eng = ServeEngine(cfg, model, ServeConfig(batch=3, max_len=32),
+                          device=dev)
+        out = eng.run([Request(prompt=list(p), max_new_tokens=6)
+                       for p in prompts], extra=extra)
+        runs.append([r.out_tokens for r in out])
+    torch.testing.assert_close(logits[0], logits[1], rtol=1e-4, atol=1e-4)
+    assert runs[0] == runs[1]
+
+
 def test_qwen2_smoke_serve_on_the_card_matches_the_cpu(cuda):
     from repro_torch.models import registry
     from repro_torch.serve import Request, ServeConfig, ServeEngine

@@ -69,6 +69,10 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.models.moe_parity",
             "repro_torch.configs.granite_moe_3b_a800m",
             "repro_torch.configs.qwen2_moe_a2_7b"} <= names
+    # the hybrid and enc-dec slice
+    assert {"repro_torch.models.hybrid", "repro_torch.models.encdec",
+            "repro_torch.configs.zamba2_7b",
+            "repro_torch.configs.whisper_large_v3"} <= names
 
 
 def test_simulator_without_device_raises_when_cuda_is_absent(monkeypatch):

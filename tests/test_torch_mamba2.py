@@ -260,7 +260,9 @@ def test_other_architectures_are_refused_not_unknown():
     from repro.configs.registry import ARCHS as REF_ARCHS
     assert set(ARCHS) == set(REF_ARCHS) and set(PORTED) == {
         "mamba2-130m", "qwen2-1.5b", "stablelm-1.6b", "llama3-8b",
-        "codeqwen1.5-7b", "granite-moe-3b-a800m", "qwen2-moe-a2.7b"}
+        "codeqwen1.5-7b", "granite-moe-3b-a800m", "qwen2-moe-a2.7b",
+        "zamba2-7b", "whisper-large-v3"}
+    assert set(ARCHS) - set(PORTED) == {"paligemma-3b"}
     for arch in ARCHS:
         if arch in PORTED:
             continue
@@ -273,7 +275,7 @@ def test_other_architectures_are_refused_not_unknown():
 
 
 @pytest.mark.parametrize("family", [f for f in Family if f not in (
-    Family.SSM, Family.DENSE, Family.MOE)])
+    Family.SSM, Family.DENSE, Family.MOE, Family.HYBRID, Family.ENCDEC)])
 def test_registry_refuses_unported_families(family):
     cfg = SMOKE.scaled(family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -166,5 +166,5 @@ def test_launcher_serves_on_the_cpu(capsys, arch):
 
 def test_launcher_refuses_unported_architectures():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch_serve.main(["--arch", "zamba2-7b", "--smoke", "--device",
+        launch_serve.main(["--arch", "paligemma-3b", "--smoke", "--device",
                            "cpu"])
