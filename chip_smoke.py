@@ -43,7 +43,12 @@ Drives the port's main paths on the card at full width:
 * the enc-dec serving path: whisper-large-v3 at its published width and
   depth (32 encoder and 32 decoder layers, d_model 1280, 20 heads of 64,
   1504 frames; random weights from a seed), 8 requests of 1504 stub
-  frames and a 128-token decoder prompt each, 32 new tokens.
+  frames and a 128-token decoder prompt each, 32 new tokens;
+* the VLM serving path: paligemma-3b at its published width and depth
+  (18 layers, d_model 2048, 8 heads over one KV head of 256, GeGLU d_ff
+  16384, tied vocab 257,216; random weights from a seed), 8 requests of
+  256 stub patch embeddings and a 512-token prompt each, 32 new tokens:
+  B2 at head dim 256 in its prefix-LM mode.
 
 Phases:
 
@@ -155,8 +160,22 @@ Phases:
     with ``encode_s`` inside ``prefill_s``, profiled;
 20. card vs CPU prefill logits for zamba2-7b at 14 layers (2
     super-blocks, 1 shared-block application, 2 trailing layers) and
-    whisper-large-v3 at 32 + 32 layers, float32 at ``LOGITS_F32_TOL``,
-    bf16 by the accuracy rule of phases 8 and 11.
+    whisper-large-v3 at 32 + 32 layers, float32 at ``LOGITS_F32_TOL``
+    times the largest logit (the form that tests/test_torch_hybrid.py::
+    test_float32_drift_grows_with_width sets against a float64 oracle),
+    bf16 by the accuracy rule of phases 8 and 11;
+21. paligemma-3b built on the card (parameters, build time, peak
+    memory); on a warm-up serve's own inputs B2 at q ``[8,8,768,256]``,
+    k, v ``[8,1,768,256]`` with the prefix at 256 (the hd-256 builds, in
+    bf16 and on the inputs cast to float32; also cut to 200 rows with a
+    prefix of 100, and causal without a prefix), held against its plain
+    version and timed beside SDPA with the prefix as a boolean mask (its
+    backend printed), and B4 at ``[6144,2048]`` and ``[8,2048]``; then
+    the serve (18 B2 and 37 B4 per prefill, 0 and 37 per decode step),
+    profiled;
+22. card vs CPU prefill logits for paligemma-3b at full width and 4
+    layers over ``CPU_BATCH`` x (256 patches + ``CPU_PROMPT`` tokens),
+    as phase 20 holds them.
 
 Prints the kernel summary as one JSON line, then the ``ok`` line last.
 Any failed check exits non-zero; so does a machine without CUDA, and a
@@ -204,6 +223,8 @@ from repro_torch.collectives.moe_ep import moe_ep, moe_ep_ref  # noqa: E402
 from repro_torch.configs.granite_moe_3b_a800m import \
     CONFIG as GRANITE  # noqa: E402
 from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2  # noqa: E402
+from repro_torch.configs.paligemma_3b import \
+    CONFIG as PALIGEMMA  # noqa: E402
 from repro_torch.configs.qwen2_moe_a2_7b import \
     CONFIG as QWEN2_MOE  # noqa: E402
 from repro_torch.configs.qwen2_1_5b import CONFIG as QWEN2  # noqa: E402
@@ -466,11 +487,13 @@ def hgmma_count(lib) -> int:
     return sum("HGMMA" in line for line in out.stdout.splitlines())
 
 
-def flash_bf16_atol(q, k, v, causal: bool) -> torch.Tensor:
+def flash_bf16_atol(q, k, v, causal: bool,
+                    prefix_len: int = 0) -> torch.Tensor:
     """Per output, ``FLASH_BF16_ATOL_PER_PV * sum_j p_j |v_j|`` with the
     plain version's float32 probabilities."""
     return FLASH_BF16_ATOL_PER_PV * flash_attention_plain(
-        q.float(), k.float(), v.float().abs(), causal=causal)
+        q.float(), k.float(), v.float().abs(), causal=causal,
+        prefix_len=prefix_len)
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -804,8 +827,8 @@ def serve_engine(cfg, model, cuda, profile=False, **scfg):
     kernels, per_prefill, per_step = serve_launches(cfg)
     eng = ServeEngine(cfg, model,
                       ServeConfig(batch=SERVE_BATCH,
-                                  max_len=prompt_len(cfg) + NEW_TOKENS + 8,
-                                  **scfg),
+                                  max_len=prompt_len(cfg) + NEW_TOKENS + 8
+                                  + image_tokens(cfg), **scfg),
                       device=cuda)
     eng._prefill = Checked(eng._prefill, f"{cfg.name} prefill", kernels,
                            per_prefill, profile_at=(0,) if profile else ())
@@ -814,21 +837,37 @@ def serve_engine(cfg, model, cuda, profile=False, **scfg):
     return eng
 
 
+def image_tokens(cfg) -> int:
+    """The VLM's image positions before each prompt (0 elsewhere)."""
+    return cfg.img_tokens if cfg.family == Family.VLM else 0
+
+
+def patches(cfg, batch: int, rng) -> np.ndarray:
+    """The VLM's stub patch embeddings, as ``repro_torch.launch.serve``
+    draws them after the prompts."""
+    return rng.standard_normal((batch, cfg.img_tokens, cfg.d_model)) \
+        .astype(np.float32) * 0.02
+
+
 def serve_inputs(cfg) -> tuple:
     """The serving path's requests and ``run``'s ``extra``, drawn as
     ``repro_torch.launch.serve`` draws them from ``SEED``: the prompts,
-    then (enc-dec) the frames."""
+    then (enc-dec) the frames or (VLM) the patches."""
     rng = np.random.default_rng(SEED)
     reqs = [Request(prompt=list(rng.integers(1, cfg.vocab, prompt_len(cfg))),
                     max_new_tokens=NEW_TOKENS) for _ in range(SERVE_BATCH)]
-    extra = ({"frames": frames(cfg, SERVE_BATCH, rng)}
-             if cfg.family == Family.ENCDEC else None)
+    extra = None
+    if cfg.family == Family.ENCDEC:
+        extra = {"frames": frames(cfg, SERVE_BATCH, rng)}
+    elif cfg.family == Family.VLM:
+        extra = {"patches": patches(cfg, SERVE_BATCH, rng)}
     return reqs, extra
 
 
 def capture_inputs(cfg, model, cuda) -> dict:
     """One warm-up serve; keeps the first inputs of each shape that the
-    B2, B3 and B4 wrappers were given (B3's rebuilt from the scan's
+    B2 (keyed with its prefix), B3 and B4 wrappers were given (B3's
+    rebuilt from the scan's
     arguments by ``chunk_inputs``, as ``ssd_scan_op`` builds them: x, B,
     C, dacum and dt on the bf16 route), and the first MoE layer's
     weights and input of each shape."""
@@ -853,10 +892,11 @@ def capture_inputs(cfg, model, cuda) -> dict:
                         [x.clone(), gamma.clone(), eps])
         return real_norm(x, gamma, eps)
 
-    def flash(q, k, v, *, causal=True):
-        seen.setdefault(("flash",) + tuple(q.shape) + tuple(k.shape),
+    def flash(q, k, v, *, causal=True, prefix_len=0):
+        seen.setdefault(("flash",) + tuple(q.shape) + tuple(k.shape)
+                        + (prefix_len,),
                         [q.clone(), k.clone(), v.clone(), causal])
-        return real_flash(q, k, v, causal=causal)
+        return real_flash(q, k, v, causal=causal, prefix_len=prefix_len)
 
     model_mamba2.ssd_scan_op, model_common.rmsnorm_fused, \
         model_attention.flash_attention = scan, norm, flash
@@ -1131,18 +1171,22 @@ def flash_checks(seen: dict) -> dict:
     return row
 
 
-def flash_hold(label: str, a, b, c, is_causal: bool) -> float:
-    """B2 against its plain version on q, k, v = ``a``, ``b``, ``c``:
-    float32 at ``FLASH_TOL``, bf16 at one bf16 ulp plus
-    ``flash_bf16_atol``; returns the largest gap."""
-    got = flash_attention(a, b, c, causal=is_causal)
+def flash_hold(label: str, a, b, c, is_causal: bool,
+               prefix_len: int = 0) -> float:
+    """B2 against its plain version on q, k, v = ``a``, ``b``, ``c``
+    (with the prefix-LM mask over ``prefix_len`` positions): float32 at
+    ``FLASH_TOL``, bf16 at one bf16 ulp plus ``flash_bf16_atol``; returns
+    the largest gap."""
+    got = flash_attention(a, b, c, causal=is_causal, prefix_len=prefix_len)
     torch.cuda.synchronize()
-    want = flash_attention_plain(a, b, c, causal=is_causal)
+    want = flash_attention_plain(a, b, c, causal=is_causal,
+                                 prefix_len=prefix_len)
     e = max_err(got.float(), want.float())
     if a.dtype == torch.float32:
         rtol, atol, what = FLASH_TOL, FLASH_TOL, f"atol {FLASH_TOL:.4g}"
     else:
-        rtol, atol = BF16_RTOL, flash_bf16_atol(a, b, c, is_causal)
+        rtol, atol = BF16_RTOL, flash_bf16_atol(a, b, c, is_causal,
+                                                prefix_len)
         what = f"atol 2**-7 sum p|v|, {float(atol.min()):.3e} to " \
             f"{float(atol.max()):.3e}"
     gap = (got.float() - want.float()).abs()
@@ -1158,24 +1202,55 @@ def flash_hold(label: str, a, b, c, is_causal: bool) -> float:
     return e
 
 
-def flash_times(a, b, c, causal: bool = True) -> dict:
+def sdpa_backend(q, k, v, mask, is_causal: bool) -> str:
+    """The backend PyTorch's SDPA picks for this call (a diagnostic
+    printed beside its time; ``unknown`` where this torch's private
+    chooser takes other arguments)."""
+    from torch.nn.attention import SDPBackend
+    names = {int(getattr(SDPBackend, n)): n for n in dir(SDPBackend)
+             if n.isupper()}
+    try:
+        choice = torch._fused_sdp_choice(q, k, v, mask, 0.0, is_causal,
+                                         scale=None, enable_gqa=True)
+    except (AttributeError, TypeError, RuntimeError) as e:
+        return f"unknown ({type(e).__name__})"
+    return names.get(int(choice), str(choice))
+
+
+def flash_times(a, b, c, causal: bool = True, prefix_len: int = 0) -> dict:
     """B2's time on q, k, v = ``a``, ``b``, ``c`` by graph replay, the
-    plain version's and SDPA's, and the bound (the function's own work:
-    q.k and p.v over the causal pairs, or over every pair)."""
+    plain version's and SDPA's (the prefix-LM mask as a boolean
+    ``attn_mask``), and the bound (the function's own work: q.k and p.v
+    over the visible pairs: row i sees ``min(Skv, max(i, prefix_len -
+    1) + 1)`` keys under the causal mask, every key otherwise)."""
     import torch.nn.functional as F
 
     bsz, heads, seq, hd = a.shape
-    pairs = seq * (seq + 1) // 2 if causal else seq * b.shape[2]
+    skv = b.shape[2]
+    if causal:
+        limit = np.maximum(np.arange(seq), prefix_len - 1)
+        pairs = int(np.minimum(skv, limit + 1).sum())
+    else:
+        pairs = seq * skv
     flops = 4 * hd * bsz * heads * pairs
     nbytes = (2 * a.numel() + b.numel() + c.numel()) * a.element_size()
-    ms = graph_ms(lambda: flash_attention(a, b, c, causal=causal), 20)
-    plain_ms = cuda_ms(lambda: flash_attention_plain(a, b, c, causal=causal),
-                       10)
+    ms = graph_ms(lambda: flash_attention(a, b, c, causal=causal,
+                                          prefix_len=prefix_len), 20)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(
+        a, b, c, causal=causal, prefix_len=prefix_len), 10)
+    mask = None
+    if prefix_len:
+        rows = torch.arange(seq, device=a.device).clamp(min=prefix_len - 1)
+        mask = torch.arange(skv, device=a.device)[None, :] <= rows[:, None]
 
     def sdpa():
-        return F.scaled_dot_product_attention(a, b, c, is_causal=causal,
+        if mask is None:
+            return F.scaled_dot_product_attention(a, b, c, is_causal=causal,
+                                                  enable_gqa=True)
+        return F.scaled_dot_product_attention(a, b, c, attn_mask=mask,
                                               enable_gqa=True)
 
+    backend = sdpa_backend(a, b, c, mask, causal and mask is None)
     library_ms = cuda_ms(sdpa, 20)
     library_graph_ms = graph_ms(sdpa, 20)
     # bf16 runs on the tensor cores, float32 on the FMA pipe
@@ -1183,9 +1258,12 @@ def flash_times(a, b, c, causal: bool = True) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / peak * 1e3
     print(f"  flash_attention {str(a.dtype)[6:]} {tuple(a.shape)} / "
-          f"{tuple(b.shape)}{'' if causal else ' non-causal'}: "
+          f"{tuple(b.shape)}{'' if causal else ' non-causal'}"
+          f"{f', prefix {prefix_len}' if prefix_len else ''}: "
           f"{ms * 1e3:.2f} us/launch (graph replay), "
-          f"plain {plain_ms * 1e3:.2f} us, SDPA {library_ms * 1e3:.2f} "
+          f"plain {plain_ms * 1e3:.2f} us, SDPA ({backend}"
+          f"{', boolean mask' if mask is not None else ''}) "
+          f"{library_ms * 1e3:.2f} "
           f"us (graph replay {library_graph_ms * 1e3:.2f} us), bound "
           f"{max(bytes_ms, ops_ms) * 1e3:.2f} us ({flops} "
           f"flop at {peak:.3g} flop/s: {ops_ms * 1e3:.2f} us; {nbytes} "
@@ -1193,7 +1271,8 @@ def flash_times(a, b, c, causal: bool = True) -> dict:
           f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
     out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": library_ms, "library_graph_ms": library_graph_ms}
+           "library_ms": library_ms, "library_graph_ms": library_graph_ms,
+           "sdpa_backend": backend}
     if a.dtype == torch.bfloat16:
         factor = ms / library_graph_ms
         print(f"  bf16 B2 / SDPA (graph replay) = {factor:.3f}: "
@@ -1204,7 +1283,7 @@ def flash_times(a, b, c, causal: bool = True) -> dict:
 
 
 def serve_path(cfg, model, cuda, phase: int, **scfg) -> dict:
-    """Phases 7, 10, 14, 18 and 19: a serving path (``scfg``: more
+    """Phases 7, 10, 14, 18, 19 and 21: a serving path (``scfg``: more
     ServeConfig fields), counted and timed, then profiled.  For the
     enc-dec family the encoder's share of the prefill is timed apart
     (``encode_s``, inside ``prefill_s``)."""
@@ -1213,7 +1292,9 @@ def serve_path(cfg, model, cuda, phase: int, **scfg) -> dict:
     names = [k.__name__ for k in kernels]
     print(f"phase {phase}: serve {cfg.name} ({n_layers} layers, d_model "
           f"{cfg.d_model}, vocab {cfg.vocab}), {SERVE_BATCH} requests "
-          f"x {plen} prompt tokens, {NEW_TOKENS} new tokens, greedy"
+          f"x {plen} prompt tokens"
+          + (f" after {image_tokens(cfg)} image tokens" if image_tokens(cfg)
+             else "") + f", {NEW_TOKENS} new tokens, greedy"
           + "".join(f", {k} {v}" for k, v in scfg.items()))
     torch.cuda.reset_peak_memory_stats()   # the serve's own peak
     eng = serve_engine(cfg, model, cuda, **scfg)
@@ -1264,12 +1345,18 @@ def serve_path(cfg, model, cuda, phase: int, **scfg) -> dict:
              "prefill_tok_per_s": SERVE_BATCH * plen / prefill_s,
              "run_s": run_s, "launches": counts,
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if image_tokens(cfg):          # the image positions the prefill also runs
+        stats["prefill_positions_per_s"] = \
+            SERVE_BATCH * (plen + image_tokens(cfg)) / prefill_s
     if cfg.family == Family.ENCDEC:
         check(len(encode_s) == 1, f"{len(encode_s)} encoder runs")
         stats["encode_s"] = encode_s[0]
     print(f"  prefill_s {prefill_s:.6f} ({stats['prefill_tok_per_s']:.1f} "
           f"prompt tok/s"
           + (f"; encode_s {encode_s[0]:.6f} of it" if encode_s else "")
+          + (f"; {stats['prefill_positions_per_s']:.1f} positions/s with "
+             f"the {image_tokens(cfg)} image tokens" if image_tokens(cfg)
+             else "")
           + f"), decode_step_s {step_s:.6f} (min "
           f"{stats['decode_step_min_s']:.6f}, max "
           f"{stats['decode_step_max_s']:.6f}), decode_tok_per_s "
@@ -2256,23 +2343,27 @@ def whisper_kernel_checks(seen: dict) -> dict:
 
 
 def family_cpu_compare(cfg, cuda) -> dict:
-    """Phase 20: the same seeded model (``cfg``, cut in depth) on the
-    card and on the CPU, last-token prefill logits of ``CPU_BATCH`` x
+    """Phases 20 and 22: the same seeded model (``cfg``, cut in depth) on
+    the card and on the CPU, last-token prefill logits of ``CPU_BATCH`` x
     ``CPU_PROMPT`` tokens (and, for whisper, frames of the config's
-    length), in float32 and bf16.  float32 is held at
+    length; for paligemma, its image tokens' patches), in float32 and
+    bf16.  float32 is held at
     ``LOGITS_F32_TOL``; bf16 by the accuracy rule of phases 8 and 11:
     the card's bf16 logits no farther from the CPU's float32 ones than
     ``BF16_ACCURACY_RATIO`` times the CPU's bf16 ones, in the largest and
     in the mean difference, with the CPU's argmax at the family's full
     depth (printed at a cut depth, as phase 15 does)."""
-    full = {ZAMBA2.name: ZAMBA2.n_layers,
-            WHISPER.name: WHISPER.n_layers}[cfg.name]
+    full = {ZAMBA2.name: ZAMBA2.n_layers, WHISPER.name: WHISPER.n_layers,
+            PALIGEMMA.name: PALIGEMMA.n_layers}[cfg.name]
     toks = torch.from_numpy(np.array(
         prompts(cfg.vocab, CPU_BATCH, CPU_PROMPT, 1)))
     batch = {"tokens": toks}
     if cfg.family == Family.ENCDEC:
         batch["frames"] = torch.from_numpy(
             frames(cfg, CPU_BATCH, np.random.default_rng(2)))
+    if cfg.family == Family.VLM:
+        batch["patches"] = torch.from_numpy(
+            patches(cfg, CPU_BATCH, np.random.default_rng(2)))
     t0 = time.perf_counter()
     host = model_registry.init_params(cfg, SEED, "cpu")
     on_card = type(host)(cfg, device=cuda)
@@ -2290,7 +2381,7 @@ def family_cpu_compare(cfg, cuda) -> dict:
 
         def last(model, dev):
             state = model_registry.make_decode_state(
-                cd, CPU_BATCH, CPU_PROMPT, device=dev)
+                cd, CPU_BATCH, CPU_PROMPT + image_tokens(cd), device=dev)
             lg, _ = model_registry.prefill(
                 model, {k: t.to(dev) for k, t in batch.items()}, cd, state)
             return lg[:, -1, :cfg.vocab].float().cpu()
@@ -2351,6 +2442,52 @@ def family_cpu_compare(cfg, cuda) -> dict:
     del host, on_card
     torch.cuda.empty_cache()
     return report
+
+
+# ----------------------------------------------------------- phases 21-22
+#: card vs CPU depth of phase 22: paligemma-3b at full width and this many
+#: layers
+PALIGEMMA_CPU_LAYERS = 4
+
+
+def paligemma_kernel_checks(seen: dict) -> dict:
+    """Phase 21: B2 at paligemma's prefill shape, head dim 256 with the
+    prefix-LM mask over the 256 image tokens, on the serve's own inputs:
+    bf16 (the serve's) and the same inputs cast to float32 (the float32
+    model's, phase 22), cut to 200 rows with a prefix of 100, and causal
+    without a prefix, each against its plain version; bf16 and float32
+    timed beside SDPA with a boolean mask, with their bounds.  B4 at the
+    serve's two shapes, held and timed."""
+    keys = [k for k in seen if k[0] == "flash"]
+    check(len(keys) == 1, f"the {PALIGEMMA.name} serve gave B2 shapes "
+          f"{keys}")
+    q, k, v, causal = seen[keys[0]]
+    prefix = keys[0][-1]
+    seq = PALIGEMMA.img_tokens + PROMPT_LEN
+    want_q = (SERVE_BATCH, PALIGEMMA.n_heads, seq, PALIGEMMA.hd)
+    want_k = (SERVE_BATCH, PALIGEMMA.n_kv_heads, seq, PALIGEMMA.hd)
+    check(causal and prefix == PALIGEMMA.img_tokens and
+          q.dtype == torch.bfloat16 and tuple(q.shape) == want_q and
+          tuple(k.shape) == want_k, f"B2 saw q {tuple(q.shape)} {q.dtype}, "
+          f"k {tuple(k.shape)}, causal {causal}, prefix {prefix}")
+    f32 = [t.float() for t in (q, k, v)]
+    cases = [("bf16", (q, k, v), prefix), ("float32", f32, prefix),
+             ("bf16, S = 200", [t[:2, :, :200].contiguous()
+                                for t in (q, k, v)], 100),
+             ("bf16, no prefix", (q, k, v), 0)]
+    err = max(flash_hold(f"{label}, {PALIGEMMA.name}"
+                         + (f", prefix {pl}" if pl else ""), a, b, c, True,
+                         pl)
+              for label, (a, b, c), pl in cases)
+    entry = {"model": PALIGEMMA.name, "attention": "prefix-LM",
+             "shape": [q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                       k.shape[2], q.shape[3]], "causal": True,
+             "prefix_len": prefix, "max_abs_err": err}
+    entry.update(flash_times(q, k, v, True, prefix))
+    entry.update({"f32_" + key: val for key, val in
+                  flash_times(*f32, True, prefix).items()})
+    rms = family_rms_rows(seen, 2, PALIGEMMA.name)
+    return {"flash": entry, "rms": rms}
 
 
 def main() -> int:
@@ -2677,6 +2814,48 @@ def main() -> int:
                            n_encoder_layers=WHISPER_CPU_LAYERS), cuda)}
     print("  families " + json.dumps(family_cpu))
     print(f"phase 20: {time.perf_counter() - t0:.1f} s wall")
+
+    # phase 21: the VLM family, paligemma-3b at full width and depth; B2
+    # and B4 at their shapes first, then launch counts from the serve are
+    # its own
+    t0 = time.perf_counter()
+    check(serve_launches(PALIGEMMA) == ((flash_attention, rmsnorm_fused),
+                                        (18, 37), (0, 37)),
+          f"{PALIGEMMA.name}: launches per prefill and step "
+          f"{serve_launches(PALIGEMMA)[1:]}")
+    torch.cuda.reset_peak_memory_stats()
+    model = model_registry.init_params(PALIGEMMA, SEED, cuda)
+    torch.cuda.synchronize()
+    print(f"phase 21: VLM serving model {PALIGEMMA.name} "
+          f"({PALIGEMMA.n_layers} layers, d_model {PALIGEMMA.d_model}, "
+          f"{PALIGEMMA.n_heads} heads over {PALIGEMMA.n_kv_heads} of "
+          f"{PALIGEMMA.hd}, {PALIGEMMA.img_tokens} image tokens): "
+          f"{sum(p.numel() for p in model.parameters())} parameters, built "
+          f"in {time.perf_counter() - t0:.2f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    paligemma = paligemma_kernel_checks(capture_inputs(PALIGEMMA, model,
+                                                       cuda))
+    serve_stats[PALIGEMMA.name] = serve_path(PALIGEMMA, model, cuda, 21)
+    del model
+    torch.cuda.empty_cache()
+    rows["flash_attention"]["by_shape"].append(paligemma["flash"])
+    rows["rmsnorm_fused"]["by_shape"] += [rms_entry(r, PALIGEMMA.name)
+                                          for r in paligemma["rms"]]
+    for name, errs in (("flash_attention", [paligemma["flash"][
+            "max_abs_err"]]), ("rmsnorm_fused", [r["max_abs_err"] for r in
+                                                 paligemma["rms"]])):
+        rows[name]["max_abs_err"] = max([rows[name]["max_abs_err"]] + errs)
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s wall")
+
+    # phase 22: card vs CPU for the VLM at a cut depth
+    t0 = time.perf_counter()
+    print(f"phase 22: card vs CPU, {PALIGEMMA.name} at "
+          f"{PALIGEMMA_CPU_LAYERS} layers, prefill of {CPU_BATCH} x "
+          f"({PALIGEMMA.img_tokens} image + {CPU_PROMPT}) tokens")
+    vlm_cpu = family_cpu_compare(
+        PALIGEMMA.scaled(n_layers=PALIGEMMA_CPU_LAYERS), cuda)
+    print("  vlm " + json.dumps({PALIGEMMA.name: vlm_cpu}))
+    print(f"phase 22: {time.perf_counter() - t0:.1f} s wall")
 
     # each kernel's launches on the serving paths that run it
     for row in kernels:

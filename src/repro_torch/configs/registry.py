@@ -1,11 +1,10 @@
 """--arch <id> registry over the reference's 10 architectures.
 
-mamba2-130m, the four dense archs (qwen2-1.5b, stablelm-1.6b,
-llama3-8b, codeqwen1.5-7b), the two MoE archs (granite-moe-3b-a800m,
-qwen2-moe-a2.7b), the hybrid zamba2-7b and the enc-dec whisper-large-v3
-are ported; asking for the other of the ten (paligemma-3b)
-raises ``NotImplementedError`` pointing to its ROADMAP item, and an id
-outside the ten raises ``KeyError``.
+All ten are ported: mamba2-130m, the four dense archs (qwen2-1.5b,
+stablelm-1.6b, llama3-8b, codeqwen1.5-7b), the two MoE archs
+(granite-moe-3b-a800m, qwen2-moe-a2.7b), the hybrid zamba2-7b, the
+enc-dec whisper-large-v3 and the VLM paligemma-3b.  An id outside the
+ten raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -15,6 +14,7 @@ import importlib
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {
+    "paligemma-3b": "repro_torch.configs.paligemma_3b",
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
     "llama3-8b": "repro_torch.configs.llama3_8b",
     "codeqwen1.5-7b": "repro_torch.configs.codeqwen15_7b",
@@ -26,12 +26,6 @@ _MODULES = {
     "whisper-large-v3": "repro_torch.configs.whisper_large_v3",
 }
 
-#: the reference's architecture that is not ported yet, with where it
-#: is queued
-PENDING = {
-    "paligemma-3b": "ROADMAP A.4 (VLM family)",
-}
-
 ARCHS = ("paligemma-3b", "stablelm-1.6b", "llama3-8b", "codeqwen1.5-7b",
          "qwen2-1.5b", "granite-moe-3b-a800m", "qwen2-moe-a2.7b",
          "zamba2-7b", "mamba2-130m", "whisper-large-v3")
@@ -39,9 +33,6 @@ PORTED = tuple(_MODULES)
 
 
 def _module(arch: str):
-    if arch in PENDING:
-        raise NotImplementedError(
-            f"{arch} is not ported to repro_torch yet; see {PENDING[arch]}")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {list(ARCHS)}")
     return importlib.import_module(_MODULES[arch])

@@ -12,5 +12,6 @@ LIB = KernelLibrary(
     Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
     "flash_attention",
     {"flash_attention": ("ptr", "ptr", "ptr", "ptr", "i32", "i32", "i32",
-                         "i32", "i32", "i32", "i32", "i32", "f32", "ptr")},
+                         "i32", "i32", "i32", "i32", "i32", "i32", "f32",
+                         "ptr")},
     headers=(HOPPER_HEADER,))

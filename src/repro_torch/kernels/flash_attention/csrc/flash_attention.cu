@@ -5,11 +5,13 @@
 // (body _flash_kernel).  q [B, H, Sq, hd], k and v [B, Hkv, Skv, hd], float32
 // or bf16, all of one dtype; q head h reads kv head h / (H / Hkv); the output
 // has q's layout and dtype.  Both dtypes share the mask (top-left causal,
-// kpos <= qpos counted from 0, columns past Skv masked; masked scores become
-// -1e30), an online softmax whose running max m and normaliser l are float32,
-// a float32 accumulator, and the output acc / max(l, 1e-20) cast once.  Any
-// Sq, Skv >= 1 and any hd from 1 to 128 are taken.  The dtypes differ where
-// the products are rounded:
+// kpos <= qpos counted from 0, or with a prefix of P rows the prefix-LM mask
+// kpos <= max(qpos, P - 1) of src/repro/models/attention.py:115-118, where
+// the first P positions see each other; columns past Skv masked; masked
+// scores become -1e30), an online softmax whose running max m and normaliser
+// l are float32, a float32 accumulator, and the output acc / max(l, 1e-20)
+// cast once.  Any Sq, Skv >= 1 and any hd from 1 to 256 are taken; P = 0 is
+// the plain causal mask.  The dtypes differ where the products are rounded:
 //
 //   float32  q is multiplied by scale = 1/sqrt(hd) and the scores q.k^T are
 //            float32, P stays float32 for P.V: the TPU kernel's function.
@@ -28,7 +30,10 @@
 // 6.5 us at the 989 TFLOP/s dense tensor-core peak, below the 29.4 MB of bf16
 // q, k, v and output at 3.35 TB/s (8.8 us): bf16 is bound by bytes.  Both
 // kernels compute whole 64 x 64 tiles on the diagonal: 1.125 times the
-// causal work at S = 512.
+// causal work at S = 512.  At the paligemma-3b prefill (B = 8, H = 8, Hkv =
+// 1, S = 768 of which a prefix of 256, hd = 256) a head has 327,936 visible
+// pairs: 21.5 GFLOP, 21.7 us at the bf16 peak, above the 56.6 MB of bf16
+// inputs and output at 3.35 TB/s (16.9 us): bound by operations.
 //
 // float32 design (flash_kernel, SIMT).  One block of 256 threads (a 16 x 16
 // grid) per (batch, head, 64-row q tile) walks the kv tiles of 64 rows in a
@@ -38,8 +43,10 @@
 // loads fall on distinct banks.  Each thread owns 4 rows and 4 columns of the
 // 64 x 64 score tile, sums their dot products with float32 FMAs, reduces row
 // max and row sum over the 16 threads of its row with shuffles, writes P over
-// the K tile and adds P.V for its rows and hd / 16 accumulator columns.  98 KB
-// of shared memory at hd 128; builds for hd 16, 32, 64 and 128.
+// the K tile, and adds P.V for its rows and hd / 16 accumulator columns.  98 KB
+// of shared memory at hd 128; builds for hd 16, 32, 64, 128 and 256.  At hd
+// 256 the tiles take 198.7 KB, so one block fits an SM, and the build may
+// use up to 255 registers for its 64 accumulator columns a thread.
 //
 // bf16 design (flash_wgmma: warp-specialised, tensor cores, persistent).  A
 // block of 384 threads: two consumer warpgroups, each owning 64 rows of a
@@ -57,14 +64,21 @@
 // -lcuda).  Where TMA cannot express the tensor (hd not a multiple of 8, so
 // rows are not 16-byte multiples, or a pointer not 16-byte aligned), a
 // compile-time variant of the same kernel has the producer warp stage the
-// tiles with ordinary loads into the same layout.  mbarriers carry the
-// hand-offs: q_full and k_full / v_full per stage (the TMA's transaction
-// count, or the 32 lanes' arrivals), q_empty and empty per stage (one
-// arrival per consumer warp).  Each consumer warpgroup, per kv tile i:
+// tiles with ordinary loads into the same layout.  At hd 256 the ring has
+// two stages (Q 64 KB and two stages of 32 KB K and V tiles: 192 KB of the
+// 227 KB; three would need 256 KB): two stages keep the 64-row tiles, and so
+// the m64n64 scores, the softmax and the P fragments of the other builds,
+// where 32-row tiles would need another score shape and twice the hand-offs
+// per kv row.  mbarriers carry the hand-offs: q_full and k_full / v_full per
+// stage (the TMA's transaction count, or the 32 lanes' arrivals), q_empty and
+// empty per stage (one arrival per consumer warp).  Each consumer warpgroup, per kv tile i:
 //   1. issues S = Q K^T (64 x 64, float32): hd / 16 wgmma m64n64k16, both
 //      operands K-major from shared memory; then, as a second group, tile
 //      i - 1's P V: four wgmma m64n{hd}k16, P's bf16 A fragments from
 //      registers, V MN-major ("transposed") through its descriptor;
+//      at hd 256 the 64 x 256 float32 O takes 128 registers a thread, so
+//      the 32 descriptors of Q and K (64 more) are not held: each k16
+//      step's is formed from one base per operand where it is issued;
 //   2. once S is done (wgmma.wait_group 1), while P V still runs: scales S
 //      by log2(e) / sqrt(hd), masks it only where the tile crosses the
 //      diagonal or Skv, and updates m and l with exp2, in place (row max
@@ -75,17 +89,19 @@
 //      the accumulator fragment of S is the A fragment of the next P V, so
 //      P never touches shared memory.
 // Every input of a wgmma other than its accumulator is made before the
-// wgmma fence, and nothing writes a wgmma's registers while it runs: else
-// ptxas serialises every wgmma of the kernel (its warning C7513).
+// wgmma fence (but for the hd-256 build's Q and K descriptors), and nothing
+// writes a wgmma's registers while it runs: else ptxas serialises every
+// wgmma of the kernel (its warning C7513).
 // Under the causal mask the kv loop stops at the tile that holds the q
-// tile's last diagonal element, and the first warpgroup skips the products
-// of a tile wholly above its rows (it still waits for the tile and frees
-// it).  The grid is persistent: one block per SM (132 on an H100 SXM) walks
-// the (batch, head, q tile) items, numbered longest first and dealt in
-// rounds that alternate direction (item_of), so that the long causal tiles
-// spread over the SMs; the K/V ring runs on across items, and Q is reloaded
-// as soon as both warpgroups' last S is done, so an item's last P V and its
-// stores overlap the next item's loads.  At the qwen2-1.5b prefill there are
+// tile's last diagonal element (with a prefix, at least the prefix's last
+// tile), and the first warpgroup skips the products of a tile wholly above
+// its rows (it still waits for the tile and frees it).  The grid is
+// persistent: one block per SM (132 on an H100 SXM) walks the (batch, head,
+// q tile) items, numbered longest first and dealt in rounds that alternate
+// direction (item_of), so that the long causal tiles spread over the SMs;
+// the K/V ring runs on across items, and Q is reloaded as soon as both
+// warpgroups' last S is done, so an item's last P V and its stores overlap
+// the next item's loads.  At the qwen2-1.5b prefill there are
 // 4 x 12 x 8 = 384 items, about 2.9 per block.
 //
 // Occupancy (ptxas -v, sm_90a): 168 registers a thread at launch, one block
@@ -96,7 +112,7 @@
 // ptxas counts them per SM sub-partition, and the consumers' 64 x hd float32
 // accumulator alone takes 64; so one block per SM, with a deeper ring (three
 // stages instead of two) in the shared memory the second block would have
-// used.  Builds for hd 64 and 128.
+// used.  Builds for hd 64, 128 and 256.
 //
 // Plain C interface for ctypes: enqueues on the given stream, does not
 // synchronise, allocates nothing and returns a cudaError_t code.
@@ -113,6 +129,12 @@ constexpr int kBk = 64;             // kv rows per tile
 constexpr int kThreads = 256;       // 16 x 16
 constexpr int kLdP = kBk + 4;       // P row stride (floats)
 constexpr float kNegInf = -1e30f;   // the TPU kernel's NEG_INF
+
+// the last key a query at qpos sees under the causal mask: kpos <=
+// max(qpos, prefix - 1) (prefix 0: kpos <= qpos)
+__device__ __forceinline__ int causal_limit(int qpos, int prefix) {
+  return max(qpos, prefix - 1);
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 template <typename T> __device__ __forceinline__ T from_f32(float v);
@@ -143,12 +165,14 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-// HD: the build's head dim; hd <= HD the inputs' (extra columns are zero)
+// HD: the build's head dim; hd <= HD the inputs' (extra columns are zero).
+// Two blocks an SM up to hd 128; one at 256, whose tiles fill the SM.
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, HD > 128 ? 1 : 2)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int heads,
-             int group, int sq, int skv, int hd, bool causal, float scale) {
+             int group, int sq, int skv, int hd, bool causal, int prefix,
+             float scale) {
   using L = Tile<HD>;
   constexpr int kNc = HD / 16;      // accumulator columns per thread
   extern __shared__ float4 smem4[];
@@ -183,8 +207,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   int n_tiles = (skv + kBk - 1) / kBk;
-  if (causal)                        // up to the tile of the last row's diagonal
-    n_tiles = min(n_tiles, (min(q0 + kBq, sq) - 1) / kBk + 1);
+  if (causal)       // up to the tile of the last row's limit (diagonal, prefix)
+    n_tiles = min(n_tiles,
+                  causal_limit(min(q0 + kBq, sq) - 1, prefix) / kBk + 1);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBk;
     __syncthreads();                 // the previous tile's P and V are used
@@ -230,7 +255,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int kpos = k0 + tx + 16 * c;
-        if (kpos >= skv || (causal && kpos > qpos)) s[r][c] = kNegInf;
+        if (kpos >= skv || (causal && kpos > causal_limit(qpos, prefix)))
+          s[r][c] = kNegInf;
         mx = fmaxf(mx, s[r][c]);
       }
       const float m_new = fmaxf(m[r], half_warp_max(mx));
@@ -293,7 +319,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int batch,
            int heads, int kv_heads, int sq, int skv, int hd, bool causal,
-           float scale, cudaStream_t stream) {
+           int prefix, float scale, cudaStream_t stream) {
   constexpr size_t bytes = Tile<HD>::kBytes;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -312,25 +338,28 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   flash_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), heads,
-      heads / kv_heads, sq, skv, hd, causal, scale);
+      heads / kv_heads, sq, skv, hd, causal, prefix, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out,
              int batch, int heads, int kv_heads, int sq, int skv, int hd,
-             bool causal, float scale, cudaStream_t stream) {
+             bool causal, int prefix, float scale, cudaStream_t stream) {
   if (hd <= 16)
     return launch<T, 16>(q, k, v, out, batch, heads, kv_heads, sq, skv, hd,
-                         causal, scale, stream);
+                         causal, prefix, scale, stream);
   if (hd <= 32)
     return launch<T, 32>(q, k, v, out, batch, heads, kv_heads, sq, skv, hd,
-                         causal, scale, stream);
+                         causal, prefix, scale, stream);
   if (hd <= 64)
     return launch<T, 64>(q, k, v, out, batch, heads, kv_heads, sq, skv, hd,
-                         causal, scale, stream);
-  return launch<T, 128>(q, k, v, out, batch, heads, kv_heads, sq, skv, hd,
-                        causal, scale, stream);
+                         causal, prefix, scale, stream);
+  if (hd <= 128)
+    return launch<T, 128>(q, k, v, out, batch, heads, kv_heads, sq, skv, hd,
+                          causal, prefix, scale, stream);
+  return launch<T, 256>(q, k, v, out, batch, heads, kv_heads, sq, skv, hd,
+                        causal, prefix, scale, stream);
 }
 
 
@@ -341,7 +370,10 @@ using namespace hopper;
 
 constexpr int kBm = 128;               // q rows per block
 constexpr int kBn = 64;                // kv rows per tile (S is m64n64)
-constexpr int kStages = 3;             // K/V ring depth
+// K/V ring depth: three stages up to hd 128; two at 256, where a stage is
+// 64 KB and Q 64 KB (the barrier slots are laid out for kMaxStages)
+template <int HD> constexpr int kStagesOf = HD > 128 ? 2 : 3;
+constexpr int kMaxStages = 3;
 constexpr int kConsumers = 256;        // warpgroups 0 and 1
 constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
 // one block of 384 threads on an SM starts at 168 registers a thread; the
@@ -365,17 +397,18 @@ constexpr float kLog2e = 1.4426950408889634f;
 // byte offsets in the block's shared memory; every tile is 1024-byte aligned
 template <int HD>
 struct Smem {
+  static constexpr int kStages = kStagesOf<HD>;
   static constexpr int kQBytes = kBm * HD * 2;
   static constexpr int kTileBytes = kBn * HD * 2;
   static constexpr int kK = kQBytes;                       // Q, then K ring
   static constexpr int kV = kK + kStages * kTileBytes;     // then V ring
   static constexpr int kBars = kV + kStages * kTileBytes;  // then mbarriers
   // + slack to align the dynamic shared memory's start to 1024 bytes
-  static constexpr size_t kBytes = kBars + 8 * (2 + 3 * kStages) + 1024;
+  static constexpr size_t kBytes = kBars + 8 * (2 + 3 * kMaxStages) + 1024;
 };
 // mbarrier slots: q_full, q_empty, then per stage k_full, v_full and empty
-constexpr int kQFull = 0, kQEmpty = 1, kKFull = 2, kVFull = 2 + kStages,
-              kEmpty = 2 + 2 * kStages;
+constexpr int kQFull = 0, kQEmpty = 1, kKFull = 2, kVFull = 2 + kMaxStages,
+              kEmpty = 2 + 2 * kMaxStages;
 
 // rows [row0, row0 + rows) of one head (n_rows x hd, row-major) into a tile
 // in the swizzled layout, zeros past n_rows and hd; for tensors TMA cannot
@@ -396,12 +429,37 @@ __device__ void stage_rows(unsigned char* dst, const bf16* __restrict__ src,
 // accumulators and P: shared-memory descriptors and the scale-d flags (0:
 // overwrite, 1: accumulate), made before the wgmma fence.  ptxas
 // serialises the wgmmas of a stage if an input of one is computed between
-// the fence and it (its warning C7513), a constant flag included.
+// the fence and it (its warning C7513), a constant flag included.  At hd 256
+// (kBased) Q and K keep one base each, and each k16 step's descriptor is
+// the base plus the step's offset in 16-byte units (shared addresses stay
+// below 2^18, so the 14-bit address field never carries): 32 descriptors
+// would take 64 of the consumers' registers beside O's 128.
 template <int HD>
 struct Descs {
-  uint64_t q[HD / 16], k[HD / 16], v[kBn / 16];
+  static constexpr bool kBased = HD > 128;
+  static constexpr int kSteps = kBased ? 1 : HD / 16;
+  uint64_t q[kSteps], k[kSteps], v[kBn / 16];
   int overwrite, accumulate;
 };
+
+// byte offsets of k16 step kk in Q (128 rows) and in a K tile (64 rows)
+__device__ __forceinline__ constexpr uint32_t q_step(int kk) {
+  return (kk >> 2) * kBm * 128 + (kk & 3) * 32;
+}
+__device__ __forceinline__ constexpr uint32_t k_step(int kk) {
+  return (kk >> 2) * kBn * 128 + (kk & 3) * 32;
+}
+
+template <int HD>
+__device__ __forceinline__ uint64_t q_desc(const Descs<HD>& d, int kk) {
+  if constexpr (Descs<HD>::kBased) return d.q[0] + (q_step(kk) >> 4);
+  else return d.q[kk];
+}
+template <int HD>
+__device__ __forceinline__ uint64_t k_desc(const Descs<HD>& d, int kk) {
+  if constexpr (Descs<HD>::kBased) return d.k[0] + (k_step(kk) >> 4);
+  else return d.k[kk];
+}
 
 // Q (its 64 rows at qa) and a K tile (at kb): K-major, the k16 step kk at
 // byte 32 (kk % 4) of the 64-column block kk / 4; a V tile (at vb): MN-major,
@@ -411,11 +469,9 @@ template <int HD>
 __device__ __forceinline__ void describe(Descs<HD>& d, uint32_t qa,
                                          uint32_t kb, uint32_t vb) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    d.q[kk] =
-        descriptor(qa + (kk >> 2) * kBm * 128 + (kk & 3) * 32, 16, 1024);
-    d.k[kk] =
-        descriptor(kb + (kk >> 2) * kBn * 128 + (kk & 3) * 32, 16, 1024);
+  for (int kk = 0; kk < Descs<HD>::kSteps; ++kk) {
+    d.q[kk] = descriptor(qa + q_step(kk), 16, 1024);
+    d.k[kk] = descriptor(kb + k_step(kk), 16, 1024);
     asm volatile("" : "+l"(d.q[kk]), "+l"(d.k[kk]));
   }
 #pragma unroll
@@ -436,7 +492,8 @@ __device__ __forceinline__ void issue_scores(float (&s)[kBn / 2],
                                              const Descs<HD>& d) {
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk)
-    wgmma_ss(s, d.q[kk], d.k[kk], kk == 0 ? d.overwrite : d.accumulate);
+    wgmma_ss(s, q_desc(d, kk), k_desc(d, kk),
+             kk == 0 ? d.overwrite : d.accumulate);
 }
 
 // O += P V over one kv tile: kBn / 16 steps of wgmma m64n{hd}k16, P from
@@ -447,21 +504,25 @@ __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
                                          const Descs<HD>& d) {
 #pragma unroll
   for (int kk = 0; kk < kBn / 16; ++kk) {
-    if constexpr (HD == 128) wgmma_rs_n128(o, p[kk], d.v[kk], d.accumulate);
+    if constexpr (HD == 256) wgmma_rs_n256(o, p[kk], d.v[kk], d.accumulate);
+    else if constexpr (HD == 128)
+      wgmma_rs_n128(o, p[kk], d.v[kk], d.accumulate);
     else wgmma_rs_n64(o, p[kk], d.v[kk], d.accumulate);
   }
 }
 
 // The online softmax of one tile of scores, in place: s[4 j + e] (row r0 +
 // 8 (e >> 1), column k0 + 8 j + cq + (e & 1)) becomes exp2(s * log2(e) /
-// sqrt(hd) - m_new), masked where the tile crosses the diagonal (from the
-// warpgroup's first row w0) or Skv.  Updates the rows' m and l (l per
-// thread, reduced at the end) and returns their rescale factors in a0, a1.
+// sqrt(hd) - m_new), masked where the tile crosses the causal limit (from
+// the warpgroup's first row w0; causal_limit) or Skv.  Updates the rows' m
+// and l (l per thread, reduced at the end) and returns their rescale factors
+// in a0, a1.
 __device__ __forceinline__ void softmax_tile(
     float (&s)[kBn / 2], float& m0, float& m1, float& l0, float& l1,
     float& a0, float& a1, int k0, int w0, int r0, int cq, int skv,
-    bool causal, float scale_log2) {
-  const bool masked = k0 + kBn > skv || (causal && k0 + kBn - 1 > w0);
+    bool causal, int prefix, float scale_log2) {
+  const bool masked = k0 + kBn > skv ||
+                      (causal && k0 + kBn - 1 > causal_limit(w0, prefix));
   float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
   for (int j = 0; j < kBn / 8; ++j)
@@ -471,7 +532,8 @@ __device__ __forceinline__ void softmax_tile(
       if (masked) {
         const int kpos = k0 + 8 * j + cq + (e & 1);
         const int qpos = r0 + 8 * (e >> 1);
-        if (kpos >= skv || (causal && kpos > qpos)) x = kNegInf;
+        if (kpos >= skv || (causal && kpos > causal_limit(qpos, prefix)))
+          x = kNegInf;
       }
       s[4 * j + e] = x;
       if (e < 2) mx0 = fmaxf(mx0, x);
@@ -514,7 +576,10 @@ __device__ __forceinline__ void round_p(const float (&s)[kBn / 2],
 
 // A work item: one 128-row q tile of one (batch, head), row qh of the
 // [B * H] heads.  Items are numbered longest first (under the causal mask
-// the last q tiles walk the most kv tiles), and dealt to the blocks in
+// the last q tiles walk the most kv tiles; with a prefix every tile walks at
+// least to the prefix's last tile, so the count still never falls from one
+// q tile to the next, and tiles of equal count keep their order), and dealt
+// to the blocks in
 // rounds of gridDim.x, every other round in reverse, so that a block that
 // drew a long item draws a short one next: the n-th item of block j.
 __device__ __forceinline__ int item_of(int n) {
@@ -528,18 +593,19 @@ struct Item {
 
 __device__ __forceinline__ Item item_at(int w, int n_qt, int batch_heads,
                                         int heads, int group, int sq, int skv,
-                                        bool causal) {
+                                        bool causal, int prefix) {
   Item it;
   it.q0 = (n_qt - 1 - w / batch_heads) * kBm;
   it.qh = w % batch_heads;
   it.kvh = it.qh / heads * (heads / group) + it.qh % heads / group;
   it.n_tiles = (skv + kBn - 1) / kBn;
-  if (causal)                  // up to the tile of the last row's diagonal
-    it.n_tiles = min(it.n_tiles, (min(it.q0 + kBm, sq) - 1) / kBn + 1);
+  if (causal)       // up to the tile of the last row's limit (diagonal, prefix)
+    it.n_tiles = min(it.n_tiles,
+                     causal_limit(min(it.q0 + kBm, sq) - 1, prefix) / kBn + 1);
   return it;
 }
 
-// HD: the build's head dim (64 or 128); hd <= HD the inputs' (the copies pad
+// HD: the build's head dim (64, 128 or 256); hd <= HD the inputs' (the copies pad
 // the rest with zeros).  kTma: TMA copies, else ordinary loads.  Persistent:
 // each block walks its items (item_of); the K/V ring and its barriers
 // run on across items, and Q is reloaded as soon as both warpgroups are
@@ -553,8 +619,9 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
             const bf16* __restrict__ q, const bf16* __restrict__ k,
             const bf16* __restrict__ v, bf16* __restrict__ out, int batch,
             int heads, int group, int sq, int skv, int hd, bool causal,
-            float scale_log2) {
+            int prefix, float scale_log2) {
   using L = Smem<HD>;
+  constexpr int kStages = L::kStages;
   constexpr int kFullArrivals = kTma ? 1 : 32;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -588,7 +655,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
     int t = 0;                                  // tiles copied so far
     for (int n = 0, w = item_of(0); w < n_items; w = item_of(++n)) {
       const Item it = item_at(w, n_qt, batch_heads, heads, group, sq, skv,
-                              causal);
+                              causal, prefix);
       if (n > 0)           // both warpgroups are done with the last Q
         mbar_wait(BAR(kQEmpty), (n - 1) & 1);
       if constexpr (kTma) {
@@ -662,15 +729,16 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
   int t = 0;                                     // ring position of tile 0
   for (int n = 0, w = item_of(0); w < n_items; w = item_of(++n)) {
     const Item it = item_at(w, n_qt, batch_heads, heads, group, sq, skv,
-                            causal);
+                            causal, prefix);
     const int w0 = it.q0 + 64 * wgi;             // its first q row
     const int last = min(w0 + 63, sq - 1);       // < w0: no rows at all
     const int r0 = it.q0 + rw;                   // its rows r0 and r0 + 8
-    // the tiles it computes, a prefix of the item's: under the causal mask
+    // the tiles it computes, the first of the item's: under the causal mask
     // the first warpgroup may skip the last one, wholly above its rows
     int n_mine = 0;
     if (w0 <= last)
-      n_mine = causal ? min(it.n_tiles, last / kBn + 1) : it.n_tiles;
+      n_mine = causal ? min(it.n_tiles, causal_limit(last, prefix) / kBn + 1)
+                      : it.n_tiles;
 
     float o[HD / 2], s[kBn / 2], m0 = kNegInf, m1 = kNegInf, l0 = 0.0f,
         l1 = 0.0f, a0, a1;
@@ -691,7 +759,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<0>();
       pin(s);
       softmax_tile(s, m0, m1, l0, l1, a0, a1, 0, w0, r0, cq, skv, causal,
-                   scale_log2);
+                   prefix, scale_log2);
       round_p(s, p);
       // Tile i's scores run on the tensor cores while tile i - 1's P V
       // does too; the softmax of tile i then overlaps that P V.
@@ -712,7 +780,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
         wgmma_wait<1>();                 // the scores are done
         pin(s);
         softmax_tile(s, m0, m1, l0, l1, a0, a1, i * kBn, w0, r0, cq, skv,
-                     causal, scale_log2);
+                     causal, prefix, scale_log2);
         wgmma_wait<0>();                 // and P V
         pin(o);
         pin(p);
@@ -783,7 +851,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
 template <int HD, bool kTma>
 int launch(const void* q, const void* k, const void* v, void* out, int batch,
            int heads, int kv_heads, int sq, int skv, int hd, bool causal,
-           float scale, cudaStream_t stream) {
+           int prefix, float scale, cudaStream_t stream) {
   constexpr size_t bytes = Smem<HD>::kBytes;
   CUtensorMap maps[3] = {};
   if (kTma && !(encode(&maps[0], q, batch * heads, sq, hd, kBm) &&
@@ -820,24 +888,34 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
       maps[0], maps[1], maps[2], static_cast<const bf16*>(q),
       static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), batch, heads, heads / kv_heads, sq, skv, hd,
-      causal, scale * kLog2e);
+      causal, prefix, scale * kLog2e);
   return (int)cudaGetLastError();
+}
+
+template <int HD>
+int dispatch_tma(bool tma, const void* q, const void* k, const void* v,
+                 void* out, int batch, int heads, int kv_heads, int sq,
+                 int skv, int hd, bool causal, int prefix, float scale,
+                 cudaStream_t stream) {
+  return tma ? launch<HD, true>(q, k, v, out, batch, heads, kv_heads, sq, skv,
+                                hd, causal, prefix, scale, stream)
+             : launch<HD, false>(q, k, v, out, batch, heads, kv_heads, sq,
+                                 skv, hd, causal, prefix, scale, stream);
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* out,
              int batch, int heads, int kv_heads, int sq, int skv, int hd,
-             bool causal, float scale, cudaStream_t stream) {
+             bool causal, int prefix, float scale, cudaStream_t stream) {
   const bool tma = hd % 8 == 0 &&
                    ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
   if (hd <= 64)
-    return tma ? launch<64, true>(q, k, v, out, batch, heads, kv_heads, sq,
-                                  skv, hd, causal, scale, stream)
-               : launch<64, false>(q, k, v, out, batch, heads, kv_heads, sq,
-                                   skv, hd, causal, scale, stream);
-  return tma ? launch<128, true>(q, k, v, out, batch, heads, kv_heads, sq,
-                                 skv, hd, causal, scale, stream)
-             : launch<128, false>(q, k, v, out, batch, heads, kv_heads, sq,
-                                  skv, hd, causal, scale, stream);
+    return dispatch_tma<64>(tma, q, k, v, out, batch, heads, kv_heads, sq,
+                            skv, hd, causal, prefix, scale, stream);
+  if (hd <= 128)
+    return dispatch_tma<128>(tma, q, k, v, out, batch, heads, kv_heads, sq,
+                             skv, hd, causal, prefix, scale, stream);
+  return dispatch_tma<256>(tma, q, k, v, out, batch, heads, kv_heads, sq,
+                           skv, hd, causal, prefix, scale, stream);
 }
 
 }  // namespace wg
@@ -846,19 +924,20 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
 
 // q [batch, heads, sq, hd], k and v [batch, kv_heads, skv, hd] -> out [batch,
 // heads, sq, hd]; all float32 (bf16 = 0, the SIMT kernel) or all bf16 (bf16 =
-// 1, the tensor-core kernel), contiguous.
+// 1, the tensor-core kernel), contiguous.  prefix: the prefix-LM boundary
+// (0 <= prefix <= skv, only with causal; 0 is the plain causal mask).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int batch, int heads, int kv_heads,
-                               int sq, int skv, int hd, int causal, int bf16,
-                               float scale, cudaStream_t stream) {
+                               int sq, int skv, int hd, int causal, int prefix,
+                               int bf16, float scale, cudaStream_t stream) {
   if (batch == 0 || sq == 0) return 0;
   if (batch < 0 || batch > 65535 || heads < 1 || heads > 65535 ||
       kv_heads < 1 || heads % kv_heads != 0 || sq < 0 || skv < 1 || hd < 1 ||
-      hd > 128)
+      hd > 256 || prefix < 0 || prefix > skv || (prefix > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   if (bf16)
     return wg::dispatch(q, k, v, out, batch, heads, kv_heads, sq, skv, hd,
-                        causal != 0, scale, stream);
+                        causal != 0, prefix, scale, stream);
   return dispatch<float>(q, k, v, out, batch, heads, kv_heads, sq, skv, hd,
-                         causal != 0, scale, stream);
+                         causal != 0, prefix, scale, stream);
 }

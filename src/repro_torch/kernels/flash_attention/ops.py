@@ -7,7 +7,10 @@ Hkv)``), float32 or bfloat16, all of one dtype; the output has q's
 shape and dtype.  Scores are ``q.k^T / sqrt(hd)`` in float32, the
 causal mask keeps ``kpos <= qpos`` counted from 0 (top-left, as the TPU
 kernel's), the softmax is float32, and the output is cast once at the
-end.  Where the dtypes differ:
+end.  ``prefix_len`` P turns the causal mask into the prefix-LM mask of
+the VLM family (``repro/models/attention.py:115-118``): the first P
+positions see each other, ``kpos <= max(qpos, P - 1)``; P = 0 is the
+plain causal mask, bit for bit.  Where the dtypes differ:
 
 * float32: ``P`` stays float32 for ``P.V`` (the TPU kernel's function,
   ``attention_ref``);
@@ -44,26 +47,29 @@ from repro_torch.kernels.flash_attention.build import LIB
 
 DTYPES = (torch.float32, torch.bfloat16)
 #: the largest head dim the kernels are built for (float32 builds of 16,
-#: 32, 64 and 128, bf16 builds of 64 and 128; a smaller head dim runs in
-#: the next larger build)
-MAX_HEAD_DIM = 128
+#: 32, 64, 128 and 256, bf16 builds of 64, 128 and 256; a smaller head
+#: dim runs in the next larger build)
+MAX_HEAD_DIM = 256
 #: the TPU kernel's mask value
 NEG_INF = -1e30
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True) -> torch.Tensor:
+                          *, causal: bool = True,
+                          prefix_len: int = 0) -> torch.Tensor:
     """float32: the reference ``attention_ref``, float32 math and one
     cast at the end.  bfloat16: the same, with the probabilities rounded
-    to bf16 before a float32 ``P.V``, as the served model rounds them."""
+    to bf16 before a float32 ``P.V``, as the served model rounds them.
+    ``prefix_len``: the causal mask keeps ``kpos <= max(qpos, prefix_len
+    - 1)``."""
     group = q.shape[1] // k.shape[1]
     sq, skv, hd = q.shape[2], k.shape[2], q.shape[3]
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
     s = torch.matmul(q.float(), kf.transpose(-1, -2)) / math.sqrt(hd)
     if causal:
-        mask = torch.arange(skv, device=q.device)[None, :] <= \
-            torch.arange(sq, device=q.device)[:, None]
+        limit = torch.arange(sq, device=q.device).clamp(min=prefix_len - 1)
+        mask = torch.arange(skv, device=q.device)[None, :] <= limit[:, None]
         s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     if q.dtype == torch.bfloat16:
@@ -72,9 +78,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, prefix_len: int = 0) -> torch.Tensor:
     """q ``[B,H,Sq,hd]``; k, v ``[B,Hkv,Skv,hd]``, contiguous, one dtype
-    and device.  Returns a new ``[B,H,Sq,hd]`` tensor in q's dtype."""
+    and device.  ``prefix_len`` (``0 <= prefix_len <= Skv``, only with
+    ``causal``): the prefix-LM boundary.  Returns a new ``[B,H,Sq,hd]``
+    tensor in q's dtype."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: want q [B,H,Sq,hd] and k, v "
                          f"[B,Hkv,Skv,hd], got q {tuple(q.shape)}, k "
@@ -92,6 +100,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"built for 1 to {MAX_HEAD_DIM}")
     if skv == 0:
         raise ValueError("flash_attention: no keys to attend to (Skv = 0)")
+    prefix_len = int(prefix_len)
+    if prefix_len and not causal:
+        raise ValueError(f"flash_attention: a prefix of {prefix_len} is a "
+                         f"mode of the causal mask, and causal is False")
+    if not 0 <= prefix_len <= skv:
+        raise ValueError(f"flash_attention: prefix_len {prefix_len} outside "
+                         f"[0, Skv = {skv}]")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: want q, k, v all float32 or all "
                          f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -101,7 +116,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: q on {q.device}, k on "
                          f"{k.device}, v on {v.device}")
     if not launches_kernel("flash_attention", q, k, v):
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     prefix_len=prefix_len)
     if q.dtype == torch.float32 and (bsz > 65535 or heads > 65535):
         raise ValueError(f"flash_attention: B = {bsz}, H = {heads}; the "
                          f"float32 kernel's grid takes at most 65535 of each")
@@ -110,7 +126,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     err = LIB.load().flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bsz, heads,
-        kv_heads, sq, skv, hd, int(causal), int(q.dtype == torch.bfloat16),
+        kv_heads, sq, skv, hd, int(causal), prefix_len,
+        int(q.dtype == torch.bfloat16),
         1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention: CUDA error {err}" + (

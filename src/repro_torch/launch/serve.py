@@ -12,16 +12,21 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch whisper-large-v3 --requests 8 --prompt-len 128 \
         --new-tokens 32                                    # enc-dec, on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \
+        --requests 8 --prompt-len 512 --new-tokens 32      # VLM, on the card
 
 ``--arch`` takes any ported architecture (``repro_torch.configs.PORTED``:
 mamba2-130m, the dense qwen2-1.5b, stablelm-1.6b, llama3-8b,
 codeqwen1.5-7b, the MoE granite-moe-3b-a800m and qwen2-moe-a2.7b, the
-hybrid zamba2-7b and the enc-dec whisper-large-v3; qwen2-moe-a2.7b's
-14.3 B parameters do not fit one 80 GB card in float32 masters plus
-their bf16 copies).  The weights are random, drawn from ``--seed``; for
-whisper the frame embeddings ``[requests, encoder_frames, d_model]``
-are ``standard_normal * 0.02`` from the same generator, after the
-prompts.
+hybrid zamba2-7b, the enc-dec whisper-large-v3 and the VLM paligemma-3b;
+qwen2-moe-a2.7b's 14.3 B parameters do not fit one 80 GB card in float32
+masters plus their bf16 copies).  The weights are random, drawn from
+``--seed``; for whisper the frame embeddings ``[requests,
+encoder_frames, d_model]`` and for paligemma the patch embeddings
+``[requests, img_tokens, d_model]`` are ``standard_normal * 0.02`` from
+the same generator, after the prompts, as the reference's launcher draws
+them, so a seed gives both packages the same inputs.  The VLM's
+``max_len`` holds its ``img_tokens`` too.
 ``--device`` defaults to the CUDA card; without one the launcher raises.
 """
 
@@ -55,7 +60,9 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = model_registry.init_params(cfg, args.seed, device)
     scfg = ServeConfig(batch=args.requests,
-                       max_len=args.prompt_len + args.new_tokens + 8)
+                       max_len=args.prompt_len + args.new_tokens
+                       + (cfg.img_tokens if cfg.family == Family.VLM else 0)
+                       + 8)
     engine = ServeEngine(cfg, model, scfg, device=device)
     rng = np.random.default_rng(args.seed)
     reqs = [Request(prompt=list(rng.integers(1, cfg.vocab,
@@ -66,6 +73,10 @@ def main(argv=None):
     if cfg.family == Family.ENCDEC:
         extra["frames"] = rng.standard_normal(
             (args.requests, cfg.encoder_frames, cfg.d_model)
+        ).astype(np.float32) * 0.02
+    if cfg.family == Family.VLM:
+        extra["patches"] = rng.standard_normal(
+            (args.requests, cfg.img_tokens, cfg.d_model)
         ).astype(np.float32) * 0.02
     t0 = time.perf_counter()
     out = engine.run(reqs, seed=args.seed, extra=extra or None)

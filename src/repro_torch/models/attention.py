@@ -54,12 +54,15 @@ def qkv_project(w: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                 causal: bool = True) -> torch.Tensor:
+                 causal: bool = True, prefix_len: int = 0) -> torch.Tensor:
     """Attention through the flash kernel (B2), with the reference's head
     grouping.  q ``[B,Sq,H,hd]``, k and v ``[B,Skv,Hkv,hd]`` ->
     ``[B,Sq,H,hd]``.  ``causal``: a whole sequence from position 0
-    (``Sq == Skv``, the kernel's top-left mask); otherwise every query
-    sees every key (an encoder, or cross-attention with ``Sq != Skv``)."""
+    (``Sq == Skv``, the kernel's top-left mask), where ``prefix_len`` P
+    lets the first P positions see each other (the VLM's prefix-LM mask);
+    otherwise every query sees every key (an encoder, or cross-attention
+    with ``Sq != Skv``).  With one kv head (paligemma) the permute below
+    is the identity; it stays on the path."""
     bsz, seq, heads, hd = q.shape
     kv_heads = k.shape[2]
     group = heads // kv_heads
@@ -67,7 +70,8 @@ def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qk = q.reshape(bsz, seq, group, kv_heads, hd).permute(0, 3, 2, 1, 4) \
         .contiguous().view(bsz, heads, seq, hd)
     o = flash_attention(qk, k.transpose(1, 2).contiguous(),
-                        v.transpose(1, 2).contiguous(), causal=causal)
+                        v.transpose(1, 2).contiguous(), causal=causal,
+                        prefix_len=prefix_len)
     return o.view(bsz, kv_heads, group, seq, hd).permute(0, 3, 2, 1, 4) \
         .reshape(bsz, seq, heads, hd)
 

@@ -7,7 +7,8 @@ tree_map(np.asarray, params)``) are a nested dict of NumPy arrays::
 
     SSM:   {"embed": [Vp, D], "ln_f": [D],
             "blocks": {"ln": [L, D], "mamba": {"w_z": [L, D, E], ...}}}
-    dense: {"embed": [Vp, D], "ln_f": [D], ("lm_head": [D, Vp]),
+    dense (and VLM, whose ``init_vlm`` is ``init_lm``):
+           {"embed": [Vp, D], "ln_f": [D], ("lm_head": [D, Vp]),
             "blocks": {"ln1": [L, D], "ln2": [L, D],
                        "attn": {"wq": [L, D, H hd], ...},
                        "mlp": {"w_in": [L, D, F], ...}}}
@@ -118,10 +119,12 @@ def _layer_leaves(out: dict, prefix: str, tree: dict, i: int,
 
 
 def dense_state_dict(params: dict, cfg: ModelConfig) -> dict:
-    """The port's state dict of the transformer (dense or MoE family) for
-    the reference parameters ``params``; ``lm_head`` is taken when the
-    config is untied."""
-    out = _common(params, cfg, (Family.DENSE, Family.MOE), "ln1")
+    """The port's state dict of the transformer (dense, MoE or VLM
+    family) for the reference parameters ``params``; ``lm_head`` is taken
+    when the config is untied (paligemma's is tied: the head is
+    ``embed``)."""
+    out = _common(params, cfg, (Family.DENSE, Family.MOE, Family.VLM),
+                  "ln1")
     if not cfg.tie_embeddings:
         out["lm_head"] = _tensor(params["lm_head"], cfg)
     for i in range(cfg.n_layers):
@@ -132,8 +135,9 @@ def dense_state_dict(params: dict, cfg: ModelConfig) -> dict:
 def dense_lm_from_reference(params: dict, cfg: ModelConfig,
                             device=None) -> DenseLM:
     """A port model on ``device`` (``None``: the CUDA card) holding the
-    reference parameters ``params``; shapes are checked by the strict
-    load."""
+    reference parameters ``params`` of the dense, MoE or VLM family (the
+    VLM is the dense LM, so this serves it: no ``vlm_from_reference``);
+    shapes are checked by the strict load."""
     model = DenseLM(cfg, device=resolve_device(device))
     model.load_state_dict(dense_state_dict(params, cfg), strict=True)
     return model

@@ -9,12 +9,13 @@ Counterpart of ``repro/models/registry.py``::
     decode_step(model, token, cfg, state)          -> (logits, state)
 
 ``batch`` is a dict with ``tokens [B,S]``, and ``frames [B,F,D]`` (the
-enc-dec family's stub conv output) for whisper.  The SSM family
-(mamba2-130m), the dense family (qwen2, llama3, stablelm, codeqwen),
-the MoE family (granite-moe, qwen2-moe; the transformer with MoE
-layers), the hybrid family (zamba2-7b) and the enc-dec family
-(whisper-large-v3) are ported; the VLM family raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+enc-dec family's stub conv output) for whisper or ``patches [B,P,D]``
+(the VLM's stub vision-tower output) for paligemma.  Every family is
+ported: SSM (mamba2-130m), dense (qwen2, llama3, stablelm, codeqwen),
+MoE (granite-moe, qwen2-moe; the transformer with MoE layers), hybrid
+(zamba2-7b), enc-dec (whisper-large-v3) and VLM (paligemma-3b; the
+transformer over the patches and the tokens, with the prefix-LM
+mask).
 """
 
 from __future__ import annotations
@@ -25,13 +26,9 @@ from repro_torch.models import encdec as _encdec
 from repro_torch.models import hybrid as _hybrid
 from repro_torch.models import ssm_lm as _ssm
 from repro_torch.models import transformer as _tf
+from repro_torch.models import vlm as _vlm
 from repro_torch.models.common import Family, ModelConfig
 from repro_torch.runtime import resolve_device
-
-#: where each family that is not ported yet is queued
-PENDING = {
-    Family.VLM: "ROADMAP A.4 (paligemma VLM)",
-}
 
 
 def _module(cfg: ModelConfig):
@@ -43,9 +40,9 @@ def _module(cfg: ModelConfig):
         return _hybrid
     if cfg.family == Family.ENCDEC:
         return _encdec
-    raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family.value} family is not ported to "
-        f"repro_torch yet; see {PENDING[cfg.family]}")
+    if cfg.family == Family.VLM:
+        return _vlm
+    raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
@@ -63,14 +60,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
         return _hybrid.HybridLM(cfg, device=dev).init_(gen)
     if mod is _encdec:
         return _encdec.EncDecLM(cfg, device=dev).init_(gen)
+    if mod is _vlm:
+        return _vlm.init_vlm(cfg, gen, device=dev)
     return _ssm.SSMLM(cfg).init_(gen).to(dev)
 
 
 def train_forward(model, batch: dict, cfg: ModelConfig):
-    """-> (logits [B,S,Vp], aux_loss); forward only in this port."""
+    """-> (logits [B,S,Vp] over the *token* part, aux_loss); forward
+    only in this port."""
     mod, tokens = _module(cfg), batch["tokens"]
     if mod is _tf:
         return _tf.lm_apply(model, tokens, cfg)
+    if mod is _vlm:
+        logits, aux = _vlm.vlm_apply(model, batch["patches"], tokens, cfg)
+        return logits[:, cfg.img_tokens:], aux   # the text positions
     if mod is _hybrid:
         return _hybrid.hybrid_apply(model, tokens, cfg)
     if mod is _encdec:
@@ -90,12 +93,15 @@ def make_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
     if mod is _encdec:
         return _encdec.encdec_make_state(cfg, batch, max_len, enc=enc,
                                          device=dev)
+    if mod is _vlm:
+        return _vlm.vlm_make_state(cfg, batch, max_len, device=dev)
     return _ssm.ssm_make_state(cfg, batch, max_len, device=dev)
 
 
 def prefill(model, batch: dict, cfg: ModelConfig, state):
     """The enc-dec family first encodes ``batch["frames"]`` into the
-    state, as the reference's registry does."""
+    state, as the reference's registry does; the VLM reads
+    ``batch["patches"]``."""
     mod, tokens = _module(cfg), batch["tokens"]
     if mod is _tf:
         return _tf.lm_prefill(model, tokens, cfg, state)
@@ -105,6 +111,8 @@ def prefill(model, batch: dict, cfg: ModelConfig, state):
         enc = _encdec.encode(model, batch["frames"], cfg)
         return _encdec.encdec_prefill(model, tokens, cfg,
                                       state._replace(enc=enc))
+    if mod is _vlm:
+        return _vlm.vlm_prefill(model, batch["patches"], tokens, cfg, state)
     return _ssm.ssm_prefill(model, tokens, cfg, state)
 
 
@@ -116,4 +124,6 @@ def decode_step(model, token, cfg: ModelConfig, state):
         return _hybrid.hybrid_decode_step(model, token, cfg, state)
     if mod is _encdec:
         return _encdec.encdec_decode_step(model, token, cfg, state)
+    if mod is _vlm:
+        return _vlm.vlm_decode_step(model, token, cfg, state)
     return _ssm.ssm_decode_step(model, token, cfg, state)

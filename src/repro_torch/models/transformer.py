@@ -13,7 +13,10 @@ CastCache`).
 The prefill (and the teacher-forced forward) runs its attention through
 the flash kernel B2 (:func:`~repro_torch.models.attention.flash_attend`):
 there the positions are ``arange(S)`` for every row and no slot is
-masked, so the kernel's top-left causal mask is the model's.  A decode
+masked, so the kernel's top-left causal mask is the model's.  The VLM
+family (:mod:`repro_torch.models.vlm`) is this LM with
+``extra_embeds`` (the image patches, put before the token embeddings)
+and ``prefix_len`` (B2's prefix-LM mode over them).  A decode
 step attends with one query over a partly filled cache in plain PyTorch
 (:func:`~repro_torch.models.attention.gqa_attend`), as the reference
 does outside any kernel.  The KV cache is preallocated per layer and
@@ -79,9 +82,9 @@ class DenseLM(CastCache):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family not in (Family.DENSE, Family.MOE):
+        if cfg.family not in (Family.DENSE, Family.MOE, Family.VLM):
             raise ValueError(f"{cfg.name}: a {cfg.family.value} config, "
-                             f"want the dense or the MoE family")
+                             f"want the dense or the MoE family, or the VLM")
         self.cfg = cfg
         self.embed = param((cfg.vocab_padded, cfg.d_model), cfg, device)
         self.blocks = nn.ModuleList(DenseBlock(cfg, device)
@@ -195,18 +198,17 @@ def _moe_forward(w: dict, h: torch.Tensor, cfg: ModelConfig, mesh):
 
 
 def block_forward(w: dict, x: torch.Tensor, cfg: ModelConfig,
-                  positions: torch.Tensor, *,
-                  prefix_len: Optional[int] = None, mesh=None):
+                  positions: torch.Tensor, *, prefix_len: int = 0,
+                  mesh=None):
     """Training/prefill block over a whole sequence from position 0:
-    ``(x, (k, v, aux))``.  The attention runs on the flash kernel.
+    ``(x, (k, v, aux))``.  The attention runs on the flash kernel, with
+    the prefix-LM mask over the first ``prefix_len`` positions.
     ``mesh``: the ``DeviceMesh`` of ``moe_impl="ep"``, where x is this
     rank's data-parallel shard."""
-    if prefix_len is not None:
-        raise NotImplementedError("prefix-LM attention (the VLM family) is "
-                                  "not ported yet; see ROADMAP A.4")
     h = rmsnorm(x, w["ln1"], cfg.norm_eps)
     q, k, v = attn.qkv_project(w, h, cfg, positions)
-    x = x + attn.attn_output(w, attn.flash_attend(q, k, v), cfg)
+    o = attn.flash_attend(q, k, v, prefix_len=prefix_len)
+    x = x + attn.attn_output(w, o, cfg)
     h = rmsnorm(x, w["ln2"], cfg.norm_eps)
     if "moe" in w:
         y, aux = _moe_forward(w["moe"], h, cfg, mesh)
@@ -234,8 +236,14 @@ def block_decode(w: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 # ----------------------------------------------------------------------- LM
-def _embed(model: DenseLM, tokens: torch.Tensor) -> torch.Tensor:
-    return model.weights()["embed"][tokens.long()]
+def _embed(model: DenseLM, tokens: torch.Tensor,
+           extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The token embeddings, after ``extra_embeds`` ``[B,P,D]`` (the
+    VLM's patches) cast to ``cfg.dtype`` where given."""
+    x = model.weights()["embed"][tokens.long()]
+    if extra_embeds is None:
+        return x
+    return torch.cat([extra_embeds.to(x.dtype), x], dim=1)
 
 
 def _logits(model: DenseLM, x: torch.Tensor) -> torch.Tensor:
@@ -243,22 +251,27 @@ def _logits(model: DenseLM, x: torch.Tensor) -> torch.Tensor:
     return rmsnorm(x, w["ln_f"], model.cfg.norm_eps) @ w["head"]
 
 
-def _positions(tokens: torch.Tensor) -> torch.Tensor:
-    bsz, seq = tokens.shape
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    """``arange(S)`` for each row of ``x`` ``[B,S,...]``."""
+    bsz, seq = x.shape[:2]
     return torch.arange(seq, dtype=torch.int32,
-                        device=tokens.device)[None, :].expand(bsz, seq)
+                        device=x.device)[None, :].expand(bsz, seq)
 
 
 @torch.no_grad()
 def lm_apply(model: DenseLM, tokens: torch.Tensor, cfg: ModelConfig, *,
-             mesh=None):
-    """tokens ``[B,S]`` -> (logits ``[B,S,Vp]`` in ``cfg.dtype``, aux
-    loss).  ``mesh``: as :func:`block_forward`'s."""
-    x = _embed(model, tokens)
-    positions = _positions(tokens)
+             extra_embeds: Optional[torch.Tensor] = None,
+             prefix_len: int = 0, mesh=None):
+    """tokens ``[B,S]`` -> (logits ``[B,P+S,Vp]`` in ``cfg.dtype``, aux
+    loss).  ``extra_embeds``: an optional ``[B,P,D]`` prefix put before
+    the token embeddings; ``prefix_len``: B2's prefix-LM boundary.
+    ``mesh``: as :func:`block_forward`'s."""
+    x = _embed(model, tokens, extra_embeds)
+    positions = _positions(x)
     aux = torch.zeros((), device=x.device)
     for w in model.weights()["blocks"]:
-        x, (_, _, a) = block_forward(w, x, cfg, positions, mesh=mesh)
+        x, (_, _, a) = block_forward(w, x, cfg, positions,
+                                     prefix_len=prefix_len, mesh=mesh)
         aux = aux + a
     return _logits(model, x), aux
 
@@ -276,15 +289,19 @@ def lm_make_state(cfg: ModelConfig, batch: int, max_len: int,
 
 @torch.no_grad()
 def lm_prefill(model: DenseLM, tokens: torch.Tensor, cfg: ModelConfig,
-               state: LMDecodeState):
-    """Fill the cache with the prompt from slot 0; returns (last-token
-    logits ``[B,1,Vp]``, state)."""
-    x = _embed(model, tokens)
-    bsz, seq = tokens.shape
-    positions = _positions(tokens)
+               state: LMDecodeState, *,
+               extra_embeds: Optional[torch.Tensor] = None,
+               prefix_len: int = 0):
+    """Fill the cache with the prompt (after ``extra_embeds``, as
+    :func:`lm_apply`) from slot 0; returns (last-token logits
+    ``[B,1,Vp]``, state)."""
+    x = _embed(model, tokens, extra_embeds)
+    bsz, seq = x.shape[:2]
+    positions = _positions(x)
     cache = state.cache
     for i, w in enumerate(model.weights()["blocks"]):
-        x, (k, v, _) = block_forward(w, x, cfg, positions)
+        x, (k, v, _) = block_forward(w, x, cfg, positions,
+                                     prefix_len=prefix_len)
         attn.cache_update(cache.k[i], cache.v[i], k, v, 0)
     logits = _logits(model, x[:, -1:, :].contiguous())
     length = torch.full((bsz,), seq, dtype=torch.int32, device=x.device)

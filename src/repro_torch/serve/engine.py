@@ -8,8 +8,10 @@ then decoded one token per step.  The first token is the argmax of the
 prefill's last logits; each step drops the padded vocabulary and picks
 greedily at temperature 0 or samples at the batch's highest
 temperature.  ``run``'s ``extra`` adds inputs to the prefill batch
-(the enc-dec family's ``frames``), moved to the engine's device.  The
-engine runs on the CUDA card unless given ``device="cpu"``.
+(the enc-dec family's ``frames``, the VLM's ``patches``), moved to the
+engine's device; the VLM's decode state needs ``img_tokens`` more slots
+in ``ServeConfig.max_len``, as the launchers give it.  The engine runs on
+the CUDA card unless given ``device="cpu"``.
 
 Sampling draws from a ``torch.Generator`` seeded from ``run``'s
 ``seed``; it cannot match the reference's ``jax.random`` draws token for
@@ -125,8 +127,9 @@ def kv_bytes(cfg: ModelConfig, prompt_tokens: int) -> int:
     reference counts it (head dim ``d_model // n_heads``), over all
     ``n_layers``: for the hybrid family that counts every Mamba2 layer
     although only the shared block's applications hold a cache, and for
-    the enc-dec family it leaves the cross-attention K/V out (ROADMAP C10,
-    kept for parity)."""
+    the enc-dec family it leaves the cross-attention K/V out, and for the
+    VLM it counts the text tokens only, not the ``img_tokens`` image slots
+    each row also holds (ROADMAP C10, kept for parity)."""
     heads_kv = cfg.n_kv_heads or cfg.n_heads
     head_dim = cfg.d_model // max(cfg.n_heads, 1)
     return int(2 * cfg.n_layers * heads_kv * head_dim
@@ -229,7 +232,7 @@ class ServeEngine:
         state = model_registry.make_decode_state(
             self.cfg, self.scfg.batch, self.scfg.max_len, device=self.device)
         batch = {"tokens": toks}
-        if extra:   # e.g. the enc-dec family's frames, as arrays
+        if extra:   # the enc-dec family's frames, the VLM's patches
             batch.update({k: torch.as_tensor(v, device=self.device)
                           for k, v in extra.items()})
         if self.comm_engine is not None:

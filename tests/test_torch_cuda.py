@@ -30,8 +30,9 @@ the kernel rounds each kv tile's unnormalised P to bf16 and the plain
 version the normalised probabilities, so outputs agree to one bf16 ulp
 of the value plus, per output, ``FLASH_BF16_ATOL_PER_PV * sum_j p_j
 |v_j|``, the bound of
-tests/test_torch_flash_attention.py::test_kernel_order_witness.  The
-qwen2-1.5b smoke serve is held like the mamba2-130m one.
+tests/test_torch_flash_attention.py::test_kernel_order_witness (and its
+prefix-LM form at head dims 192 and 256).  The qwen2-1.5b smoke serve is
+held like the mamba2-130m one.
 """
 
 import numpy as np
@@ -75,9 +76,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _assert_flash_bf16_close(got, want, q, k, v, causal):
+def _assert_flash_bf16_close(got, want, q, k, v, causal, prefix_len=0):
     atol = FLASH_BF16_ATOL_PER_PV * flash_attention_plain(
-        q.float(), k.float(), v.float().abs(), causal=causal)
+        q.float(), k.float(), v.float().abs(), causal=causal,
+        prefix_len=prefix_len)
     gap = (got.float() - want.float()).abs()
     limit = atol + BF16_RTOL * want.float().abs()
     assert bool((gap <= limit).all()), \
@@ -458,6 +460,66 @@ def test_flash_attention_at_the_hybrid_and_encdec_shapes(cuda, q_shape,
         _assert_flash_bf16_close(got, want, q, k, v, causal)
 
 
+@pytest.mark.parametrize("q_shape,kv_shape,causal,prefix_len", [
+    ((8, 8, 768, 256), (8, 1, 768, 256), True, 256),  # paligemma prefill
+    ((2, 8, 200, 256), (2, 1, 200, 256), True, 0),    # causal, ragged
+    ((1, 4, 130, 256), (1, 2, 300, 256), False, 0),   # Sq < Skv
+    ((2, 4, 150, 192), (2, 2, 150, 192), True, 70),   # hd 192: a box of zeros
+    ((2, 4, 150, 192), (2, 2, 150, 192), False, 0),
+    ((1, 2, 100, 200), (1, 2, 100, 200), True, 100),  # the prefix is all
+    ((1, 2, 65, 250), (1, 1, 65, 250), True, 1),      # hd 250: ordinary loads
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_above_head_dim_128(cuda, q_shape, kv_shape, causal,
+                                            prefix_len, dtype):
+    """B2's hd-256 builds (head dims 129-256 run in them, the columns
+    past hd zero) against the plain version: causal, non-causal and
+    prefix-masked, held as above."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn(s, device=cuda, generator=gen).to(dtype)
+               for s in (q_shape, kv_shape, kv_shape))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, prefix_len=prefix_len)
+    assert flash_attention.launches == before + 1
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, causal=causal,
+                                 prefix_len=prefix_len)
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=FLASH_TOL, atol=FLASH_TOL)
+    else:
+        _assert_flash_bf16_close(got, want, q, k, v, causal, prefix_len)
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_prefix_zero_is_the_causal_kernel(cuda, dtype, hd):
+    """``prefix_len = 0`` is the causal kernel bit for bit, and so is a
+    prefix of 1 (``max(qpos, 0) = qpos``), through the other arithmetic
+    of the limit."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(s, device=cuda, generator=gen).to(dtype)
+               for s in ((2, 4, 333, hd), (2, 2, 333, hd), (2, 2, 333, hd)))
+    want = flash_attention(q, k, v)
+    for prefix_len in (0, 1):
+        got = flash_attention(q, k, v, prefix_len=prefix_len)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), prefix_len
+
+
+def test_flash_attention_bf16_hd256_build_launches(cuda):
+    """The bf16 hd-256 builds (TMA and ordinary loads) launch: ptxas gave
+    them the register count their setmaxnreg counts assume (else the
+    wrapper raises CUDA error 200)."""
+    for hd in (256, 250):
+        z = torch.ones(1, 2, 64, hd, device=cuda, dtype=torch.bfloat16)
+        before = flash_attention.launches
+        out = flash_attention(z, z, z, prefix_len=32)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        assert torch.equal(out, z), hd
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_kernel_at_zamba2_shape(cuda, dtype):
     """B3 at zamba2-7b's prefill block: 112 heads, N = 64 (padded into the
@@ -513,14 +575,16 @@ def test_rmsnorm_at_the_hybrid_and_encdec_shapes(cuda, shape, route):
                                    atol=0.0)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-large-v3"])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-large-v3",
+                                  "paligemma-3b"])
 def test_hybrid_and_encdec_smoke_serve_on_the_card_matches_the_cpu(cuda,
                                                                    arch):
     """The smoke configs in float32 on the card and on the CPU: prefill
     logits at 1e-4 and the same greedy tokens; the prefill launches the
     kernels the family's path runs (zamba2: B2 per shared-block
     application, B3 per Mamba2 layer; whisper: B2 per encoder layer and
-    twice per decoder layer), and none on the CPU."""
+    twice per decoder layer; paligemma: B2 per layer, in the prefix
+    mode), and none on the CPU."""
     from repro_torch.models import registry
     from repro_torch.models.common import Family
     from repro_torch.models.hybrid import hybrid_layout
@@ -528,11 +592,15 @@ def test_hybrid_and_encdec_smoke_serve_on_the_card_matches_the_cpu(cuda,
 
     cfg = get_smoke_config(arch).scaled(dtype=torch.float32)
     prompts = [[5, 17, 3, 99, 250, 7, 8, 1, 2, 3, 4, 5], [11, 12]]
+    name = {Family.ENCDEC: "frames", Family.VLM: "patches"}.get(cfg.family)
+    rows = cfg.encoder_frames if name == "frames" else cfg.img_tokens
     frames = np.random.default_rng(0).standard_normal(
-        (3, cfg.encoder_frames, cfg.d_model)).astype(np.float32) * 0.02
-    extra = {"frames": frames} if cfg.family == Family.ENCDEC else None
+        (3, rows, cfg.d_model)).astype(np.float32) * 0.02
+    extra = {name: frames} if name else None
     if cfg.family == Family.HYBRID:
         want_b2, want_b3 = hybrid_layout(cfg)[3], cfg.n_layers
+    elif cfg.family == Family.VLM:
+        want_b2, want_b3 = cfg.n_layers, 0
     else:
         want_b2, want_b3 = cfg.n_encoder_layers + 2 * cfg.n_layers, 0
     runs, logits = [], []
@@ -540,15 +608,17 @@ def test_hybrid_and_encdec_smoke_serve_on_the_card_matches_the_cpu(cuda,
         model = registry.init_params(cfg, 0, dev)
         batch = {"tokens": torch.tensor([prompts[0]], device=dev)}
         if extra:
-            batch["frames"] = torch.from_numpy(frames[:1]).to(dev)
-        state = registry.make_decode_state(cfg, 1, 16, device=dev)
+            batch[name] = torch.from_numpy(frames[:1]).to(dev)
+        state = registry.make_decode_state(cfg, 1, 16 + cfg.img_tokens,
+                                           device=dev)
         before = flash_attention.launches, ssd_inner.launches
         lg, _ = registry.prefill(model, batch, cfg, state)
         after = flash_attention.launches, ssd_inner.launches
         assert after == ((before[0] + want_b2, before[1] + want_b3)
                          if dev.type == "cuda" else before)
         logits.append(lg.float().cpu())
-        eng = ServeEngine(cfg, model, ServeConfig(batch=3, max_len=32),
+        eng = ServeEngine(cfg, model,
+                          ServeConfig(batch=3, max_len=32 + cfg.img_tokens),
                           device=dev)
         out = eng.run([Request(prompt=list(p), max_new_tokens=6)
                        for p in prompts], extra=extra)

@@ -68,12 +68,12 @@ def _close(got: torch.Tensor, want, tol):
                                rtol=tol, atol=tol)
 
 
-def _bf16_limit(want, q, k, v, causal):
+def _bf16_limit(want, q, k, v, causal, prefix_len=0):
     """Per output of ``want``: ``BF16_ULP * |want| + BF16_ATOL_PER_PV *
     sum_j p_j |v_j|``, p the float32 probabilities, all in the kernel's
     layout."""
     pv = flash_attention_plain(q.float(), k.float(), v.float().abs(),
-                               causal=causal)
+                               causal=causal, prefix_len=prefix_len)
     return BF16_ULP * want.float().abs() + BF16_ATOL_PER_PV * pv
 
 
@@ -138,9 +138,18 @@ def _t(shape, dtype=torch.float32, device="cpu"):
     return torch.zeros(shape, dtype=dtype, device=device)
 
 
+@pytest.mark.parametrize("causal,prefix_len,match", [
+    (False, 4, "causal"), (True, -1, "outside"), (True, 9, "outside")])
+def test_wrapper_refuses_prefix(causal, prefix_len, match):
+    """The prefix is a mode of the causal mask, and lies in ``[0, Skv]``."""
+    q = _t((1, 2, 8, 16))
+    with pytest.raises(ValueError, match=match):
+        flash_attention(q, q, q, causal=causal, prefix_len=prefix_len)
+
+
 @pytest.mark.parametrize("q,k,v,match", [
     (_t((1, 3, 8, 16)), _t((1, 2, 8, 16)), _t((1, 2, 8, 16)), "multiple"),
-    (_t((1, 2, 8, 256)), _t((1, 2, 8, 256)), _t((1, 2, 8, 256)), "head dim"),
+    (_t((1, 2, 8, 257)), _t((1, 2, 8, 257)), _t((1, 2, 8, 257)), "head dim"),
     (_t((1, 2, 8, 16), torch.float16), _t((1, 2, 8, 16), torch.float16),
      _t((1, 2, 8, 16), torch.float16), "bfloat16"),
     (_t((1, 2, 8, 16), torch.bfloat16), _t((1, 2, 8, 16)), _t((1, 2, 8, 16)),
@@ -195,14 +204,15 @@ def test_bf16_plain_is_the_model_attention(heads, kv_heads, seq, hd):
     assert (gap <= limit).all(), float((gap / limit).max())
 
 
-def _kernel_order(q, k, v, causal, block_q=128, block_k=64):
+def _kernel_order(q, k, v, causal, block_q=128, block_k=64, prefix_len=0):
     """The CUDA kernel's bf16 order in plain torch: 128-row q tiles walk
     64-row kv tiles; scores are float32 products scaled by
     ``log2(e) / sqrt(hd)``; per tile the running max m and sum l are
     float32, the unnormalised ``P = exp2(s - m)`` is rounded to bf16 for
     a float32 ``P.V``, and the accumulator is rescaled by ``alpha =
     exp2(m_old - m_new)``; the output is ``acc / max(l, 1e-20)`` cast
-    once."""
+    once.  The causal mask keeps ``kpos <= max(qpos, prefix_len - 1)``,
+    and the kv loop runs to the tile of the q tile's last row's limit."""
     bsz, heads, sq, hd = q.shape
     skv, group = k.shape[2], heads // k.shape[1]
     qf = q.float()
@@ -216,13 +226,14 @@ def _kernel_order(q, k, v, causal, block_q=128, block_k=64):
         l = torch.zeros_like(m)
         acc = torch.zeros(bsz, heads, rows.numel(), hd)
         n_tiles = -(-skv // block_k)
+        limit = rows.clamp(min=prefix_len - 1)
         if causal:
-            n_tiles = min(n_tiles, int(rows[-1]) // block_k + 1)
+            n_tiles = min(n_tiles, int(limit[-1]) // block_k + 1)
         for k0 in range(0, n_tiles * block_k, block_k):
             cols = torch.arange(k0, min(k0 + block_k, skv))
             s = (qf[:, :, rows] @ kf[:, :, cols].transpose(-1, -2)) * scale
             if causal:
-                s = torch.where(cols[None, :] <= rows[:, None], s, NEG_INF)
+                s = torch.where(cols[None, :] <= limit[:, None], s, NEG_INF)
             m_new = torch.maximum(m, s.amax(-1))
             alpha = torch.exp2(m - m_new)
             p = torch.exp2(s - m_new[..., None])
@@ -266,3 +277,71 @@ def test_kernel_order_witness(q_shape, kv_shape, causal):
     print(f"{q_shape}: max gap {float(gap.max()):.3e}, {int((gap > 0).sum())}"
           f" of {gap.numel()} differ, largest gap {share:.3f} of its limit")
     assert share <= 1.0
+
+
+@pytest.mark.parametrize("q_shape,kv_shape,prefix_len", [
+    ((2, 8, 768, 256), (2, 1, 768, 256), 256),   # paligemma-3b's prefill
+    ((1, 4, 200, 192), (1, 2, 200, 192), 130),   # ragged, hd 192
+])
+def test_kernel_order_witness_prefix(q_shape, kv_shape, prefix_len):
+    """The bf16 witness of :func:`test_kernel_order_witness` in the
+    prefix-LM mode at head dims 256 and 192: the same limit holds."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(torch.bfloat16) for s in (q_shape, kv_shape, kv_shape))
+    got = _kernel_order(q, k, v, True, prefix_len=prefix_len).float()
+    want = flash_attention_plain(q, k, v, prefix_len=prefix_len).float()
+    gap = (got - want).abs()
+    share = float((gap / _bf16_limit(want, q, k, v, True,
+                                     prefix_len)).max())
+    print(f"{q_shape}, prefix {prefix_len}: max gap {float(gap.max()):.3e}, "
+          f"largest gap {share:.3f} of its limit")
+    assert share <= 1.0
+
+
+# ------------------------------------- head dims above 128, the prefix mode
+#: the prefix-LM cases below, at Sq = Skv = 40: none, one position, half
+#: the sequence, all of it
+PREFIXES = [0, 1, 20, 40]
+
+
+@pytest.mark.parametrize("prefix_len", PREFIXES)
+@pytest.mark.parametrize("hd", [192, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_prefix_is_the_model_attention(dtype, hd, prefix_len):
+    """``flash_attention_plain`` through ``flash_attend`` against the
+    reference model's ``gqa_attend(causal=True, prefix_len=P)`` at 8
+    heads over one kv head (paligemma's grouping): float32 at
+    ``F32_TOL``; bf16 to one ulp of the value plus ``BF16_ATOL_PER_PV *
+    sum_j p_j |v_j|``, as :func:`test_bf16_plain_is_the_model_attention`
+    holds it."""
+    arrays = _bf16_model_inputs(2, 40, 8, 1, hd, seed=6)
+    jd, td = {"float32": (jnp.float32, torch.float32),
+              "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    q, k, v = (torch.from_numpy(a).to(td) for a in arrays)
+    got = attention.flash_attend(q, k, v, prefix_len=prefix_len)
+    assert got.dtype == td and got.shape == q.shape
+    got = got.float().numpy()
+    ref = np.asarray(ref_attn.gqa_attend(
+        *(jnp.asarray(a, jd) for a in arrays), causal=True,
+        prefix_len=prefix_len), np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, rtol=F32_TOL, atol=F32_TOL)
+        return
+    pv = attention.flash_attend(q.float(), k.float(), v.float().abs(),
+                                prefix_len=prefix_len).numpy()
+    gap = np.abs(got - ref)
+    limit = BF16_ULP * np.abs(ref) + BF16_ATOL_PER_PV * pv
+    assert (gap <= limit).all(), float((gap / limit).max())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_matches_pallas_at_head_dim_256(causal):
+    """The Pallas kernel takes any head dim through its block specs;
+    at 256 (interpret mode, 64-row blocks) the plain version is it, in
+    float32, at ``F32_TOL``."""
+    arrays = _inputs(1, 4, 1, 128, 128, 256, seed=7)
+    jq, jk, jv = (jnp.asarray(a) for a in arrays)
+    pallas = flash_pallas(jq, jk, jv, causal=causal, block_q=64, block_k=64,
+                          interpret=True)
+    _close(_run(arrays, torch.float32, causal), pallas, F32_TOL)

@@ -29,6 +29,8 @@ and 1 trailing layer.  Tolerances:
 """
 
 import dataclasses
+import importlib.util
+import os
 
 import jax
 import jax.numpy as jnp
@@ -231,44 +233,54 @@ def test_bf16_spread_like_reference():
     assert 0.5 <= gaps["port"] / gaps["ref"] <= 2.0, gaps
 
 
+def _oracle_script():
+    """``scripts/hybrid_f64_oracle.py`` as a module."""
+    path = os.path.join(os.path.dirname(__file__), "..", "scripts",
+                        "hybrid_f64_oracle.py")
+    spec = importlib.util.spec_from_file_location("hybrid_f64_oracle", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+#: the port's float32 gap to the float64 oracle, at each recorded point,
+#: is at most this factor times the reference's (readings: 0.35-1.33
+#: over the 32 points at d_model 256 and 1024; the logits 1.12 and 0.80)
+ORACLE_FACTOR = 2.0
+#: and each package's logits lie within this share of the largest logit
+#: from the oracle's (readings 0.49e-3 to 0.92e-3)
+ORACLE_LOGITS = 2e-3
+
+
 def test_float32_drift_grows_with_width():
-    """Two correct float32 implementations of the hybrid (the reference
-    and the port, on the CPU) at zamba2's depth of 14 layers (2
-    super-blocks, 1 shared-block application, 2 trailing layers) and
-    head dim 128: their logits part by an amount that grows with the
-    width (readings: 8.2e-5 at d_model 256, 3.0e-4 at 1024; 1.362e-3
-    card vs CPU at the published 3584, chip_smoke phase 20), while it
-    stays within ``LOGITS_F32_TOL`` (1e-3) of the largest logit.  So
-    chip_smoke holds the float32 logits of phase 20 to 1e-3 times the
-    largest logit, not to 1e-3 per element: a logit near 0 is a
-    cancellation of terms of the logits' scale."""
-    gaps = {}
-    toks = np.random.default_rng(1).integers(1, 2048, (2, 256)) \
-        .astype(np.int32)
-    for d_model in (256, 1024):
-        kw = dict(n_layers=14, d_model=d_model, n_heads=d_model // 128,
-                  n_kv_heads=d_model // 128, d_ff=4 * d_model, vocab=2048,
-                  remat=False)
-        jc = REF_CONFIG.scaled(dtype=jnp.float32, **kw)
-        tc = CONFIG.scaled(dtype=torch.float32, **kw)
-        assert hybrid_layout(tc) == (2, 6, 2, 1)
-        params = ref_registry.init_params(jc, 0)
-        model = hybrid_from_reference(
-            jax.tree_util.tree_map(np.asarray, params), tc, device="cpu")
-        want, _ = ref_registry.prefill(params, {"tokens": jnp.asarray(toks)},
-                                       jc, ref_registry.make_decode_state(
-                                           jc, 2, 256))
-        got, _ = registry.prefill(model, {"tokens": torch.from_numpy(toks)},
-                                  tc, registry.make_decode_state(
-                                      tc, 2, 256, device="cpu"))
-        want = _np(want)
-        gaps[d_model] = (float(np.abs(_tn(got) - want).max()),
-                         float(np.abs(want).max()))
-    print(f"float32 port vs reference at 14 layers (gap, max |logit|): "
-          f"{gaps}")
-    assert gaps[1024][0] >= 2 * gaps[256][0], gaps
-    for gap, scale in gaps.values():
-        assert gap <= 1e-3 * max(1.0, scale), gaps
+    """ROADMAP C11: the float32 gap of the hybrid at zamba2's depth of 14
+    layers (2 super-blocks, 1 shared-block application, 2 trailing
+    layers), head dim 128, is float32 rounding in both packages, held
+    against a float64 oracle (the reference in float64 with jax x64, in
+    a subprocess: ``scripts/hybrid_f64_oracle.py``).  At every recorded
+    point (each Mamba2 layer's and the shared block's hidden state over
+    2 x 256 tokens, and the logits) and at d_model 256 and 1024, the
+    port's largest gap to the oracle is within ``ORACLE_FACTOR`` of the
+    reference's.  Readings (logits): reference 1.262e-3 and 2.164e-3,
+    port 1.419e-3 and 1.726e-3, on logits up to 1.541 and 3.554; a layer
+    fed the oracle's input departs by 2e-6 to 1.8e-4 in both packages,
+    and 14 layers grow that to 1e-2 of hidden states up to 19.  So the
+    float32 logits of a correct implementation lie about 1e-3 of the
+    largest logit from the exact ones, and chip_smoke holds phase 20's
+    float32 logits (card against CPU) to ``LOGITS_F32_TOL`` (1e-3) times
+    the largest logit, not to 1e-3 per element."""
+    gaps = _oracle_script().gaps((256, 1024), local=False)
+    for d_model, g in gaps.items():
+        ref, port = g[("ref", "carried")], g[("port", "carried")]
+        print(f"d_model {d_model}: " + ", ".join(
+            f"{k} {ref[k]:.3e}/{port[k]:.3e}" for k in ref))
+        for k in ref:
+            assert port[k] <= ORACLE_FACTOR * ref[k], (d_model, k, ref[k],
+                                                       port[k])
+        scale = g[("scale", "")]["logits"]
+        for gap in (ref["logits"], port["logits"]):
+            assert gap <= ORACLE_LOGITS * max(1.0, scale), (d_model, gap,
+                                                            scale)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))

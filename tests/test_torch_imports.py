@@ -73,6 +73,9 @@ def test_port_imports_no_jax_and_no_reference():
     assert {"repro_torch.models.hybrid", "repro_torch.models.encdec",
             "repro_torch.configs.zamba2_7b",
             "repro_torch.configs.whisper_large_v3"} <= names
+    # the VLM slice
+    assert {"repro_torch.models.vlm",
+            "repro_torch.configs.paligemma_3b"} <= names
 
 
 def test_simulator_without_device_raises_when_cuda_is_absent(monkeypatch):

@@ -257,31 +257,41 @@ def test_config_equals_reference_field_by_field(which):
 
 
 def test_other_architectures_are_refused_not_unknown():
+    """Every one of the reference's ten architectures is ported (the VLM
+    paligemma-3b last), each config is the reference's by name, and only
+    an id outside the ten is refused."""
     from repro.configs.registry import ARCHS as REF_ARCHS
-    assert set(ARCHS) == set(REF_ARCHS) and set(PORTED) == {
+    from repro.configs.registry import get_config as ref_get_config
+    assert set(ARCHS) == set(REF_ARCHS) == set(PORTED) == {
         "mamba2-130m", "qwen2-1.5b", "stablelm-1.6b", "llama3-8b",
         "codeqwen1.5-7b", "granite-moe-3b-a800m", "qwen2-moe-a2.7b",
-        "zamba2-7b", "whisper-large-v3"}
-    assert set(ARCHS) - set(PORTED) == {"paligemma-3b"}
+        "zamba2-7b", "whisper-large-v3", "paligemma-3b"}
     for arch in ARCHS:
-        if arch in PORTED:
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_smoke_config(arch)
+        assert get_config(arch).name == ref_get_config(arch).name
+        assert get_smoke_config(arch).family.value == \
+            ref_get_config(arch).family.value
     with pytest.raises(KeyError):
         get_config("no-such-arch")
+    with pytest.raises(KeyError):
+        get_smoke_config("no-such-arch")
 
 
-@pytest.mark.parametrize("family", [f for f in Family if f not in (
-    Family.SSM, Family.DENSE, Family.MOE, Family.HYBRID, Family.ENCDEC)])
+@pytest.mark.parametrize("family", [Family.VLM])
 def test_registry_refuses_unported_families(family):
-    cfg = SMOKE.scaled(family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.init_params(cfg, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.make_decode_state(cfg, 1, 8, device="cpu")
+    """No family is refused any more: the VLM, the last one the registry
+    refused, builds and makes its decode state, and a family the
+    registry does not know raises."""
+    cfg = get_smoke_config("paligemma-3b")
+    assert cfg.family == family
+    model = registry.init_params(cfg, 0, "cpu")
+    state = registry.make_decode_state(cfg, 1, 8, device="cpu")
+    assert state.cache.k.shape == (cfg.n_layers, 1, 8, 1, cfg.hd)
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+    bad = SMOKE.scaled(family="no-such-family")
+    with pytest.raises(ValueError, match="unknown family"):
+        registry.init_params(bad, 0, "cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        registry.make_decode_state(bad, 1, 8, device="cpu")
 
 
 def test_init_is_seeded_and_device_independent():

@@ -228,10 +228,18 @@ def test_block_forward_matches_reference(dtype):
     assert y.dtype == tc.dtype and float(aux) == 0.0
     for got, want in ((y, y_ref), (k, k_ref), (v, v_ref)):
         _close(got, want, tol)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.block_forward(model.weights()["blocks"][0],
-                                  torch.from_numpy(x), tc,
-                                  torch.from_numpy(pos), prefix_len=3)
+    # the prefix-LM mask (the VLM family's): the first 3 positions see
+    # each other, as in the reference's block
+    y_ref, (k_ref, v_ref, _) = ref_tf.block_forward(
+        _layer(params, 0), jnp.asarray(x, jc.dtype), jc, jnp.asarray(pos),
+        prefix_len=3)
+    y3, (k, v, _) = transformer.block_forward(
+        model.weights()["blocks"][0], torch.from_numpy(x).to(tc.dtype), tc,
+        torch.from_numpy(pos), prefix_len=3)
+    for got, want in ((y3, y_ref), (k, k_ref), (v, v_ref)):
+        _close(got, want, tol)
+    assert not torch.equal(y3[:, :2], y[:, :2])
+    assert torch.equal(y3[:, 3:], y[:, 3:])
 
 
 #: (model, dtype): every dense arch in float32, qwen2-1.5b in bf16 at its
