@@ -48,7 +48,13 @@ Drives the port's main paths on the card at full width:
   (18 layers, d_model 2048, 8 heads over one KV head of 256, GeGLU d_ff
   16384, tied vocab 257,216; random weights from a seed), 8 requests of
   256 stub patch embeddings and a 512-token prompt each, 32 new tokens:
-  B2 at head dim 256 in its prefix-LM mode.
+  B2 at head dim 256 in its prefix-LM mode;
+* the training path: qwen2-1.5b at its published width and depth
+  (random weights from a seed) through ``repro_torch.launch.train.
+  train_loop``: 8 AdamW steps of 8 x 512 tokens of the synthetic stream,
+  bf16 compute over float32 masters, Algorithm 1 over the gradient
+  buckets; B2's and B4's backward kernels (``flash_attention_bwd``,
+  ``rmsnorm_bwd``) on every step.
 
 Phases:
 
@@ -175,7 +181,26 @@ Phases:
     profiled;
 22. card vs CPU prefill logits for paligemma-3b at full width and 4
     layers over ``CPU_BATCH`` x (256 patches + ``CPU_PROMPT`` tokens),
-    as phase 20 holds them.
+    as phase 20 holds them;
+23. the backward kernels on inputs captured from one qwen2-1.5b train
+    step (B2's q, k, v, o and dO at q ``[8,12,512,128]``, k, v
+    ``[8,2,512,128]``; B4's x, gamma and dy at ``[4096,1536]``), in bf16
+    and on the inputs cast to float32, and B2's on seeded causal,
+    non-causal and prefix cases in both dtypes, against their plain
+    versions (float32 within ``BWD_F32_RTOL`` of each gradient's
+    largest entry, bf16 by the spread rule); each timed by graph replay
+    beside its plain version and the library's autograd backward (SDPA,
+    ``F.rms_norm``; forward subtracted), with its bound;
+24. the training path: ``train_loop`` for 8 steps, loss, lr and grad
+    norm per step, the launches of B2, its backward, B4 and its backward
+    over the run asserted (28, 28, 57 and 57 a step), ``train_step_s``
+    (mean of steps 2-7), tokens/s, peak memory, Algorithm 1's bucket
+    decisions, one more step under ``torch.profiler``; the loss finite
+    and lower at step 7 than at step 0;
+25. card vs CPU, one float32 train step of qwen2-1.5b at full width and
+    2 layers from the same weights and batch (TF32 off): loss, gradient
+    norm, every gradient, and the updated parameters under the sign
+    rule of tests/test_torch_train.py.
 
 Prints the kernel summary as one JSON line, then the ``ok`` line last.
 Any failed check exits non-zero; so does a machine without CUDA, and a
@@ -232,13 +257,17 @@ from repro_torch.configs.stablelm_1_6b import CONFIG as STABLELM  # noqa: E402
 from repro_torch.configs.whisper_large_v3 import \
     CONFIG as WHISPER  # noqa: E402
 from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2  # noqa: E402
+from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels import libraries  # noqa: E402
 from repro_torch.kernels._build import build_all, find_nvcc  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_plain)
+    flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+    flash_attention_plain)
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.build import LIB as FLASH_LIB  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
-from repro_torch.kernels.rmsnorm import rmsnorm_fused, rmsnorm_plain  # noqa: E402
+from repro_torch.kernels.rmsnorm import (  # noqa: E402
+    rmsnorm_bwd, rmsnorm_bwd_plain, rmsnorm_fused, rmsnorm_plain)
 from repro_torch.kernels.segment_sum import (  # noqa: E402
     segment_sum_scatter, segment_sum_scatter_plain, segment_sum_sorted,
     segment_sum_sorted_plain)
@@ -2490,6 +2519,391 @@ def paligemma_kernel_checks(seen: dict) -> dict:
     return {"flash": entry, "rms": rms}
 
 
+# --------------------------------------------------------- phases 23-25
+FLASH_BWD_SOURCE = \
+    "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
+RMS_BWD_SOURCE = "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_bwd.cu"
+#: the training path: batch x sequence, steps, learning rate
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 512, 8, 1e-3
+#: steps whose mean host wall is train_step_s (the first two warm up)
+TRAIN_TIMED = slice(2, 8)
+#: qwen2-1.5b's parameters (tied embedding over the padded vocab)
+QWEN2_PARAMS = 1_543_714_304
+#: backward kernel vs plain version: a float32 gradient within this share
+#: of its largest entry (float32 sums of up to G Skv = 3072 products in
+#: other orders); a bf16 gradient's largest gap to the plain version run
+#: in float32 within BWD_SPREAD times the bf16 plain version's own
+#: (tests/test_torch_cuda.py's rules)
+BWD_F32_RTOL = 1e-4
+BWD_SPREAD = 2.0
+#: phase 25: card vs CPU, one float32 step at full width and 2 layers
+STEP_CPU_LAYERS, STEP_CPU_BATCH, STEP_CPU_SEQ = 2, 2, 64
+STEP_LOSS_RTOL, STEP_GNORM_RTOL, STEP_GRAD_TOL = 1e-5, 1e-4, 1e-4
+#: the sign rule (tests/test_torch_train.py): updated parameters compared
+#: where |g_cpu| exceeds SIGN_FLOOR of its tensor's largest, at PARAM_TOL
+SIGN_FLOOR, PARAM_TOL = 1e-3, 1e-6
+#: the optimizer of phase 25: a one-step warm-up, so the step moves each
+#: parameter by about lr
+STEP_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=8)
+
+
+def capture_train_inputs(cfg, cuda) -> dict:
+    """One bf16 train step of ``cfg`` on the card (its first forward and
+    backward, no update), recording the first call of each backward
+    wrapper: B2's q, k, v, o and dO, and B4's x, gamma and dy."""
+    from repro_torch.train.train_step import TrainConfig, value_and_grad
+
+    seen: dict = {}
+    real = {"flash": flash_ops.flash_attention_bwd,
+            "rms": rms_ops.rmsnorm_bwd}
+
+    def keep(key, fn):
+        def wrapped(*args, **kw):
+            seen.setdefault(key, (tuple(
+                a.detach() if isinstance(a, torch.Tensor) else a
+                for a in args), kw))
+            return fn(*args, **kw)
+        wrapped.launches = 0     # the wrapper counts under the module's name
+        return wrapped
+
+    flash_ops.flash_attention_bwd = keep("flash", real["flash"])
+    rms_ops.rmsnorm_bwd = keep("rms", real["rms"])
+    try:
+        model = model_registry.init_params(cfg, SEED, cuda)
+        batch = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ).batch(
+            seed=SEED, step=0, shard=0, n_shards=1, batch_size=TRAIN_BATCH)
+        batch = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+        value_and_grad(model, batch, cfg, TrainConfig())
+        torch.cuda.synchronize()
+    finally:
+        flash_ops.flash_attention_bwd = real["flash"]
+        rms_ops.rmsnorm_bwd = real["rms"]
+    del model
+    torch.cuda.empty_cache()
+    return seen
+
+
+def hold_grads(label: str, got, plain_fn, inputs) -> float:
+    """Each gradient of ``got`` against ``plain_fn(*inputs)`` under the
+    rules above; prints and returns the largest gap to the plain
+    version."""
+    want = plain_fn(*inputs)
+    ref = plain_fn(*(t.float() for t in inputs))
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, g, w, r in zip(("d0", "d1", "d2"), got, want, ref):
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{label}: {name} {g.dtype} {tuple(g.shape)}")
+        gap = max_err(g.float(), w.float())
+        if g.dtype == torch.float32:
+            limit = BWD_F32_RTOL * float(w.abs().max())
+            print(f"    {label} {name}: max_abs_err {gap:.3e} (limit "
+                  f"{limit:.3e}, float32)")
+            check(gap <= limit, f"{label} {name}: {gap} > {limit}")
+        else:
+            own = max_err(w.float(), r)
+            mine = max_err(g.float(), r)
+            print(f"    {label} {name}: max_abs_err {gap:.3e}; gap to the "
+                  f"float32 plain run {mine:.3e}, the bf16 plain run's "
+                  f"{own:.3e} (ratio {mine / max(own, 1e-30):.3f}, limit "
+                  f"{BWD_SPREAD})")
+            check(mine <= BWD_SPREAD * own, f"{label} {name}: spread "
+                  f"{mine} > {BWD_SPREAD} x {own}")
+        worst = max(worst, gap)
+    return worst
+
+
+def library_bwd_ms(fwd, leaves, iters: int = 10) -> float:
+    """A library call's backward alone: eager autograd of ``fwd`` over
+    ``leaves`` (forward and backward, between CUDA events) less the
+    forward's time."""
+    xs = [t.detach().requires_grad_() for t in leaves]
+    dout = torch.randn_like(fwd(*xs))
+
+    def both():
+        torch.autograd.grad(fwd(*xs), xs, dout)
+
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: fwd(*xs), iters)
+    return cuda_ms(both, iters) - fwd_ms
+
+
+def flash_bwd_row(args) -> dict:
+    """Phase 23, B2's backward at the train step's shape: held in bf16
+    and in float32 (the inputs cast), timed by graph replay beside the
+    plain backward and SDPA's autograd backward, with its bound."""
+    import torch.nn.functional as F
+
+    q, k, v, o, do = args
+    bsz, heads, seq, hd = q.shape
+    print(f"  flash_attention_bwd on the train step's inputs: q, o, dO "
+          f"{tuple(q.shape)}, k, v {tuple(k.shape)}")
+    err = hold_grads("bf16", flash_attention_bwd(q, k, v, o, do),
+                     lambda *t: flash_attention_bwd_plain(*t), args)
+    f32 = [t.float() for t in args]
+    err = max(err, hold_grads("float32", flash_attention_bwd(*f32),
+                              lambda *t: flash_attention_bwd_plain(*t), f32))
+    rng = torch.Generator(device=q.device).manual_seed(SEED)
+    for causal, prefix, qs, ks in ((True, 0, (2, 6, 130, 128),
+                                    (2, 2, 130, 128)),
+                                   (False, 0, (1, 3, 65, 64),
+                                    (1, 1, 130, 64)),
+                                   (True, 70, (1, 6, 150, 72),
+                                    (1, 1, 150, 72))):
+        for dt in (torch.bfloat16, torch.float32):
+            a, b, c = (torch.randn(s, device=q.device, generator=rng).to(dt)
+                       for s in (qs, ks, ks))
+            with torch.no_grad():
+                out = flash_attention(a, b, c, causal=causal,
+                                      prefix_len=prefix)
+            dout = torch.randn(qs, device=q.device, generator=rng).to(dt)
+            err = max(err, hold_grads(
+                f"{str(dt)[6:]} {qs}{'' if causal else ' non-causal'}"
+                f"{f' prefix {prefix}' if prefix else ''}",
+                flash_attention_bwd(a, b, c, out, dout, causal=causal,
+                                    prefix_len=prefix),
+                lambda *t, c_=causal, p_=prefix: flash_attention_bwd_plain(
+                    *t, causal=c_, prefix_len=p_), (a, b, c, out, dout)))
+    pairs = bsz * heads * seq * (seq + 1) // 2
+    flops = 5 * 2 * hd * pairs
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
+    times = {}
+    for label, ins in (("bf16", args), ("float32", f32)):
+        ms = graph_ms(lambda: flash_attention_bwd(*ins), 10)
+        plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(*ins), 5)
+        library_ms = library_bwd_ms(
+            lambda a, b, c: F.scaled_dot_product_attention(
+                a, b, c, is_causal=True, enable_gqa=True), ins[:3])
+        backend = sdpa_backend(*ins[:3], None, True)
+        peak = BF16_FLOP_PER_S if label == "bf16" else F32_FLOP_PER_S
+        bytes_ms = nbytes * ins[0].element_size() / q.element_size() \
+            / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / peak * 1e3
+        times[label] = {"ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "sdpa_backend": backend,
+                        "bound_ms": max(bytes_ms, ops_ms),
+                        "bound_by": "bytes" if bytes_ms >= ops_ms
+                        else "operations"}
+        print(f"  flash_attention_bwd {label}: {ms * 1e3:.2f} us/call "
+              f"(3 kernels, graph replay), plain {plain_ms * 1e3:.2f} us, "
+              f"SDPA ({backend}) autograd backward (forward subtracted) "
+              f"{library_ms * 1e3:.2f} us, bound "
+              f"{max(bytes_ms, ops_ms) * 1e3:.2f} us ({flops} flop at "
+              f"{peak:.3g} flop/s: {ops_ms * 1e3:.2f} us; bytes "
+              f"{bytes_ms * 1e3:.2f} us), {flops / (ms * 1e-3) / 1e12:.2f} "
+              f"TFLOP/s, {max(bytes_ms, ops_ms) / ms:.1%} of the bound")
+    return dict({"name": "flash_attention_bwd", "route": "cuda",
+                 "source": FLASH_BWD_SOURCE, "replaces": FLASH_TPU,
+                 "launches": 0, "max_abs_err": err,
+                 "shape": [list(q.shape), list(k.shape)],
+                 "float32": times["float32"]}, **times["bf16"])
+
+
+def rms_bwd_row(args) -> dict:
+    """Phase 23, B4's backward at the train step's shape: held in bf16
+    and float32, timed by graph replay over a ring of copies of x beside
+    the plain backward and ``F.rms_norm``'s autograd backward, with its
+    bound."""
+    import torch.nn.functional as F
+
+    x, gamma, dy = args[:3]
+    eps = args[3] if len(args) > 3 else QWEN2.norm_eps
+    x2, dy2 = x.reshape(-1, x.shape[-1]), dy.reshape(-1, x.shape[-1])
+    d = x2.shape[-1]
+    print(f"  rmsnorm_bwd on the train step's inputs: x, dy "
+          f"{tuple(x2.shape)} {str(x.dtype)[6:]}, gamma {str(gamma.dtype)[6:]}")
+    ins = (x2, gamma, dy2)
+    err = hold_grads("bf16", rmsnorm_bwd(*ins, eps),
+                     lambda *t: rmsnorm_bwd_plain(*t, eps), ins)
+    f32 = [t.float() for t in ins]
+    err = max(err, hold_grads("float32", rmsnorm_bwd(*f32, eps),
+                              lambda *t: rmsnorm_bwd_plain(*t, eps), f32))
+    nbytes = 3 * x2.numel() * x2.element_size() + 2 * d * gamma.element_size()
+    flops = 8 * x2.numel()
+    ms = graph_ms_ring(lambda xi: rmsnorm_bwd(xi, gamma, dy2, eps), x2, 50)
+    warm_ms = graph_ms(lambda: rmsnorm_bwd(x2, gamma, dy2, eps), 50)
+    plain_ms = cuda_ms(lambda: rmsnorm_bwd_plain(x2, gamma, dy2, eps), 20)
+    library_ms = library_bwd_ms(
+        lambda a, g: F.rms_norm(a, (d,), g, eps), (x2, gamma), 20)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOP_PER_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    print(f"  rmsnorm_bwd {tuple(x2.shape)}: {ms * 1e3:.2f} us/call (2 "
+          f"kernels, graph replay over a ring of x; one x "
+          f"{warm_ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us, "
+          f"F.rms_norm autograd backward (forward subtracted) "
+          f"{library_ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us ({nbytes} "
+          f"bytes), {bound / ms:.1%} of it")
+    return {"name": "rmsnorm_bwd", "route": "cuda", "source": RMS_BWD_SOURCE,
+            "replaces": RMS_TPU, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, "shape": list(x2.shape),
+            "warm_ms": warm_ms}
+
+
+def backward_kernel_checks(cuda) -> list:
+    """Phase 23: both backward kernels on inputs captured from a
+    qwen2-1.5b train step, against their plain versions, timed."""
+    t0 = time.perf_counter()
+    print(f"phase 23: the backward kernels on a {QWEN2.name} train step's "
+          f"inputs ({TRAIN_BATCH} x {TRAIN_SEQ} tokens, bf16)")
+    seen = capture_train_inputs(QWEN2, cuda)
+    (fa, fkw), (ra, rkw) = seen["flash"], seen["rms"]
+    check(not fkw.get("prefix_len") and fkw.get("causal", True),
+          f"the train step's B2 backward ran with {fkw}")
+    rows = [flash_bwd_row(fa), rms_bwd_row(ra + tuple(rkw.values()))]
+    del seen, fa, ra
+    torch.cuda.empty_cache()
+    print(f"phase 23: {time.perf_counter() - t0:.1f} s wall")
+    return rows
+
+
+TRAINED = (flash_attention, flash_attention_bwd, rmsnorm_fused, rmsnorm_bwd)
+
+
+def train_path(cuda) -> dict:
+    """Phase 24: ``repro_torch.launch.train.train_loop`` on qwen2-1.5b at
+    full width, bf16 compute, with Algorithm 1 over the gradient
+    buckets; the launches of every kernel per step asserted; one more
+    step profiled."""
+    from repro_torch.launch.train import make_batch_np, train_loop
+    from repro_torch.train.train_step import TrainConfig, train_step
+
+    cfg = QWEN2
+    print(f"phase 24: train {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} of "
+          f"{cfg.hd}, vocab {cfg.vocab}), bf16 compute, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens, {TRAIN_STEPS} AdamW steps, lr {TRAIN_LR}, "
+          f"comm_policy app_aware")
+    for k in TRAINED:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    history: list = []
+    t0 = time.perf_counter()
+    model, opt, losses = train_loop(
+        cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=SEED,
+        ckpt_dir=None, ckpt_every=0, lr=TRAIN_LR, log_every=1,
+        comm_policy="app_aware", device=cuda, history=history)
+    wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in TRAINED}
+    per_step = (cfg.n_layers, cfg.n_layers, 2 * cfg.n_layers + 1,
+                2 * cfg.n_layers + 1)
+    want = {k.__name__: TRAIN_STEPS * n for k, n in zip(TRAINED, per_step)}
+    print(f"  launches over {TRAIN_STEPS} steps {counts} (want {want}: "
+          f"per step B2 {per_step[0]} forward and {per_step[1]} backward "
+          f"calls of 3 kernels, B4 {per_step[2]} and {per_step[3]})")
+    check(counts == want, f"training launches {counts}, want {want}")
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == QWEN2_PARAMS, f"{n_params} parameters")
+    check(all(np.isfinite(losses)) and len(losses) == TRAIN_STEPS,
+          f"losses {losses}")
+    check(losses[7] < losses[0], f"loss at step 7 {losses[7]} is not below "
+          f"step 0's {losses[0]}")
+    for h in history:
+        print(f"  step {h['step']}: loss {h['loss']:.6f} lr {h['lr']:.6e} "
+              f"grad_norm {h['grad_norm']:.6f} step_s {h['step_s']:.6f} "
+              f"modes {dict((m, h['modes'].count(m)) for m in set(h['modes']))}")
+    step_s = float(np.mean([h["step_s"] for h in history[TRAIN_TIMED]]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = 6 * n_params * tokens / step_s / BF16_FLOP_PER_S
+    print(f"  train_step_s {step_s:.6f} (mean of steps 2-7, host wall, "
+          f"synchronised), tokens_per_s {tokens / step_s:.1f}, peak memory "
+          f"{peak / 1e9:.3f} GB, {n_params} parameters, loop {wall:.1f} s "
+          f"wall; for information only 6 N tokens / train_step_s / 989e12 "
+          f"= {mfu:.4f}")
+    buckets = history[0]["modes"]
+    print(f"  Algorithm 1: {len(buckets)} gradient buckets a step, "
+          f"decisions per step {[h['modes'] for h in history[:1]]} ... "
+          f"{sum(m == 'HIERARCHICAL' for h in history for m in h['modes'])}"
+          f" HIERARCHICAL of {sum(len(h['modes']) for h in history)}")
+    b = make_batch_np(cfg, SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ),
+                      step=TRAIN_STEPS, batch=TRAIN_BATCH, seed=SEED)
+    b = {k: torch.from_numpy(v).to(cuda) for k, v in b.items()}
+    device_profile(lambda: train_step(model, opt, b, cfg=cfg,
+                                      tcfg=TrainConfig()), "train step")
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"launches": counts, "train_step_s": step_s,
+            "tokens_per_s": tokens / step_s, "peak_memory_gb": peak / 1e9,
+            "losses": losses, "mfu_info": mfu, "loop_wall_s": wall,
+            "idle": PROFILES.get("train step"),
+            "grad_norm": [h["grad_norm"] for h in history],
+            "lr": [h["lr"] for h in history],
+            "buckets": len(buckets),
+            "hierarchical_share": float(np.mean(
+                [m == "HIERARCHICAL" for h in history for m in h["modes"]]))}
+
+
+def train_cpu_compare(cuda) -> dict:
+    """Phase 25: one float32 step of qwen2-1.5b at full width and
+    STEP_CPU_LAYERS layers on the card and on the CPU, from the same
+    weights and batch: loss, gradient norm, every gradient, and the
+    updated parameters under the sign rule."""
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init, \
+        adamw_update
+    from repro_torch.train.train_step import TrainConfig, value_and_grad
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = QWEN2.scaled(n_layers=STEP_CPU_LAYERS, dtype=torch.float32)
+    print(f"phase 25: card vs CPU, one float32 train step of {cfg.name} at "
+          f"{cfg.n_layers} layers, {STEP_CPU_BATCH} x {STEP_CPU_SEQ} tokens "
+          f"(TF32 off for matmul and cuDNN)")
+    t0 = time.perf_counter()
+    host = model_registry.init_params(cfg, SEED, "cpu")
+    batch = SyntheticLM(vocab=cfg.vocab, seq_len=STEP_CPU_SEQ).batch(
+        seed=SEED, step=0, shard=0, n_shards=1, batch_size=STEP_CPU_BATCH)
+    tcfg = TrainConfig(optimizer=AdamWConfig(**STEP_OPT))
+    out = {}
+    for label, dev in (("card", cuda), ("cpu", torch.device("cpu"))):
+        model = host           # the CPU run updates the host's model last
+        if label == "card":
+            model = model_tf.DenseLM(cfg, device=dev)
+            model.load_state_dict(host.state_dict())
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        t1 = time.perf_counter()
+        loss, _, grads = value_and_grad(model, b, cfg, tcfg)
+        g_host = {k: g.detach().cpu().clone() for k, g in grads.items()}
+        params = dict(model.named_parameters())
+        _, _, m = adamw_update(tcfg.optimizer, params, grads,
+                               adamw_init(params))
+        out[label] = (float(loss), float(m["grad_norm"]), g_host,
+                      {k: p.detach().cpu().clone() for k, p in params.items()})
+        print(f"  {label}: loss {float(loss):.7f}, grad_norm "
+              f"{float(m['grad_norm']):.7f}, step {time.perf_counter() - t1:.2f}"
+              f" s")
+        del model, grads, params
+    (lc, nc, gc, pc), (lh, nh, gh, ph) = out["card"], out["cpu"]
+    loss_rel = abs(lc - lh) / abs(lh)
+    gnorm_rel = abs(nc - nh) / abs(nh)
+    grad_gap = max(float((gc[k] - g).abs().max() / g.abs().max())
+                   for k, g in gh.items())
+    compared = total = 0
+    param_gap = 0.0
+    for k, g in gh.items():
+        keep = g.abs() > SIGN_FLOOR * g.abs().max()
+        param_gap = max(param_gap, float((pc[k] - ph[k])[keep].abs().max()))
+        compared += int(keep.sum())
+        total += keep.numel()
+    print(f"  loss rel diff {loss_rel:.3e} (limit {STEP_LOSS_RTOL}), "
+          f"grad_norm rel diff {gnorm_rel:.3e} (limit {STEP_GNORM_RTOL}), "
+          f"largest gradient gap {grad_gap:.3e} of its tensor's largest "
+          f"entry (limit {STEP_GRAD_TOL}), updated parameters: largest gap "
+          f"{param_gap:.3e} (limit {PARAM_TOL}) over the "
+          f"{compared / total:.1%} of entries whose |g| exceeds "
+          f"{SIGN_FLOOR} of their tensor's largest; "
+          f"{time.perf_counter() - t0:.1f} s wall")
+    check(loss_rel <= STEP_LOSS_RTOL, f"loss {lc} vs {lh}")
+    check(gnorm_rel <= STEP_GNORM_RTOL, f"grad_norm {nc} vs {nh}")
+    check(grad_gap <= STEP_GRAD_TOL, f"gradient gap {grad_gap}")
+    check(param_gap <= PARAM_TOL, f"updated parameter gap {param_gap}")
+    return {"loss_rel": loss_rel, "grad_norm_rel": gnorm_rel,
+            "grad_gap": grad_gap, "param_gap": param_gap,
+            "compared_share": compared / total}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path needs one",
@@ -2857,20 +3271,40 @@ def main() -> int:
     print("  vlm " + json.dumps({PALIGEMMA.name: vlm_cpu}))
     print(f"phase 22: {time.perf_counter() - t0:.1f} s wall")
 
-    # each kernel's launches on the serving paths that run it
+    # phase 23: the backward kernels on a qwen2-1.5b train step's inputs
+    kernels += backward_kernel_checks(cuda)
+
+    # phase 24: the training path; launch counts from here on are its own
+    t0 = time.perf_counter()
+    train = train_path(cuda)
+    print(f"phase 24: {time.perf_counter() - t0:.1f} s wall")
+
+    # phase 25: card vs CPU, one float32 train step at 2 layers
+    train["card_vs_cpu"] = train_cpu_compare(cuda)
+
+    # each kernel's launches on the serving and training paths that run
+    # it; the backward kernels on the training path
+    paths = {f"serve {name}": st["launches"]
+             for name, st in serve_stats.items()}
+    paths[f"train {QWEN2.name}"] = train["launches"]
     for row in kernels:
         if row["name"].startswith("segment_sum"):
             continue
-        by_path = {name: st["launches"][row["name"]]
-                   for name, st in serve_stats.items()
-                   if row["name"] in st["launches"]}
+        by_path = {name: counts[row["name"]]
+                   for name, counts in paths.items() if row["name"] in counts}
         check(all(n > 0 for n in by_path.values()) and by_path,
-              f"{row['name']} never ran on a serving path: {by_path}")
+              f"{row['name']} never ran on a serving or training path: "
+              f"{by_path}")
+        if row["name"].endswith("_bwd"):
+            check(by_path.get(f"train {QWEN2.name}", 0) > 0,
+                  f"{row['name']} never ran on the training path")
         row["launches"], row["launches_by_path"] = sum(by_path.values()), \
             by_path
     for name, st in serve_stats.items():
         print(f"  serve {name} " + json.dumps(
             {k: v for k, v in st.items() if k != "launches"}))
+    print(f"  train {QWEN2.name} " + json.dumps(
+        {k: v for k, v in train.items() if k != "launches"}))
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -3,10 +3,14 @@
 Every kernel wrapper asks :func:`launches_kernel` once its inputs are
 checked.  Tensors on the CPU (which only the tests pass) get the plain
 PyTorch version, which is differentiable.  CUDA tensors get the kernel,
-which writes into a fresh tensor through ``ctypes`` and so has no
-backward: where grad mode is on and an input requires a gradient, the
-wrapper raises instead of returning a result without one.  Any other
-device raises.
+which writes into a fresh tensor through ``ctypes``.  B2 (flash
+attention) and B4 (RMSNorm) call it inside their ``torch.autograd.
+Function``, whose backward is a kernel too, so grad mode is off there and
+nothing is refused.  B1 (segment sum) and B3 (the SSD scan) have no
+backward (the simulator never asks for one; B3's waits for ROADMAP A.5):
+where grad mode is on and an input requires a gradient, their wrappers
+raise instead of returning a result without one.  Any other device
+raises.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ def launches_kernel(name: str, first: torch.Tensor, *others) -> bool:
     """``False`` for ``first`` on the CPU (run the plain version),
     ``True`` for a CUDA tensor (launch the kernel).  Raises for another
     device, and for a CUDA call that would need a gradient through any of
-    ``first`` and ``others`` (``None`` entries are skipped)."""
+    ``first`` and ``others`` (``None`` entries are skipped), which only a
+    kernel without a backward can meet."""
     kind = device_type(first)
     if kind == "cpu":
         return False

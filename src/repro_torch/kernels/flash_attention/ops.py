@@ -1,4 +1,5 @@
-"""Flash attention: the CUDA wrapper and its plain PyTorch version.
+"""Flash attention: the CUDA wrappers of the forward and the backward,
+their plain PyTorch versions, and the autograd Function that joins them.
 
 Counterpart of ``repro/kernels/flash_attention``: causal or non-causal
 grouped-query attention, q ``[B,H,Sq,hd]``, k and v ``[B,Hkv,Skv,hd]``
@@ -26,14 +27,20 @@ plain causal mask, bit for bit.  Where the dtypes differ:
 Unlike the TPU kernel, any ``Sq`` and ``Skv >= 1`` are taken, and any
 head dim up to :data:`MAX_HEAD_DIM`.
 
-:func:`flash_attention` runs the plain version only for tensors on the
-CPU (which only the tests pass).  For CUDA tensors it launches a kernel
-of ``csrc/flash_attention.cu`` on the current stream or raises; any
-other device raises, and so does a CUDA call that would need a gradient
-(the kernels have no backward yet: :mod:`repro_torch.kernels._route`).
-The dtype picks the kernel: float32 goes to the
-SIMT kernel, bfloat16 to the tensor-core (``wgmma``) one.  It counts
-its launches in ``flash_attention.launches``.
+:func:`flash_attention` returns through :class:`FlashAttentionFunction`,
+whose forward runs a kernel of ``csrc/flash_attention.cu`` and whose
+backward runs :func:`flash_attention_bwd`, the three kernels of
+``csrc/flash_attention_bwd.cu`` (LSE and ``rowsum(dO * O)``, then dK and
+dV, then dQ; SIMT, float32 accumulation, head dims up to
+:data:`MAX_BWD_HEAD_DIM`).  Each wrapper runs its plain version only for
+tensors on the CPU (which only the tests pass); for CUDA tensors it
+launches its kernels on the current stream or raises, and any other
+device raises.  No path on a CUDA tensor reaches a plain version.  The
+forward's dtype picks its kernel: float32 goes to the SIMT kernel,
+bfloat16 to the tensor-core (``wgmma``) one.  The wrappers count their
+calls that launch in ``flash_attention.launches`` and
+``flash_attention_bwd.launches`` (one count for the backward's three
+kernels).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import _route
 from repro_torch.kernels._route import launches_kernel
 from repro_torch.kernels.flash_attention.build import LIB
 
@@ -50,6 +58,9 @@ DTYPES = (torch.float32, torch.bfloat16)
 #: 32, 64, 128 and 256, bf16 builds of 64, 128 and 256; a smaller head
 #: dim runs in the next larger build)
 MAX_HEAD_DIM = 256
+#: the largest head dim the backward kernels are built for (builds of 64
+#: and 128); above it a gradient on the card waits for ROADMAP A.5
+MAX_BWD_HEAD_DIM = 128
 #: the TPU kernel's mask value
 NEG_INF = -1e30
 
@@ -77,12 +88,87 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p, vf).to(q.dtype)
 
 
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              do: torch.Tensor, *, causal: bool = True,
+                              prefix_len: int = 0) -> tuple:
+    """``(dq, dk, dv)`` of :func:`flash_attention_plain` by the explicit
+    formula, in float32: ``D = rowsum(dO * O)``, ``P = exp(S - LSE)``
+    with ``S = q.k^T / sqrt(hd)`` under the forward's mask, ``dV = P^T
+    dO`` (bfloat16: P rounded to bf16 first, as the forward rounds it
+    before ``P.V``), ``dP = dO V^T``, ``dS = P * (dP - D)``, ``dQ = dS K
+    / sqrt(hd)``, ``dK = dS^T Q / sqrt(hd)``; dK and dV summed over the
+    q heads of each kv head, each gradient cast once to its input's
+    dtype."""
+    bsz, heads, sq, hd = q.shape
+    kv_heads, skv = k.shape[1], k.shape[2]
+    group = heads // kv_heads
+    root = math.sqrt(hd)
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) / root
+    if causal:
+        limit = torch.arange(sq, device=q.device).clamp(min=prefix_len - 1)
+        mask = torch.arange(skv, device=q.device)[None, :] <= limit[:, None]
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    pv = p.to(torch.bfloat16).float() if q.dtype == torch.bfloat16 else p
+    dv = torch.matmul(pv.transpose(-1, -2), dof)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
+    dq = torch.matmul(ds, kf) / root
+    dk = torch.matmul(ds.transpose(-1, -2), qf) / root
+
+    def per_kv_head(g):
+        return g.view(bsz, kv_heads, group, skv, hd).sum(2)
+
+    return (dq.to(q.dtype), per_kv_head(dk).to(k.dtype),
+            per_kv_head(dv).to(v.dtype))
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """B2 with its gradient: the forward kernel forward and the backward
+    kernels backward on the card, the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, prefix_len):
+        o = _forward(q, k, v, causal, prefix_len)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.prefix_len = causal, prefix_len
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
+                                         causal=ctx.causal,
+                                         prefix_len=ctx.prefix_len)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, prefix_len: int = 0) -> torch.Tensor:
     """q ``[B,H,Sq,hd]``; k, v ``[B,Hkv,Skv,hd]``, contiguous, one dtype
     and device.  ``prefix_len`` (``0 <= prefix_len <= Skv``, only with
     ``causal``): the prefix-LM boundary.  Returns a new ``[B,H,Sq,hd]``
-    tensor in q's dtype."""
+    tensor in q's dtype, differentiable in q, k and v (on the card up
+    to head dim :data:`MAX_BWD_HEAD_DIM`)."""
+    prefix_len = _check(q, k, v, causal, prefix_len)
+    if (_route.device_type(q) == "cuda" and q.shape[3] > MAX_BWD_HEAD_DIM
+            and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        raise ValueError(_NO_BWD.format(q.shape[3]))
+    return FlashAttentionFunction.apply(q, k, v, causal, prefix_len)
+
+
+_NO_BWD = ("flash_attention: head dim {}; the backward kernels are built up "
+           "to " + str(MAX_BWD_HEAD_DIM) + ", and a larger head dim waits "
+           "for ROADMAP A.5")
+
+
+def _check(q, k, v, causal: bool, prefix_len: int) -> int:
+    """Checks the forward's inputs; returns ``prefix_len`` as an int."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: want q [B,H,Sq,hd] and k, v "
                          f"[B,Hkv,Skv,hd], got q {tuple(q.shape)}, k "
@@ -115,6 +201,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: q on {q.device}, k on "
                          f"{k.device}, v on {v.device}")
+    return prefix_len
+
+
+def _forward(q, k, v, causal: bool, prefix_len: int) -> torch.Tensor:
+    """The forward kernel on the card, the plain version on the CPU."""
+    bsz, heads, sq, hd = q.shape
+    kv_heads, skv = k.shape[1], k.shape[2]
     if not launches_kernel("flash_attention", q, k, v):
         return flash_attention_plain(q, k, v, causal=causal,
                                      prefix_len=prefix_len)
@@ -138,3 +231,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, prefix_len: int = 0) -> tuple:
+    """``(dq, dk, dv)`` of :func:`flash_attention` at q, k, v for the
+    output ``o`` and its gradient ``do`` (both q's shape and dtype,
+    contiguous): the kernels of ``csrc/flash_attention_bwd.cu`` on the
+    card (head dim up to :data:`MAX_BWD_HEAD_DIM`, else ``ValueError``),
+    the plain version on the CPU."""
+    prefix_len = _check(q, k, v, causal, prefix_len)
+    for name, t in (("o", o), ("do", do)):
+        if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"flash_attention_bwd: {name} "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device} "
+                             f"does not match q {tuple(q.shape)} {q.dtype} "
+                             f"on {q.device}, or is not contiguous")
+    if not launches_kernel("flash_attention_bwd", q, k, v, o, do):
+        return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                         prefix_len=prefix_len)
+    bsz, heads, sq, hd = q.shape
+    kv_heads, skv = k.shape[1], k.shape[2]
+    if hd > MAX_BWD_HEAD_DIM:
+        raise ValueError(_NO_BWD.format(hd))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    lse = torch.empty((bsz, heads, sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    err = LIB.load().flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), bsz, heads, kv_heads, sq, skv, hd,
+        int(causal), prefix_len, int(q.dtype == torch.bfloat16),
+        1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd: CUDA error {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -1,3 +1,6 @@
-from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused, rmsnorm_plain
+from repro_torch.kernels.rmsnorm.ops import (RMSNormFunction, rmsnorm_bwd,
+                                             rmsnorm_bwd_plain, rmsnorm_fused,
+                                             rmsnorm_plain)
 
-__all__ = ["rmsnorm_fused", "rmsnorm_plain"]
+__all__ = ["RMSNormFunction", "rmsnorm_bwd", "rmsnorm_bwd_plain",
+           "rmsnorm_fused", "rmsnorm_plain"]

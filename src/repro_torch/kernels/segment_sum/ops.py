@@ -13,7 +13,8 @@ A wrapper runs the plain version only for tensors on the CPU (which only
 the tests pass).  For CUDA tensors it launches the kernel of
 ``csrc/segment_sum.cu`` on the current stream or raises; any other
 device raises, and so does a CUDA call that would need a gradient (the
-kernels have no backward yet: :mod:`repro_torch.kernels._route`).  Each
+kernels have no backward, and the simulator never asks for one:
+:mod:`repro_torch.kernels._route`).  Each
 wrapper counts its launches in ``.launches``.
 """
 

@@ -32,7 +32,8 @@ passes).
 Mixed dtypes raise.  :func:`ssd_inner` runs the plain version of its
 route only for tensors on the CPU (which only the tests pass), launches
 a kernel of ``csrc/ssd_scan.cu`` for CUDA tensors or raises (also
-where an input needs a gradient: the kernels have no backward yet,
+where an input needs a gradient: the kernels have no backward, which
+waits for mamba2-130m's training, ROADMAP A.5;
 :mod:`repro_torch.kernels._route`), and counts
 its launches in ``ssd_inner.launches`` (those of the tensor-core kernel
 also in ``ssd_inner.bf16_launches``).  :func:`ssd_scan_op` adds the

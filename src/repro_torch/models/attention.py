@@ -12,9 +12,12 @@ attends with kv head ``j``.  The flash kernel (B2) groups them as
 ``[Hkv, G]``: q head ``h`` reads kv head ``h // G``.  :func:`flash_attend`
 reorders the q heads into the kernel's order on the way in and back on
 the way out, inside the transposes to and from the kernel's ``[B, H, S,
-hd]`` layout.  :func:`gqa_attend` is the reference's plain attention
-with positions and a valid length; decode uses it, and the tests hold
-the flash path against it.
+hd]`` layout.  Those are differentiable copies, so in training B2's
+gradient (its backward kernel, through the kernel's autograd Function)
+flows back through them into the reference's head order.
+:func:`gqa_attend` is the reference's plain attention with positions
+and a valid length; decode uses it, and the tests hold the flash path
+against it.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ Counterpart of ``repro/models/common.py``.  One :class:`ModelConfig`
 covers every architecture family, with the reference's fields; ``dtype``
 (activations) and ``param_dtype`` (master weights) are torch dtypes.
 The reference's mesh and sharding helpers and its remat wrapper are
-left out: serving on one card uses neither.
+left out: serving and training on one card use neither (the port keeps
+every activation of a train step; remat changes no number).
 """
 
 from __future__ import annotations
@@ -112,7 +113,11 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
 
 class CastCache(nn.Module):
     """A module whose compute copies of its parameters are made once,
-    and dropped when the module moves (``.to``) or is reloaded."""
+    and dropped when the module moves (``.to``) or is reloaded, or by an
+    optimizer step (``repro_torch.train.train_step.train_step`` sets
+    ``_cw`` to ``None``: an in-place update does not pass ``_apply``).
+    :meth:`weights` serves the cache, made under ``no_grad``; training
+    calls :meth:`_cast` itself, so its copies carry the gradient."""
 
     def __init__(self):
         super().__init__()

@@ -4,6 +4,7 @@ Counterpart of ``repro/models/registry.py``::
 
     init_params(cfg, seed, device)                 -> model (nn.Module)
     train_forward(model, batch, cfg)               -> (logits, aux_loss)
+    trainable(cfg)                                 -> None, or ValueError
     make_decode_state(cfg, batch, max_len, device) -> state
     prefill(model, batch, cfg, state)              -> (logits, state)
     decode_step(model, token, cfg, state)          -> (logits, state)
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention.ops import MAX_BWD_HEAD_DIM
 from repro_torch.models import encdec as _encdec
 from repro_torch.models import hybrid as _hybrid
 from repro_torch.models import ssm_lm as _ssm
@@ -65,10 +67,41 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     return _ssm.SSMLM(cfg).init_(gen).to(dev)
 
 
+def trainable(cfg: ModelConfig) -> None:
+    """Raises ``ValueError`` unless every kernel of ``cfg``'s forward has
+    a backward kernel: the dense family up to head dim
+    ``MAX_BWD_HEAD_DIM`` (B2's backward builds; B4's backward takes
+    every width).  The SSM and hybrid families wait for B3's backward,
+    the VLM's head dim 256 for B2's there, and the MoE and enc-dec
+    families for their training on the card (ROADMAP A.5)."""
+    if cfg.family != Family.DENSE:
+        missing = {Family.SSM: "B3's backward (the SSD scan)",
+                   Family.HYBRID: "B3's backward (the SSD scan)",
+                   Family.VLM: f"B2's backward at head dim {cfg.hd}"}.get(
+            cfg.family, f"the {cfg.family.value} family's training path")
+        raise ValueError(f"{cfg.name}: the port trains the dense family "
+                         f"only; the {cfg.family.value} family waits for "
+                         f"{missing} (ROADMAP A.5)")
+    if cfg.hd > MAX_BWD_HEAD_DIM:
+        raise ValueError(f"{cfg.name}: head dim {cfg.hd}; B2's backward is "
+                         f"built up to {MAX_BWD_HEAD_DIM}, a larger head "
+                         f"dim waits for ROADMAP A.5")
+
+
 def train_forward(model, batch: dict, cfg: ModelConfig):
-    """-> (logits [B,S,Vp] over the *token* part, aux_loss); forward
-    only in this port."""
+    """-> (logits [B,S,Vp] over the *token* part, aux_loss), under the
+    caller's grad mode.  The dense family is differentiable: its compute
+    dict is cast anew from the masters with gradients on every call.  A
+    model of another family (or a larger head dim, :func:`trainable`)
+    whose parameters require a gradient raises ``ValueError``; with
+    frozen parameters every family runs its forward, without
+    gradients."""
     mod, tokens = _module(cfg), batch["tokens"]
+    if torch.is_grad_enabled() and any(p.requires_grad
+                                       for p in model.parameters()):
+        trainable(cfg)
+    if mod is _tf and cfg.family == Family.DENSE:
+        return _tf.lm_train_apply(model, tokens, cfg)
     if mod is _tf:
         return _tf.lm_apply(model, tokens, cfg)
     if mod is _vlm:

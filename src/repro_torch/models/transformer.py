@@ -8,7 +8,10 @@ run in a Python loop, with float32 masters under the reference's names
 ``cfg.dtype`` once, with the three attention input projections and the
 two gated MLP inputs joined side by side, and keeps the copies until
 the module moves or is reloaded (:class:`~repro_torch.models.common.
-CastCache`).
+CastCache`) or an optimizer step drops them.  Training
+(:func:`lm_train_apply`) casts anew on every call, with gradients, so
+the gradient flows through the casts and the joins to the float32
+masters; serving keeps the cache and runs without gradients.
 
 The prefill (and the teacher-forced forward) runs its attention through
 the flash kernel B2 (:func:`~repro_torch.models.attention.flash_attend`):
@@ -236,19 +239,19 @@ def block_decode(w: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 # ----------------------------------------------------------------------- LM
-def _embed(model: DenseLM, tokens: torch.Tensor,
+def _embed(w: dict, tokens: torch.Tensor,
            extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The token embeddings, after ``extra_embeds`` ``[B,P,D]`` (the
-    VLM's patches) cast to ``cfg.dtype`` where given."""
-    x = model.weights()["embed"][tokens.long()]
+    """The token embeddings from the compute dict ``w``, after
+    ``extra_embeds`` ``[B,P,D]`` (the VLM's patches) cast to
+    ``cfg.dtype`` where given."""
+    x = w["embed"][tokens.long()]
     if extra_embeds is None:
         return x
     return torch.cat([extra_embeds.to(x.dtype), x], dim=1)
 
 
-def _logits(model: DenseLM, x: torch.Tensor) -> torch.Tensor:
-    w = model.weights()
-    return rmsnorm(x, w["ln_f"], model.cfg.norm_eps) @ w["head"]
+def _logits(w: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return rmsnorm(x, w["ln_f"], cfg.norm_eps) @ w["head"]
 
 
 def _positions(x: torch.Tensor) -> torch.Tensor:
@@ -258,22 +261,41 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
                         device=x.device)[None, :].expand(bsz, seq)
 
 
+def _forward(w: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+             extra_embeds: Optional[torch.Tensor] = None,
+             prefix_len: int = 0, mesh=None):
+    """The whole-sequence forward over the compute dict ``w``, under the
+    caller's grad mode."""
+    x = _embed(w, tokens, extra_embeds)
+    positions = _positions(x)
+    aux = torch.zeros((), device=x.device)
+    for wb in w["blocks"]:
+        x, (_, _, a) = block_forward(wb, x, cfg, positions,
+                                     prefix_len=prefix_len, mesh=mesh)
+        aux = aux + a
+    return _logits(w, x, cfg), aux
+
+
 @torch.no_grad()
 def lm_apply(model: DenseLM, tokens: torch.Tensor, cfg: ModelConfig, *,
              extra_embeds: Optional[torch.Tensor] = None,
              prefix_len: int = 0, mesh=None):
     """tokens ``[B,S]`` -> (logits ``[B,P+S,Vp]`` in ``cfg.dtype``, aux
-    loss).  ``extra_embeds``: an optional ``[B,P,D]`` prefix put before
-    the token embeddings; ``prefix_len``: B2's prefix-LM boundary.
-    ``mesh``: as :func:`block_forward`'s."""
-    x = _embed(model, tokens, extra_embeds)
-    positions = _positions(x)
-    aux = torch.zeros((), device=x.device)
-    for w in model.weights()["blocks"]:
-        x, (_, _, a) = block_forward(w, x, cfg, positions,
-                                     prefix_len=prefix_len, mesh=mesh)
-        aux = aux + a
-    return _logits(model, x), aux
+    loss), without gradients, over the cached compute copies.
+    ``extra_embeds``: an optional ``[B,P,D]`` prefix put before the token
+    embeddings; ``prefix_len``: B2's prefix-LM boundary.  ``mesh``: as
+    :func:`block_forward`'s."""
+    return _forward(model.weights(), tokens, cfg, extra_embeds=extra_embeds,
+                    prefix_len=prefix_len, mesh=mesh)
+
+
+def lm_train_apply(model: DenseLM, tokens: torch.Tensor, cfg: ModelConfig):
+    """tokens ``[B,S]`` -> (logits ``[B,S,Vp]``, aux loss) under the
+    caller's grad mode: the ``cfg.dtype`` compute dict is cast anew from
+    the float32 masters on every call (``_cast``, not the serving cache),
+    so the gradient reaches the masters and an optimizer step is seen by
+    the next call."""
+    return _forward(model._cast(), tokens, cfg)
 
 
 class LMDecodeState(NamedTuple):
@@ -295,15 +317,16 @@ def lm_prefill(model: DenseLM, tokens: torch.Tensor, cfg: ModelConfig,
     """Fill the cache with the prompt (after ``extra_embeds``, as
     :func:`lm_apply`) from slot 0; returns (last-token logits
     ``[B,1,Vp]``, state)."""
-    x = _embed(model, tokens, extra_embeds)
+    w = model.weights()
+    x = _embed(w, tokens, extra_embeds)
     bsz, seq = x.shape[:2]
     positions = _positions(x)
     cache = state.cache
-    for i, w in enumerate(model.weights()["blocks"]):
-        x, (k, v, _) = block_forward(w, x, cfg, positions,
+    for i, wb in enumerate(w["blocks"]):
+        x, (k, v, _) = block_forward(wb, x, cfg, positions,
                                      prefix_len=prefix_len)
         attn.cache_update(cache.k[i], cache.v[i], k, v, 0)
-    logits = _logits(model, x[:, -1:, :].contiguous())
+    logits = _logits(w, x[:, -1:, :].contiguous(), cfg)
     length = torch.full((bsz,), seq, dtype=torch.int32, device=x.device)
     return logits, LMDecodeState(cache=cache._replace(length=length), pos=seq)
 
@@ -312,15 +335,16 @@ def lm_prefill(model: DenseLM, tokens: torch.Tensor, cfg: ModelConfig,
 def lm_decode_step(model: DenseLM, token: torch.Tensor, cfg: ModelConfig,
                    state: LMDecodeState):
     """token ``[B,1]`` -> (logits ``[B,1,Vp]``, the next state)."""
-    x = _embed(model, token)
+    w = model.weights()
+    x = _embed(w, token)
     cache = state.cache
-    for i, w in enumerate(model.weights()["blocks"]):
-        x, _, _ = block_decode(w, x, cfg, cache.k[i], cache.v[i], state.pos)
-    return _logits(model, x), LMDecodeState(
+    for i, wb in enumerate(w["blocks"]):
+        x, _, _ = block_decode(wb, x, cfg, cache.k[i], cache.v[i], state.pos)
+    return _logits(w, x, cfg), LMDecodeState(
         cache=cache._replace(length=cache.length + 1), pos=state.pos + 1)
 
 
 __all__ = ["DenseBlock", "DenseLM", "LMDecodeState", "attn_weights",
            "block_decode", "block_forward", "block_weights", "init_attn_",
            "init_block_", "init_mlp_", "lm_apply", "lm_decode_step",
-           "lm_make_state", "lm_prefill"]
+           "lm_make_state", "lm_prefill", "lm_train_apply"]

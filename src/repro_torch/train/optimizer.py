@@ -1,0 +1,120 @@
+"""AdamW (decoupled weight decay) and its schedule over the model's
+float32 parameters.
+
+Counterpart of ``repro/train/optimizer.py``.  The reference maps pure
+functions over pytrees; here parameters, gradients and the moments are
+dicts of tensors keyed by the model's parameter names
+(``dict(model.named_parameters())``), the moments ``m`` and ``v`` float32
+like the masters.  :func:`clip_by_global_norm` and :func:`adamw_update`
+work in place under ``torch.no_grad``: the clip scales the given
+gradients, and the update writes the parameters and the moments where
+they are (at qwen2-1.5b every float32 copy is 6.17 GB).  The arithmetic
+is the reference's, elementwise in float32, on ``torch._foreach`` lists
+(a few launches for all the tensors); the reference leaves it to XLA,
+so there is no kernel.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+
+
+class AdamWState(NamedTuple):
+    step: int
+    m: dict
+    v: dict
+
+
+def adamw_init(params: dict) -> AdamWState:
+    """Zero float32 moments beside each parameter, on its device."""
+    zeros = {n: torch.zeros_like(p, dtype=torch.float32)
+             for n, p in params.items()}
+    return AdamWState(step=0, m=zeros,
+                      v={n: z.clone() for n, z in zeros.items()})
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32)
+
+
+def cosine_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
+    """The learning rate at ``step`` as a float32 scalar on the host:
+    linear warm-up, then a cosine down to ``min_lr_ratio``, in the
+    reference's float32 arithmetic."""
+    step = _f32(step)
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    t = torch.clamp((step - cfg.warmup_steps)
+                    / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = 0.5 * (1.0 + torch.cos(_f32(math.pi) * t))
+    frac = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos
+    return cfg.lr * warm * frac
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every entry, in float32, summed per
+    tensor as the reference sums them.  (Not ``torch._foreach_norm``:
+    on the CPU its float32 accumulation left 8e-2 of the float64 norm of
+    a 233 M-entry tensor, where ``square().sum()`` left 8e-8.)"""
+    return torch.stack([t.float().square().sum()
+                        for t in tensors]).sum().sqrt()
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: dict, max_norm: float):
+    """Scales ``grads`` in place by ``min(1, max_norm / norm)``; returns
+    ``(grads, norm)`` (the norm before the clip, a device scalar)."""
+    norm = global_norm(grads.values())
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    torch._foreach_mul_(list(grads.values()), scale)
+    return grads, norm
+
+
+@torch.no_grad()
+def adamw_update(cfg: AdamWConfig, params: dict, grads: dict,
+                 state: AdamWState):
+    """-> (params, new_state, metrics).  Clips ``grads`` and updates
+    ``params`` and the moments in place; ``metrics`` holds ``lr`` (host)
+    and ``grad_norm`` (device, before the clip)."""
+    names = list(params)
+    _, gnorm = clip_by_global_norm(grads, cfg.grad_clip_norm)
+    step = state.step + 1
+    lr = cosine_schedule(cfg, step)
+    bc1 = float(1.0 - _f32(cfg.b1) ** step)
+    bc2 = float(1.0 - _f32(cfg.b2) ** step)
+    p = [params[n] for n in names]
+    g = [grads[n].float() for n in names]
+    m = [state.m[n] for n in names]
+    v = [state.v[n] for n in names]
+    torch._foreach_mul_(m, cfg.b1)
+    torch._foreach_add_(m, g, alpha=1 - cfg.b1)
+    torch._foreach_mul_(v, cfg.b2)
+    torch._foreach_addcmul_(v, g, g, value=1 - cfg.b2)
+    del g
+    denom = torch._foreach_div(v, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, cfg.eps)
+    delta = torch._foreach_div(m, bc1)
+    torch._foreach_div_(delta, denom)
+    del denom
+    torch._foreach_add_(delta, p, alpha=cfg.weight_decay)
+    torch._foreach_mul_(delta, float(lr))
+    torch._foreach_sub_(p, delta)
+    metrics = {"lr": lr, "grad_norm": gnorm}
+    return params, AdamWState(step=step, m=state.m, v=state.v), metrics

@@ -33,6 +33,19 @@ of the value plus, per output, ``FLASH_BF16_ATOL_PER_PV * sum_j p_j
 tests/test_torch_flash_attention.py::test_kernel_order_witness (and its
 prefix-LM form at head dims 192 and 256).  The qwen2-1.5b smoke serve is
 held like the mamba2-130m one.
+
+The backward kernels (B2's and B4's, ``flash_attention_bwd`` and
+``rmsnorm_bwd``) against their plain versions on the same inputs: in
+float32 both sum float32 products in other orders, held at
+``BWD_F32_RTOL = 1e-4`` of each gradient's largest entry (dK and dV sum
+up to G Skv = 3072 products at the qwen2-1.5b shape: ``n * 2**-24`` is
+1.8e-4 of the sum of the terms' magnitudes at worst, a few 1e-6 for sums
+of random sign); in bfloat16 by the spread rule: each gradient's largest
+gap to the plain version run in float32 on the same (bf16) inputs stays
+within ``BWD_SPREAD = 2`` times the bf16 plain version's own gap (both
+round each gradient once at the end and P once before ``P^T dO``; the
+kernel sums in another order and recomputes the LSE).  The qwen2 smoke
+train step on the card is held against the CPU's in float32.
 """
 
 import numpy as np
@@ -45,8 +58,11 @@ from repro_torch.dragonfly import (DragonflySimulator, RoutingPolicy,
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.mamba2_130m import SMOKE
 from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_plain,
                                                  flash_attention_plain)
-from repro_torch.kernels.rmsnorm import rmsnorm_fused, rmsnorm_plain
+from repro_torch.kernels.rmsnorm import (rmsnorm_bwd, rmsnorm_bwd_plain,
+                                         rmsnorm_fused, rmsnorm_plain)
 from repro_torch.kernels.rmsnorm.ops import route as rms_route
 from repro_torch.kernels.ssd_scan import ssd_inner, ssd_inner_plain
 from repro_torch.kernels.ssd_scan.ops import bf16_limits
@@ -67,6 +83,11 @@ FLASH_TOL = 3e-5
 #: every p_j by at most 2**-8 p_j
 #: (tests/test_torch_flash_attention.py::test_kernel_order_witness)
 FLASH_BF16_ATOL_PER_PV = 2.0 ** -7
+#: backward kernels vs plain versions: float32 at this share of each
+#: gradient's largest entry; bf16 gaps within BWD_SPREAD times the plain
+#: version's own (the module docstring)
+BWD_F32_RTOL = 1e-4
+BWD_SPREAD = 2.0
 
 
 @pytest.fixture
@@ -653,3 +674,121 @@ def test_qwen2_smoke_serve_on_the_card_matches_the_cpu(cuda):
         runs.append([r.out_tokens for r in out])
     torch.testing.assert_close(logits[0], logits[1], rtol=1e-4, atol=1e-4)
     assert runs[0] == runs[1]
+
+
+def _hold_grads(got, plain_fn, inputs, dtype):
+    """Each gradient of ``got`` against ``plain_fn(*inputs)``: a float32
+    gradient at BWD_F32_RTOL of its largest entry, a bf16 one by the
+    spread rule against the plain version run in float32 on the same
+    inputs (``dtype``: the inputs')."""
+    want = plain_fn(*inputs)
+    ref = plain_fn(*(t.float() for t in inputs)) \
+        if dtype == torch.bfloat16 else want
+    for g, w, r in zip(got, want, ref):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.dtype == torch.float32:
+            scale = float(w.abs().max())
+            assert float((g - w).abs().max()) <= BWD_F32_RTOL * scale
+            continue
+        own = float((w.float() - r).abs().max())
+        gap = float((g.float() - r).abs().max())
+        assert gap <= BWD_SPREAD * own, (gap, own)
+
+
+@pytest.mark.parametrize("q_shape,kv_shape,causal,prefix_len", [
+    ((8, 12, 512, 128), (8, 2, 512, 128), True, 0),   # qwen2-1.5b train step
+    ((2, 6, 130, 128), (2, 2, 130, 128), True, 0),    # ragged tiles, G = 3
+    ((2, 4, 70, 16), (2, 2, 70, 16), True, 0),        # smoke head dim
+    ((1, 3, 65, 64), (1, 1, 130, 64), False, 0),      # Sq != Skv, MQA
+    ((2, 4, 200, 64), (2, 4, 200, 64), True, 100),    # prefix-LM, G = 1
+    ((1, 6, 150, 72), (1, 1, 150, 72), True, 70),     # head dim 72, G = 6
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_matches_plain(cuda, q_shape, kv_shape,
+                                                  causal, prefix_len, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(s, device=cuda, generator=gen).to(dtype)
+               for s in (q_shape, kv_shape, kv_shape))
+    with torch.no_grad():
+        o = flash_attention(q, k, v, causal=causal, prefix_len=prefix_len)
+    do = torch.randn(q_shape, device=cuda, generator=gen).to(dtype)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal,
+                              prefix_len=prefix_len)
+    assert flash_attention_bwd.launches == before + 1
+    torch.cuda.synchronize()
+    _hold_grads(got, lambda *t: flash_attention_bwd_plain(
+        *t, causal=causal, prefix_len=prefix_len), (q, k, v, o, do), dtype)
+
+
+@pytest.mark.parametrize("shape,xdtype,gdtype", [
+    ((4096, 1536), torch.bfloat16, torch.bfloat16),  # qwen2-1.5b train step
+    ((3, 5, 100), torch.bfloat16, torch.float32),
+    ((7, 8191), torch.float32, torch.bfloat16),
+    ((1000, 7168), torch.float32, torch.float32),    # D past 48 KB of floats
+    ((5, 264), torch.float32, torch.float32),
+])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda, shape, xdtype, gdtype):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(shape, device=cuda, generator=gen).to(xdtype)
+    gamma = (1 + 0.5 * torch.randn(shape[-1], device=cuda,
+                                   generator=gen)).to(gdtype)
+    dy = torch.randn(shape, device=cuda, generator=gen).to(xdtype)
+    before = rmsnorm_bwd.launches
+    got = rmsnorm_bwd(x, gamma, dy)
+    assert rmsnorm_bwd.launches == before + 1
+    torch.cuda.synchronize()
+    _hold_grads(got, rmsnorm_bwd_plain, (x, gamma, dy), xdtype)
+
+
+def test_backward_runs_the_kernels_through_the_functions(cuda):
+    """A gradient through ``flash_attention`` and ``rmsnorm_fused`` on
+    the card launches the backward kernels once each, and the result
+    matches autograd of the plain versions in float32."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(2, 6, 100, 64, device=cuda, generator=gen)
+    k, v = (torch.randn(2, 2, 100, 64, device=cuda, generator=gen)
+            for _ in range(2))
+    gamma = 1 + 0.1 * torch.randn(64, device=cuda, generator=gen)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, gamma)]
+
+    def loss(attend, norm, q, k, v, gamma):
+        return norm(attend(q, k, v, causal=True), gamma).square().sum()
+
+    before = flash_attention_bwd.launches, rmsnorm_bwd.launches
+    got = torch.autograd.grad(loss(flash_attention, rmsnorm_fused, *leaves),
+                              leaves)
+    assert (flash_attention_bwd.launches, rmsnorm_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    plain = [t.clone().requires_grad_() for t in (q, k, v, gamma)]
+    want = torch.autograd.grad(
+        loss(flash_attention_plain, rmsnorm_plain, *plain), plain)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= BWD_F32_RTOL * float(
+            w.abs().max())
+    big = torch.randn(1, 1, 8, 256, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="ROADMAP A.5"):
+        flash_attention(big, big.detach(), big.detach())
+
+
+def test_smoke_train_step_on_the_card_matches_the_cpu(cuda):
+    """One float32 train step of the qwen2 smoke config from the same
+    seeded weights and batch: the loss, the gradient norm and the
+    updated parameters agree (the card's own check at full width is
+    chip_smoke phase 25)."""
+    from repro_torch.launch.train import train_loop
+
+    cfg = get_smoke_config("qwen2-1.5b").scaled(dtype=torch.float32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model, _, losses = train_loop(cfg, steps=2, batch=2, seq=32, seed=0,
+                                      ckpt_dir=None, ckpt_every=0, lr=1e-3,
+                                      device=dev)
+        out[dev.type] = (losses, {n: p.detach().cpu() for n, p in
+                                  model.named_parameters()})
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for name, p in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][name], p, rtol=1e-4,
+                                   atol=1e-4, msg=name)

@@ -35,7 +35,7 @@ def test_port_imports_no_jax_and_no_reference():
     n_modules, rest = out.stdout.split(" ", 1)
     bad, names = rest.split("] ", 1)
     names = set(names.split())
-    assert int(n_modules) >= 83          # every module was imported
+    assert int(n_modules) >= 93          # every module was imported
     assert bad.strip() == "["
     # the policy engine and the figure benchmarks are among them
     for pkg in ("policy", "benchmarks"):
@@ -76,6 +76,12 @@ def test_port_imports_no_jax_and_no_reference():
     # the VLM slice
     assert {"repro_torch.models.vlm",
             "repro_torch.configs.paligemma_3b"} <= names
+    # the training slice
+    assert {"repro_torch.data", "repro_torch.data.synthetic",
+            "repro_torch.data.pipeline", "repro_torch.train",
+            "repro_torch.train.optimizer", "repro_torch.train.train_step",
+            "repro_torch.train.grad_comm", "repro_torch.ckpt",
+            "repro_torch.ckpt.checkpoint", "repro_torch.launch.train"} <= names
 
 
 def test_simulator_without_device_raises_when_cuda_is_absent(monkeypatch):
