@@ -183,20 +183,25 @@ Phases:
     layers over ``CPU_BATCH`` x (256 patches + ``CPU_PROMPT`` tokens),
     as phase 20 holds them;
 23. the backward kernels on inputs captured from one qwen2-1.5b train
-    step (B2's q, k, v, o and dO at q ``[8,12,512,128]``, k, v
-    ``[8,2,512,128]``; B4's x, gamma and dy at ``[4096,1536]``), in bf16
-    and on the inputs cast to float32, and B2's on seeded causal,
-    non-causal and prefix cases in both dtypes, against their plain
-    versions (float32 within ``BWD_F32_RTOL`` of each gradient's
-    largest entry, bf16 by the spread rule); each timed by graph replay
-    beside its plain version and the library's autograd backward (SDPA,
-    ``F.rms_norm``; forward subtracted), with its bound;
+    step (B2's q, k, v, o, dO and the forward's LSE at q
+    ``[8,12,512,128]``, k, v ``[8,2,512,128]``; B4's x, gamma and dy at
+    ``[4096,1536]``), in bf16 (B2's tensor-core route, whose kernels'
+    ``HGMMA`` count in the SASS must be above 0; B4's register route) and
+    on the inputs cast to float32 (the SIMT routes), and B2's on seeded
+    causal, non-causal and prefix cases in both dtypes, against their
+    plain versions (float32 within ``BWD_F32_RTOL`` of each gradient's
+    largest entry, bf16 by the spread rule); B4's dx and dgamma the same
+    bits in two runs; each timed by graph replay beside its plain
+    version and the library's autograd backward (SDPA, ``F.rms_norm``;
+    forward subtracted), with its bound;
 24. the training path: ``train_loop`` for 8 steps, loss, lr and grad
     norm per step, the launches of B2, its backward, B4 and its backward
     over the run asserted (28, 28, 57 and 57 a step), ``train_step_s``
     (mean of steps 2-7), tokens/s, peak memory, Algorithm 1's bucket
-    decisions, one more step under ``torch.profiler``; the loss finite
-    and lower at step 7 than at step 0;
+    decisions, one more step under ``torch.profiler``, in which each
+    backward call's kernels must run once each (28 a step of the four
+    tensor-core kernels, 57 of B4's two), their times printed; the loss
+    finite and lower at step 7 than at step 0;
 25. card vs CPU, one float32 train step of qwen2-1.5b at full width and
     2 layers from the same weights and batch (TF32 off): loss, gradient
     norm, every gradient, and the updated parameters under the sign
@@ -262,7 +267,7 @@ from repro_torch.kernels import libraries  # noqa: E402
 from repro_torch.kernels._build import build_all, find_nvcc  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
-    flash_attention_plain)
+    flash_attention_fwd, flash_attention_plain)
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.build import LIB as FLASH_LIB  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
@@ -468,6 +473,8 @@ def graph_ms_ring(fn, x: torch.Tensor, iters: int) -> float:
 
 #: device_profile's numbers by label
 PROFILES: dict = {}
+#: device_profile's device events by label: {kernel name: (count, us)}
+PROFILE_KERNELS: dict = {}
 
 
 def device_profile(fn, label: str = "phase"):
@@ -495,6 +502,7 @@ def device_profile(fn, label: str = "phase"):
         print("  device time: not measured (the trace holds no device "
               "events)")
         return res
+    PROFILE_KERNELS[label] = by_name
     PROFILES[label] = {"wall_s": wall_s, "busy_s": busy_s,
                        "idle_share": 1 - busy_s / wall_s,
                        "events": sum(n for n, _ in by_name.values())}
@@ -506,14 +514,26 @@ def device_profile(fn, label: str = "phase"):
     return res
 
 
-def hgmma_count(lib) -> int:
-    """HGMMA (``wgmma``) instructions in a built library's SASS, read
-    with the toolkit's ``cuobjdump``."""
+def hgmma_by_function(lib) -> dict:
+    """HGMMA (``wgmma``) instructions in a built library's SASS by
+    (mangled) function name, read with the toolkit's ``cuobjdump``."""
     out = subprocess.run(
         [str(Path(find_nvcc()).parent / "cuobjdump"), "--dump-sass",
          str(lib.path)], capture_output=True, text=True, check=True,
         timeout=300)
-    return sum("HGMMA" in line for line in out.stdout.splitlines())
+    counts: dict = {}
+    fn = ""
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+        elif "HGMMA" in line:
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
+
+
+def hgmma_count(lib) -> int:
+    """HGMMA instructions in a built library's SASS."""
+    return sum(hgmma_by_function(lib).values())
 
 
 def flash_bf16_atol(q, k, v, causal: bool,
@@ -2628,17 +2648,51 @@ def library_bwd_ms(fwd, leaves, iters: int = 10) -> float:
     return cuda_ms(both, iters) - fwd_ms
 
 
-def flash_bwd_row(args) -> dict:
+#: B2's backward kernels on its tensor-core route, one launch each a call
+#: (the parts' sum where the G heads are split, as at the train step)
+FLASH_BWD_WG = ("flash_bwd_rows", "flash_bwd_dkdv_wg", "flash_bwd_kv_sum",
+                "flash_bwd_dq_wg")
+#: B4's backward kernels on its register route
+RMS_BWD_REGS = ("rmsnorm_bwd_regs", "rmsnorm_bwd_gamma")
+
+
+def kernels_named(label: str, names) -> dict:
+    """Device events of ``device_profile(label)`` whose kernel name holds
+    each of ``names``: {name: (count, us)}."""
+    found = {n: (0, 0.0) for n in names}
+    for kname, (cnt, us) in PROFILE_KERNELS.get(label, {}).items():
+        for n in names:
+            if n + "<" in kname or n + "(" in kname:
+                c, t = found[n]
+                found[n] = (c + cnt, t + us)
+    return found
+
+
+def flash_bwd_row(args, lse) -> dict:
     """Phase 23, B2's backward at the train step's shape: held in bf16
-    and in float32 (the inputs cast), timed by graph replay beside the
-    plain backward and SDPA's autograd backward, with its bound."""
+    (the tensor-core route, with the forward's LSE) and in float32 (the
+    inputs cast; the SIMT route), timed by graph replay beside the plain
+    backward and SDPA's autograd backward, with its bound, and its
+    kernels' HGMMA counts (phase 24's profiled step times them)."""
     import torch.nn.functional as F
 
     q, k, v, o, do = args
     bsz, heads, seq, hd = q.shape
+    route = flash_ops.bwd_route(q, k, v, o, do)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    parts = flash_ops.dkdv_parts(bsz, k.shape[1], k.shape[2],
+                                 heads // k.shape[1], sms)
     print(f"  flash_attention_bwd on the train step's inputs: q, o, dO "
-          f"{tuple(q.shape)}, k, v {tuple(k.shape)}")
-    err = hold_grads("bf16", flash_attention_bwd(q, k, v, o, do),
+          f"{tuple(q.shape)}, k, v {tuple(k.shape)}, the forward's LSE "
+          f"{tuple(lse.shape)}; route {route}, G split into {parts} parts")
+    check(route == "wgmma" and lse is not None,
+          f"the train step's bf16 backward takes the {route} route")
+    hgmma = {n: sum(c for f, c in hgmma_by_function(FLASH_LIB).items()
+                    if n in f) for n in FLASH_BWD_WG}
+    print(f"  HGMMA instructions in the SASS: {hgmma}")
+    check(hgmma["flash_bwd_dkdv_wg"] > 0 and hgmma["flash_bwd_dq_wg"] > 0,
+          f"the tensor-core backward's SASS holds no HGMMA: {hgmma}")
+    err = hold_grads("bf16", flash_attention_bwd(q, k, v, o, do, lse=lse),
                      lambda *t: flash_attention_bwd_plain(*t), args)
     f32 = [t.float() for t in args]
     err = max(err, hold_grads("float32", flash_attention_bwd(*f32),
@@ -2654,22 +2708,25 @@ def flash_bwd_row(args) -> dict:
             a, b, c = (torch.randn(s, device=q.device, generator=rng).to(dt)
                        for s in (qs, ks, ks))
             with torch.no_grad():
-                out = flash_attention(a, b, c, causal=causal,
-                                      prefix_len=prefix)
+                out, ll = (flash_attention_fwd(a, b, c, causal=causal,
+                                               prefix_len=prefix)
+                           if dt == torch.bfloat16 else
+                           (flash_attention(a, b, c, causal=causal,
+                                            prefix_len=prefix), None))
             dout = torch.randn(qs, device=q.device, generator=rng).to(dt)
             err = max(err, hold_grads(
                 f"{str(dt)[6:]} {qs}{'' if causal else ' non-causal'}"
                 f"{f' prefix {prefix}' if prefix else ''}",
                 flash_attention_bwd(a, b, c, out, dout, causal=causal,
-                                    prefix_len=prefix),
+                                    prefix_len=prefix, lse=ll),
                 lambda *t, c_=causal, p_=prefix: flash_attention_bwd_plain(
                     *t, causal=c_, prefix_len=p_), (a, b, c, out, dout)))
     pairs = bsz * heads * seq * (seq + 1) // 2
     flops = 5 * 2 * hd * pairs
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
     times = {}
-    for label, ins in (("bf16", args), ("float32", f32)):
-        ms = graph_ms(lambda: flash_attention_bwd(*ins), 10)
+    for label, ins, ll in (("bf16", args, lse), ("float32", f32, None)):
+        ms = graph_ms(lambda: flash_attention_bwd(*ins, lse=ll), 10)
         plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(*ins), 5)
         library_ms = library_bwd_ms(
             lambda a, b, c: F.scaled_dot_product_attention(
@@ -2685,7 +2742,8 @@ def flash_bwd_row(args) -> dict:
                         "bound_by": "bytes" if bytes_ms >= ops_ms
                         else "operations"}
         print(f"  flash_attention_bwd {label}: {ms * 1e3:.2f} us/call "
-              f"(3 kernels, graph replay), plain {plain_ms * 1e3:.2f} us, "
+              f"({'4 tensor-core' if label == 'bf16' else '3 SIMT'} "
+              f"kernels, graph replay), plain {plain_ms * 1e3:.2f} us, "
               f"SDPA ({backend}) autograd backward (forward subtracted) "
               f"{library_ms * 1e3:.2f} us, bound "
               f"{max(bytes_ms, ops_ms) * 1e3:.2f} us ({flops} flop at "
@@ -2696,6 +2754,7 @@ def flash_bwd_row(args) -> dict:
                  "source": FLASH_BWD_SOURCE, "replaces": FLASH_TPU,
                  "launches": 0, "max_abs_err": err,
                  "shape": [list(q.shape), list(k.shape)],
+                 "kernel_route": route, "parts": parts, "hgmma": hgmma,
                  "float32": times["float32"]}, **times["bf16"])
 
 
@@ -2713,8 +2772,18 @@ def rms_bwd_row(args) -> dict:
     print(f"  rmsnorm_bwd on the train step's inputs: x, dy "
           f"{tuple(x2.shape)} {str(x.dtype)[6:]}, gamma {str(gamma.dtype)[6:]}")
     ins = (x2, gamma, dy2)
-    err = hold_grads("bf16", rmsnorm_bwd(*ins, eps),
-                     lambda *t: rmsnorm_bwd_plain(*t, eps), ins)
+    route = rms_ops.bwd_route(*ins)
+    print(f"  route {route}")
+    check(route[0] == "register", f"B4's backward at {tuple(x2.shape)} "
+          f"takes the {route} route")
+    first = rmsnorm_bwd(*ins, eps)
+    again = rmsnorm_bwd(*ins, eps)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          "rmsnorm_bwd: two runs differ")
+    print("  dx and dgamma the same bits in two runs")
+    err = hold_grads("bf16", first, lambda *t: rmsnorm_bwd_plain(*t, eps),
+                     ins)
     f32 = [t.float() for t in ins]
     err = max(err, hold_grads("float32", rmsnorm_bwd(*f32, eps),
                               lambda *t: rmsnorm_bwd_plain(*t, eps), f32))
@@ -2729,7 +2798,7 @@ def rms_bwd_row(args) -> dict:
     ops_ms = flops / F32_FLOP_PER_S * 1e3
     bound = max(bytes_ms, ops_ms)
     print(f"  rmsnorm_bwd {tuple(x2.shape)}: {ms * 1e3:.2f} us/call (2 "
-          f"kernels, graph replay over a ring of x; one x "
+          f"kernels, {route[0]} route, graph replay over a ring of x; one x "
           f"{warm_ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us, "
           f"F.rms_norm autograd backward (forward subtracted) "
           f"{library_ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us ({nbytes} "
@@ -2739,7 +2808,7 @@ def rms_bwd_row(args) -> dict:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms, "shape": list(x2.shape),
-            "warm_ms": warm_ms}
+            "warm_ms": warm_ms, "kernel_route": list(route)}
 
 
 def backward_kernel_checks(cuda) -> list:
@@ -2752,7 +2821,8 @@ def backward_kernel_checks(cuda) -> list:
     (fa, fkw), (ra, rkw) = seen["flash"], seen["rms"]
     check(not fkw.get("prefix_len") and fkw.get("causal", True),
           f"the train step's B2 backward ran with {fkw}")
-    rows = [flash_bwd_row(fa), rms_bwd_row(ra + tuple(rkw.values()))]
+    rows = [flash_bwd_row(fa, fkw.get("lse")),
+            rms_bwd_row(ra + tuple(rkw.values()))]
     del seen, fa, ra
     torch.cuda.empty_cache()
     print(f"phase 23: {time.perf_counter() - t0:.1f} s wall")
@@ -2791,8 +2861,9 @@ def train_path(cuda) -> dict:
                 2 * cfg.n_layers + 1)
     want = {k.__name__: TRAIN_STEPS * n for k, n in zip(TRAINED, per_step)}
     print(f"  launches over {TRAIN_STEPS} steps {counts} (want {want}: "
-          f"per step B2 {per_step[0]} forward and {per_step[1]} backward "
-          f"calls of 3 kernels, B4 {per_step[2]} and {per_step[3]})")
+          f"per step B2 {per_step[0]} forward calls (each writing its LSE) "
+          f"and {per_step[1]} backward calls of 4 tensor-core kernels, B4 "
+          f"{per_step[2]} and {per_step[3]} of 2)")
     check(counts == want, f"training launches {counts}, want {want}")
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(p.numel() for p in model.parameters())
@@ -2823,6 +2894,21 @@ def train_path(cuda) -> dict:
     b = {k: torch.from_numpy(v).to(cuda) for k, v in b.items()}
     device_profile(lambda: train_step(model, opt, b, cfg=cfg,
                                       tcfg=TrainConfig()), "train step")
+    if "train step" in PROFILE_KERNELS:
+        got = {**kernels_named("train step", FLASH_BWD_WG),
+               **kernels_named("train step", RMS_BWD_REGS)}
+        print("  the profiled step's backward kernels: " + ", ".join(
+            f"{n} x{c} {us / 1e3:.3f} ms" for n, (c, us) in got.items()))
+        sms = torch.cuda.get_device_properties(
+            cuda).multi_processor_count
+        parts = flash_ops.dkdv_parts(TRAIN_BATCH, cfg.n_kv_heads, TRAIN_SEQ,
+                                     cfg.n_heads // cfg.n_kv_heads, sms)
+        want_k = {n: per_step[1] * int(n != "flash_bwd_kv_sum" or parts > 1)
+                  for n in FLASH_BWD_WG}
+        want_k.update({n: per_step[3] for n in RMS_BWD_REGS})
+        check({n: c for n, (c, _) in got.items()} == want_k,
+              f"backward kernel launches in the profiled step {got}, "
+              f"want {want_k}")
     del model, opt
     torch.cuda.empty_cache()
     return {"launches": counts, "train_step_s": step_s,

@@ -91,6 +91,22 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// 1-D bulk copy of `bytes` (a multiple of 16, src 16-byte aligned) into
+// shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// barrier `id` (1-15; 0 is __syncthreads) over `threads` threads, whole warps
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
 // makes this thread's ordinary shared-memory stores visible to the async
 // proxy (wgmma, TMA) once the threads synchronise
 __device__ __forceinline__ void fence_async_smem() {

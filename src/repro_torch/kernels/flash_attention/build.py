@@ -14,11 +14,11 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 LIB = KernelLibrary(
     (_CSRC / "flash_attention.cu", _CSRC / "flash_attention_bwd.cu"),
     "flash_attention",
-    {"flash_attention": ("ptr", "ptr", "ptr", "ptr", "i32", "i32", "i32",
-                         "i32", "i32", "i32", "i32", "i32", "i32", "f32",
-                         "ptr"),
+    {"flash_attention": ("ptr", "ptr", "ptr", "ptr", "ptr", "i32", "i32",
+                         "i32", "i32", "i32", "i32", "i32", "i32", "i32",
+                         "f32", "ptr"),
      "flash_attention_bwd": ("ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "ptr",
-                             "ptr", "ptr", "ptr", "i32", "i32", "i32", "i32",
-                             "i32", "i32", "i32", "i32", "i32", "f32",
-                             "ptr")},
+                             "ptr", "ptr", "ptr", "ptr", "i32", "i32", "i32",
+                             "i32", "i32", "i32", "i32", "i32", "i32", "i32",
+                             "f32", "ptr")},
     headers=(HOPPER_HEADER,))

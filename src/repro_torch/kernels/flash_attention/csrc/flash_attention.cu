@@ -102,7 +102,12 @@
 // the K/V ring runs on across items, and Q is reloaded as soon as both
 // warpgroups' last S is done, so an item's last P V and its stores overlap
 // the next item's loads.  At the qwen2-1.5b prefill there are
-// 4 x 12 x 8 = 384 items, about 2.9 per block.
+// 4 x 12 x 8 = 384 items, about 2.9 per block.  Where the caller passes an
+// lse buffer (a training forward), the epilogue also writes each row's
+// natural-log logsumexp, (m + log2 l) ln 2 from the log2-domain m and l,
+// which the backward (flash_attention_bwd.cu) reads instead of recomputing
+// Q K^T; with none (every serve) the kernel computes the same bits as
+// before.
 //
 // Occupancy (ptxas -v, sm_90a): 168 registers a thread at launch, one block
 // of 384 threads per SM; setmaxnreg gives the producer warpgroup 24 and the
@@ -393,6 +398,7 @@ static_assert(128 * kProducerRegs<true> + kConsumers * kConsumerRegs<true> <=
               "setmaxnreg asks for more registers than the block holds");
 constexpr float kNegInf = -1e30f;      // the TPU kernel's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // byte offsets in the block's shared memory; every tile is 1024-byte aligned
 template <int HD>
@@ -617,9 +623,9 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
             const __grid_constant__ CUtensorMap tk,
             const __grid_constant__ CUtensorMap tv,
             const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, bf16* __restrict__ out, int batch,
-            int heads, int group, int sq, int skv, int hd, bool causal,
-            int prefix, float scale_log2) {
+            const bf16* __restrict__ v, bf16* __restrict__ out,
+            float* __restrict__ lse, int batch, int heads, int group, int sq,
+            int skv, int hd, bool causal, int prefix, float scale_log2) {
   using L = Smem<HD>;
   constexpr int kStages = L::kStages;
   constexpr int kFullArrivals = kTma ? 1 : 32;
@@ -823,6 +829,11 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
     const float d0 = fmaxf(l0, 1e-20f), d1 = fmaxf(l1, 1e-20f);
+    if (lse != nullptr && (lane & 3) == 0) {   // (m + log2 l) ln 2 per row
+      float* at = lse + (long long)it.qh * sq;
+      if (r0 < sq) at[r0] = (m0 + log2f(l0)) * kLn2;
+      if (r0 + 8 < sq) at[r0 + 8] = (m1 + log2f(l1)) * kLn2;
+    }
     bf16* dst = out + (long long)it.qh * sq * hd;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
@@ -849,18 +860,22 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
 }
 
 template <int HD, bool kTma>
-int launch(const void* q, const void* k, const void* v, void* out, int batch,
-           int heads, int kv_heads, int sq, int skv, int hd, bool causal,
-           int prefix, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int batch, int heads, int kv_heads, int sq, int skv, int hd,
+           bool causal, int prefix, float scale, cudaStream_t stream) {
   constexpr size_t bytes = Smem<HD>::kBytes;
+  // the device's context current on this thread before
+  // cuTensorMapEncodeTiled encodes the tensor maps (a backward's thread
+  // may call this first; see flash_attention_bwd.cu)
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return (int)err;
   CUtensorMap maps[3] = {};
   if (kTma && !(encode(&maps[0], q, batch * heads, sq, hd, kBm) &&
                 encode(&maps[1], k, batch * kv_heads, skv, hd, kBn) &&
                 encode(&maps[2], v, batch * kv_heads, skv, hd, kBn)))
     return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
   static bool ready[64] = {};       // one per build of the kernel
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
   if (!ready[dev]) {
@@ -887,35 +902,36 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   flash_wgmma<HD, kTma><<<grid, kThreads, bytes, stream>>>(
       maps[0], maps[1], maps[2], static_cast<const bf16*>(q),
       static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), batch, heads, heads / kv_heads, sq, skv, hd,
-      causal, prefix, scale * kLog2e);
+      static_cast<bf16*>(out), lse, batch, heads, heads / kv_heads, sq, skv,
+      hd, causal, prefix, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int dispatch_tma(bool tma, const void* q, const void* k, const void* v,
-                 void* out, int batch, int heads, int kv_heads, int sq,
-                 int skv, int hd, bool causal, int prefix, float scale,
-                 cudaStream_t stream) {
-  return tma ? launch<HD, true>(q, k, v, out, batch, heads, kv_heads, sq, skv,
-                                hd, causal, prefix, scale, stream)
-             : launch<HD, false>(q, k, v, out, batch, heads, kv_heads, sq,
-                                 skv, hd, causal, prefix, scale, stream);
+                 void* out, float* lse, int batch, int heads, int kv_heads,
+                 int sq, int skv, int hd, bool causal, int prefix,
+                 float scale, cudaStream_t stream) {
+  return tma ? launch<HD, true>(q, k, v, out, lse, batch, heads, kv_heads, sq,
+                                skv, hd, causal, prefix, scale, stream)
+             : launch<HD, false>(q, k, v, out, lse, batch, heads, kv_heads,
+                                 sq, skv, hd, causal, prefix, scale, stream);
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* out,
-             int batch, int heads, int kv_heads, int sq, int skv, int hd,
-             bool causal, int prefix, float scale, cudaStream_t stream) {
+             float* lse, int batch, int heads, int kv_heads, int sq, int skv,
+             int hd, bool causal, int prefix, float scale,
+             cudaStream_t stream) {
   const bool tma = hd % 8 == 0 &&
                    ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
   if (hd <= 64)
-    return dispatch_tma<64>(tma, q, k, v, out, batch, heads, kv_heads, sq,
-                            skv, hd, causal, prefix, scale, stream);
+    return dispatch_tma<64>(tma, q, k, v, out, lse, batch, heads, kv_heads,
+                            sq, skv, hd, causal, prefix, scale, stream);
   if (hd <= 128)
-    return dispatch_tma<128>(tma, q, k, v, out, batch, heads, kv_heads, sq,
-                             skv, hd, causal, prefix, scale, stream);
-  return dispatch_tma<256>(tma, q, k, v, out, batch, heads, kv_heads, sq,
-                           skv, hd, causal, prefix, scale, stream);
+    return dispatch_tma<128>(tma, q, k, v, out, lse, batch, heads, kv_heads,
+                             sq, skv, hd, causal, prefix, scale, stream);
+  return dispatch_tma<256>(tma, q, k, v, out, lse, batch, heads, kv_heads,
+                           sq, skv, hd, causal, prefix, scale, stream);
 }
 
 }  // namespace wg
@@ -925,19 +941,25 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
 // q [batch, heads, sq, hd], k and v [batch, kv_heads, skv, hd] -> out [batch,
 // heads, sq, hd]; all float32 (bf16 = 0, the SIMT kernel) or all bf16 (bf16 =
 // 1, the tensor-core kernel), contiguous.  prefix: the prefix-LM boundary
-// (0 <= prefix <= skv, only with causal; 0 is the plain causal mask).
+// (0 <= prefix <= skv, only with causal; 0 is the plain causal mask).  lse:
+// NULL, or (bf16 only) float32 [batch, heads, sq] that receives each row's
+// natural-log logsumexp of its scaled, masked scores for the backward; the
+// output is the same bits either way.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int batch, int heads, int kv_heads,
-                               int sq, int skv, int hd, int causal, int prefix,
-                               int bf16, float scale, cudaStream_t stream) {
+                               void* out, void* lse, int batch, int heads,
+                               int kv_heads, int sq, int skv, int hd,
+                               int causal, int prefix, int bf16, float scale,
+                               cudaStream_t stream) {
   if (batch == 0 || sq == 0) return 0;
   if (batch < 0 || batch > 65535 || heads < 1 || heads > 65535 ||
       kv_heads < 1 || heads % kv_heads != 0 || sq < 0 || skv < 1 || hd < 1 ||
-      hd > 256 || prefix < 0 || prefix > skv || (prefix > 0 && !causal))
+      hd > 256 || prefix < 0 || prefix > skv || (prefix > 0 && !causal) ||
+      (lse != nullptr && !bf16))
     return (int)cudaErrorInvalidValue;
   if (bf16)
-    return wg::dispatch(q, k, v, out, batch, heads, kv_heads, sq, skv, hd,
-                        causal != 0, prefix, scale, stream);
+    return wg::dispatch(q, k, v, out, static_cast<float*>(lse), batch, heads,
+                        kv_heads, sq, skv, hd, causal != 0, prefix, scale,
+                        stream);
   return dispatch<float>(q, k, v, out, batch, heads, kv_heads, sq, skv, hd,
                          causal != 0, prefix, scale, stream);
 }

@@ -29,18 +29,28 @@ head dim up to :data:`MAX_HEAD_DIM`.
 
 :func:`flash_attention` returns through :class:`FlashAttentionFunction`,
 whose forward runs a kernel of ``csrc/flash_attention.cu`` and whose
-backward runs :func:`flash_attention_bwd`, the three kernels of
-``csrc/flash_attention_bwd.cu`` (LSE and ``rowsum(dO * O)``, then dK and
-dV, then dQ; SIMT, float32 accumulation, head dims up to
-:data:`MAX_BWD_HEAD_DIM`).  Each wrapper runs its plain version only for
-tensors on the CPU (which only the tests pass); for CUDA tensors it
-launches its kernels on the current stream or raises, and any other
-device raises.  No path on a CUDA tensor reaches a plain version.  The
-forward's dtype picks its kernel: float32 goes to the SIMT kernel,
-bfloat16 to the tensor-core (``wgmma``) one.  The wrappers count their
-calls that launch in ``flash_attention.launches`` and
-``flash_attention_bwd.launches`` (one count for the backward's three
-kernels).
+backward runs :func:`flash_attention_bwd`, the kernels of
+``csrc/flash_attention_bwd.cu`` (head dims up to
+:data:`MAX_BWD_HEAD_DIM`).  Where a bfloat16 call needs a gradient the
+forward kernel also writes each row's logsumexp (:func:`flash_lse_plain`
+is its plain version), which the Function saves and hands to the
+backward; under ``no_grad`` (every serve) it asks for none, and the
+output is the same bits either way.  The backward takes one of two
+routes (:func:`bwd_route`): bfloat16 inputs that TMA can describe go to
+the tensor-core (``wgmma``) kernels, which read that LSE, round P to
+bf16 for dV as the plain version does, carry dS into dQ and dK as two
+bf16 terms (hi + lo), and split the G q heads of each kv head into
+:func:`dkdv_parts` parts whose float32 partials a second pass sums;
+float32 inputs (and bfloat16 ones TMA cannot describe) go to the SIMT
+kernels, which recompute the LSE.  Each
+wrapper runs its plain version only for tensors on the CPU (which only
+the tests pass); for CUDA tensors it launches its kernels on the
+current stream or raises, and any other device raises.  No path on a
+CUDA tensor reaches a plain version.  The forward's dtype picks its
+kernel: float32 goes to the SIMT kernel, bfloat16 to the tensor-core
+(``wgmma``) one.  The wrappers count their calls that launch in
+``flash_attention.launches`` and ``flash_attention_bwd.launches`` (one
+count for all the kernels of a backward call).
 """
 
 from __future__ import annotations
@@ -63,6 +73,8 @@ MAX_HEAD_DIM = 256
 MAX_BWD_HEAD_DIM = 128
 #: the TPU kernel's mask value
 NEG_INF = -1e30
+#: rows of the tensor-core backward's kv tiles (its dK/dV items)
+BWD_KV_TILE = 64
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -86,6 +98,22 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype == torch.bfloat16:
         p = p.to(torch.bfloat16).float()
     return torch.matmul(p, vf).to(q.dtype)
+
+
+def flash_lse_plain(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                    prefix_len: int = 0) -> torch.Tensor:
+    """float32 ``[B,H,Sq]``: each row's natural-log logsumexp of its
+    scores ``q.k^T / sqrt(hd)`` (float32 math) under the forward's mask,
+    the LSE the bfloat16 forward kernel writes for the backward."""
+    group = q.shape[1] // k.shape[1]
+    sq, skv, hd = q.shape[2], k.shape[2], q.shape[3]
+    kf = k.float().repeat_interleave(group, dim=1)
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)) / math.sqrt(hd)
+    if causal:
+        limit = torch.arange(sq, device=q.device).clamp(min=prefix_len - 1)
+        mask = torch.arange(skv, device=q.device)[None, :] <= limit[:, None]
+        s = torch.where(mask, s, NEG_INF)
+    return torch.logsumexp(s, dim=-1)
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -132,19 +160,19 @@ class FlashAttentionFunction(torch.autograd.Function):
     kernels backward on the card, the plain versions on the CPU."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, prefix_len):
-        o = _forward(q, k, v, causal, prefix_len)
-        ctx.save_for_backward(q, k, v, o)
+    def forward(ctx, q, k, v, causal, prefix_len, want_lse):
+        o, lse = _forward(q, k, v, causal, prefix_len, want_lse=want_lse)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.prefix_len = causal, prefix_len
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
                                          causal=ctx.causal,
-                                         prefix_len=ctx.prefix_len)
-        return dq, dk, dv, None, None
+                                         prefix_len=ctx.prefix_len, lse=lse)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -155,11 +183,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tensor in q's dtype, differentiable in q, k and v (on the card up
     to head dim :data:`MAX_BWD_HEAD_DIM`)."""
     prefix_len = _check(q, k, v, causal, prefix_len)
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad
+                                                 for t in (q, k, v))
     if (_route.device_type(q) == "cuda" and q.shape[3] > MAX_BWD_HEAD_DIM
-            and torch.is_grad_enabled()
-            and any(t.requires_grad for t in (q, k, v))):
+            and needs_grad):
         raise ValueError(_NO_BWD.format(q.shape[3]))
-    return FlashAttentionFunction.apply(q, k, v, causal, prefix_len)
+    # the bf16 backward reads the forward's LSE; float32's recomputes it
+    want_lse = needs_grad and q.dtype == torch.bfloat16
+    return FlashAttentionFunction.apply(q, k, v, causal, prefix_len,
+                                        want_lse)
 
 
 _NO_BWD = ("flash_attention: head dim {}; the backward kernels are built up "
@@ -204,43 +236,92 @@ def _check(q, k, v, causal: bool, prefix_len: int) -> int:
     return prefix_len
 
 
-def _forward(q, k, v, causal: bool, prefix_len: int) -> torch.Tensor:
-    """The forward kernel on the card, the plain version on the CPU."""
+def _forward(q, k, v, causal: bool, prefix_len: int, *,
+             want_lse: bool = False) -> tuple:
+    """``(out, lse)``: the forward kernel on the card, the plain version
+    on the CPU; ``lse`` float32 ``[B,H,Sq]`` (bfloat16 only) where
+    ``want_lse``, else None."""
     bsz, heads, sq, hd = q.shape
     kv_heads, skv = k.shape[1], k.shape[2]
+    if want_lse and q.dtype != torch.bfloat16:
+        raise ValueError("flash_attention: the forward writes an LSE for "
+                         "bfloat16 inputs only")
     if not launches_kernel("flash_attention", q, k, v):
-        return flash_attention_plain(q, k, v, causal=causal,
+        out = flash_attention_plain(q, k, v, causal=causal,
+                                    prefix_len=prefix_len)
+        return out, (flash_lse_plain(q, k, causal=causal,
                                      prefix_len=prefix_len)
+                     if want_lse else None)
     if q.dtype == torch.float32 and (bsz > 65535 or heads > 65535):
         raise ValueError(f"flash_attention: B = {bsz}, H = {heads}; the "
                          f"float32 kernel's grid takes at most 65535 of each")
     out = torch.empty_like(q)
+    lse = (torch.empty((bsz, heads, sq), dtype=torch.float32,
+                       device=q.device) if want_lse else None)
     if out.numel() == 0:
-        return out
+        return out, lse
     err = LIB.load().flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bsz, heads,
-        kv_heads, sq, skv, hd, int(causal), prefix_len,
-        int(q.dtype == torch.bfloat16),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), bsz, heads, kv_heads, sq,
+        skv, hd, int(causal), prefix_len, int(q.dtype == torch.bfloat16),
         1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention: CUDA error {err}" + (
             " (the bf16 kernel's build has another register count than its "
             "setmaxnreg counts assume)" if err == 200 else ""))
     flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        prefix_len: int = 0) -> tuple:
+    """``(out, lse)`` of the bfloat16 forward, no gradient: the output of
+    :func:`flash_attention` and the LSE its kernel writes for the
+    backward (on the CPU the plain versions)."""
+    prefix_len = _check(q, k, v, causal, prefix_len)
+    return _forward(q, k, v, causal, prefix_len, want_lse=True)
 
 
 flash_attention.launches = 0
 
 
+def dkdv_parts(batch: int, kv_heads: int, skv: int, group: int,
+               sms: int) -> int:
+    """Parts the tensor-core backward splits each kv head's G q heads
+    into: the smallest divisor of G that gives the dK/dV kernel at least
+    one (batch, kv head, kv tile, part) item per SM, else G.  Each part
+    beyond the first costs a float32 partial of dK and dV."""
+    tiles = batch * kv_heads * -(-skv // BWD_KV_TILE)
+    for parts in range(1, group + 1):
+        if group % parts == 0 and tiles * parts >= sms:
+            return parts
+    return group
+
+
+def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, do: torch.Tensor) -> str:
+    """The backward's route for these inputs: ``"wgmma"`` for bfloat16
+    that TMA can describe (head dim a multiple of 8, every tensor 16-byte
+    aligned), else ``"simt"``."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, o, do))
+    return ("wgmma" if q.dtype == torch.bfloat16 and q.shape[3] % 8 == 0
+            and aligned else "simt")
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
-                        causal: bool = True, prefix_len: int = 0) -> tuple:
+                        causal: bool = True, prefix_len: int = 0,
+                        lse: torch.Tensor | None = None) -> tuple:
     """``(dq, dk, dv)`` of :func:`flash_attention` at q, k, v for the
     output ``o`` and its gradient ``do`` (both q's shape and dtype,
     contiguous): the kernels of ``csrc/flash_attention_bwd.cu`` on the
     card (head dim up to :data:`MAX_BWD_HEAD_DIM`, else ``ValueError``),
-    the plain version on the CPU."""
+    the plain version on the CPU.  ``lse``: the forward's float32
+    ``[B,H,Sq]`` LSE (:func:`flash_attention_fwd`), which the tensor-core
+    route reads; where it is None that route runs the forward kernel
+    once more to get it.  The SIMT route and the plain version compute
+    their own."""
     prefix_len = _check(q, k, v, causal, prefix_len)
     for name, t in (("o", o), ("do", do)):
         if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
@@ -249,6 +330,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{tuple(t.shape)} {t.dtype} on {t.device} "
                              f"does not match q {tuple(q.shape)} {q.dtype} "
                              f"on {q.device}, or is not contiguous")
+    if lse is not None and (lse.shape != q.shape[:3]
+                            or lse.dtype != torch.float32
+                            or lse.device != q.device
+                            or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
+                         f"{lse.dtype} on {lse.device}; want float32 "
+                         f"{tuple(q.shape[:3])} on {q.device}, contiguous")
     if not launches_kernel("flash_attention_bwd", q, k, v, o, do):
         return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
                                          prefix_len=prefix_len)
@@ -256,19 +344,38 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_heads, skv = k.shape[1], k.shape[2]
     if hd > MAX_BWD_HEAD_DIM:
         raise ValueError(_NO_BWD.format(hd))
+    lib = LIB.load()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    lse = torch.empty((bsz, heads, sq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
-    err = LIB.load().flash_attention_bwd(
+    parts, part = 1, None
+    if bwd_route(q, k, v, o, do) == "wgmma":
+        if lse is None:
+            _, lse = _forward(q, k, v, causal, prefix_len, want_lse=True)
+        sq_pad = -(-sq // 128) * 128
+        scratch = torch.empty((bsz * heads, sq_pad, 2), dtype=torch.float32,
+                              device=q.device)
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        parts = dkdv_parts(bsz, kv_heads, skv, heads // kv_heads, sms)
+        if parts > 1:
+            part = torch.empty((2, parts, bsz * kv_heads, skv, hd),
+                               dtype=torch.float32, device=q.device)
+    else:
+        lse = None
+        scratch = torch.empty((2, bsz, heads, sq), dtype=torch.float32,
+                              device=q.device)
+    err = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), bsz, heads, kv_heads, sq, skv, hd,
-        int(causal), prefix_len, int(q.dtype == torch.bfloat16),
-        1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+        None if lse is None else lse.data_ptr(), scratch.data_ptr(),
+        None if part is None else part.data_ptr(), bsz, heads, kv_heads, sq,
+        skv, hd, int(causal), prefix_len, int(q.dtype == torch.bfloat16),
+        parts, 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError(f"flash_attention_bwd: CUDA error {err}")
+        raise RuntimeError(f"flash_attention_bwd: CUDA error {err}" + (
+            " (the tensor-core kernels' build has another register count "
+            "than their setmaxnreg counts assume)" if err == 200 else ""))
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

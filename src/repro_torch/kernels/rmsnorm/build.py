@@ -17,4 +17,5 @@ LIB = KernelLibrary(
                  "ptr"),
      "rmsnorm_route": ("ptr", "ptr", "ptr", "i64", "i32", "i32"),
      "rmsnorm_bwd": ("ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "i64", "i32",
-                     "f32", "i32", "i32", "i32", "ptr")})
+                     "f32", "i32", "i32", "i32", "ptr"),
+     "rmsnorm_bwd_route": ("ptr", "ptr", "ptr", "ptr", "i32", "i32")})

@@ -19,7 +19,12 @@ to one bf16 ulp.
 :func:`rmsnorm_fused` returns through :class:`RMSNormFunction`, whose
 forward runs the kernel of ``csrc/rmsnorm.cu`` and whose backward runs
 :func:`rmsnorm_bwd`, the kernels of ``csrc/rmsnorm_bwd.cu`` (``dx`` and
-``dgamma``, recomputing ``r``).  Each wrapper runs its plain version
+``dgamma``, recomputing ``r``).  The backward has routes of its own
+(:func:`bwd_route`): a register route with a warp per row where D is a
+multiple of 16 bytes' worth of values, at most 8 such vectors per lane
+(D <= 2,048 in bf16, D <= 1,024 in float32), and x, gamma and dy are
+16-byte aligned; else a generic route with a block per chunk of rows.
+Each gives the same bits from run to run.  Each wrapper runs its plain version
 only for tensors on the CPU (which only the tests pass); for CUDA
 tensors it launches its kernel on the current stream or raises, and any
 other device raises.  No path on a CUDA tensor reaches a plain version.
@@ -38,6 +43,10 @@ DTYPES = (torch.float32, torch.bfloat16)
 #: the widest row the backward kernel takes (its block's partial dgamma
 #: lives in shared memory, 4 bytes a column)
 MAX_BWD_D = 56000
+#: blocks of the backward's row kernel per SM: the register route's
+#: 256-thread blocks (8 warps, a warp a row at a time), the generic
+#: route's (a block a row at a time)
+BWD_BLOCKS_PER_SM = {"register": 2, "generic": 4}
 
 
 def rmsnorm_plain(x: torch.Tensor, gamma: torch.Tensor,
@@ -131,8 +140,8 @@ def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
     """``(dx, dgamma)`` of :func:`rmsnorm_fused` at ``x``, ``gamma`` for
     the output gradient ``dy`` (``x``'s shape and dtype, contiguous):
     the kernels of ``csrc/rmsnorm_bwd.cu`` on the card (one launch of the
-    row kernel and one of the dgamma reduction, counted once), the plain
-    version on the CPU."""
+    row kernel of the route :func:`bwd_route` names and one of the dgamma
+    reduction, counted once), the plain version on the CPU."""
     _check(x, gamma)
     if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous():
         raise ValueError(f"rmsnorm_bwd: dy {tuple(dy.shape)} {dy.dtype} "
@@ -152,7 +161,13 @@ def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
     if rows == 0:
         return dx, torch.zeros_like(gamma)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = min(rows, 4 * sms)
+    kind = bwd_route(x, gamma, dy)[0]
+    cap = BWD_BLOCKS_PER_SM[kind] * sms
+    if kind == "register":   # 8 warps a block, each the same number of rows
+        per_warp = -(-rows // (8 * cap))
+        blocks = -(-rows // (8 * per_warp))
+    else:
+        blocks = min(rows, cap)
     part = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
     dgamma = torch.empty_like(gamma)
     err = lib.rmsnorm_bwd(
@@ -181,3 +196,16 @@ def route(x: torch.Tensor, gamma: torch.Tensor) -> tuple:
         int(x.dtype == torch.bfloat16))
     kv, warps = divmod(code, 256)
     return ("register" if kv else "generic", kv, warps)
+
+
+def bwd_route(x: torch.Tensor, gamma: torch.Tensor,
+              dy: torch.Tensor) -> tuple:
+    """The route :func:`rmsnorm_bwd` takes on the card for these CUDA
+    tensors, launching nothing: ``("register", kV)`` with kV 16-byte
+    vectors per lane, or ``("generic", 0)``.  Assumes a dx from
+    PyTorch's allocator (16-byte aligned), as the wrapper makes."""
+    d = x.shape[-1]
+    kv = LIB.load().rmsnorm_bwd_route(
+        x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), None, d,
+        int(x.dtype == torch.bfloat16))
+    return ("register" if kv else "generic", kv)

@@ -44,8 +44,12 @@ of random sign); in bfloat16 by the spread rule: each gradient's largest
 gap to the plain version run in float32 on the same (bf16) inputs stays
 within ``BWD_SPREAD = 2`` times the bf16 plain version's own gap (both
 round each gradient once at the end and P once before ``P^T dO``; the
-kernel sums in another order and recomputes the LSE).  The qwen2 smoke
-train step on the card is held against the CPU's in float32.
+kernel sums in another order, and its tensor-core route reads the
+forward's LSE and carries dS into dQ and dK as two bf16 terms).  B2's bf16
+forward writes that LSE only where asked: the output is the same bits
+either way, and the LSE is a float32 logsumexp of the masked scores
+within ``LSE_RTOL = 1e-5``.  The qwen2 smoke train step on the card is
+held against the CPU's in float32.
 """
 
 import numpy as np
@@ -60,9 +64,13 @@ from repro_torch.configs.mamba2_130m import SMOKE
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_bwd_plain,
-                                                 flash_attention_plain)
+                                                 flash_attention_fwd,
+                                                 flash_attention_plain,
+                                                 flash_lse_plain)
+from repro_torch.kernels.flash_attention.ops import bwd_route
 from repro_torch.kernels.rmsnorm import (rmsnorm_bwd, rmsnorm_bwd_plain,
                                          rmsnorm_fused, rmsnorm_plain)
+from repro_torch.kernels.rmsnorm.ops import bwd_route as rms_bwd_route
 from repro_torch.kernels.rmsnorm.ops import route as rms_route
 from repro_torch.kernels.ssd_scan import ssd_inner, ssd_inner_plain
 from repro_torch.kernels.ssd_scan.ops import bf16_limits
@@ -88,6 +96,8 @@ FLASH_BF16_ATOL_PER_PV = 2.0 ** -7
 #: version's own (the module docstring)
 BWD_F32_RTOL = 1e-4
 BWD_SPREAD = 2.0
+#: the forward's LSE vs a float32 logsumexp of the masked scores
+LSE_RTOL = 1e-5
 
 
 @pytest.fixture
@@ -695,30 +705,96 @@ def _hold_grads(got, plain_fn, inputs, dtype):
         assert gap <= BWD_SPREAD * own, (gap, own)
 
 
-@pytest.mark.parametrize("q_shape,kv_shape,causal,prefix_len", [
+BWD_SHAPES = [
     ((8, 12, 512, 128), (8, 2, 512, 128), True, 0),   # qwen2-1.5b train step
     ((2, 6, 130, 128), (2, 2, 130, 128), True, 0),    # ragged tiles, G = 3
     ((2, 4, 70, 16), (2, 2, 70, 16), True, 0),        # smoke head dim
     ((1, 3, 65, 64), (1, 1, 130, 64), False, 0),      # Sq != Skv, MQA
     ((2, 4, 200, 64), (2, 4, 200, 64), True, 100),    # prefix-LM, G = 1
     ((1, 6, 150, 72), (1, 1, 150, 72), True, 70),     # head dim 72, G = 6
-])
+    ((1, 4, 90, 20), (1, 2, 90, 20), True, 0),        # head dim 20: no TMA
+]
+
+
+@pytest.mark.parametrize("q_shape,kv_shape,causal,prefix_len", BWD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_kernel_matches_plain(cuda, q_shape, kv_shape,
                                                   causal, prefix_len, dtype):
+    """bf16 takes the tensor-core route with the forward's LSE (but at
+    head dim 20, which TMA cannot describe: the SIMT route), float32 the
+    SIMT route; both held against the plain version, and the same bits
+    in a second call without the LSE (the wrapper then runs the forward
+    kernel for it)."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     q, k, v = (torch.randn(s, device=cuda, generator=gen).to(dtype)
                for s in (q_shape, kv_shape, kv_shape))
+    lse = None
     with torch.no_grad():
-        o = flash_attention(q, k, v, causal=causal, prefix_len=prefix_len)
+        if dtype == torch.bfloat16:
+            o, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                         prefix_len=prefix_len)
+        else:
+            o = flash_attention(q, k, v, causal=causal, prefix_len=prefix_len)
     do = torch.randn(q_shape, device=cuda, generator=gen).to(dtype)
+    tma = dtype == torch.bfloat16 and q_shape[3] % 8 == 0
+    assert bwd_route(q, k, v, o, do) == ("wgmma" if tma else "simt")
     before = flash_attention_bwd.launches
     got = flash_attention_bwd(q, k, v, o, do, causal=causal,
-                              prefix_len=prefix_len)
+                              prefix_len=prefix_len, lse=lse)
     assert flash_attention_bwd.launches == before + 1
     torch.cuda.synchronize()
     _hold_grads(got, lambda *t: flash_attention_bwd_plain(
         *t, causal=causal, prefix_len=prefix_len), (q, k, v, o, do), dtype)
+    again = flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                prefix_len=prefix_len)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("q_shape,kv_shape,causal,prefix_len",
+                         [s for s in BWD_SHAPES if s[0][3] % 8 == 0]
+                         + [((2, 8, 768, 256), (2, 1, 768, 256), True, 256)])
+def test_flash_forward_lse_output(cuda, q_shape, kv_shape, causal,
+                                  prefix_len):
+    """The bf16 forward asked for its LSE gives the same output bits as
+    without, and an LSE within LSE_RTOL of a float32 logsumexp of the
+    masked scores of the same bf16 inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = (torch.randn(s, device=cuda, generator=gen).to(torch.bfloat16)
+               for s in (q_shape, kv_shape, kv_shape))
+    with torch.no_grad():
+        plain_out = flash_attention(q, k, v, causal=causal,
+                                    prefix_len=prefix_len)
+        out, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                       prefix_len=prefix_len)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_out)
+    want = flash_lse_plain(q, k, causal=causal, prefix_len=prefix_len)
+    assert lse.shape == want.shape and lse.dtype == torch.float32
+    gap = float(((lse - want).abs() / want.abs().clamp_min(1.0)).max())
+    assert gap <= LSE_RTOL, gap
+
+
+def test_bf16_gradient_through_the_function_reads_the_forwards_lse(cuda):
+    """A bf16 gradient through ``flash_attention`` launches the forward
+    once (with its LSE) and the backward once, and gives the bits of the
+    backward wrapper called with that LSE."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn(2, 6, 130, 128, device=cuda, generator=gen).bfloat16()
+    k, v = (torch.randn(2, 2, 130, 128, device=cuda,
+                        generator=gen).bfloat16() for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = flash_attention.launches, flash_attention_bwd.launches
+    out = flash_attention(*leaves, causal=True)
+    do = torch.randn_like(out)
+    got = torch.autograd.grad(out, leaves, do)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        o, lse = flash_attention_fwd(q, k, v, causal=True)
+    want = flash_attention_bwd(q, k, v, o, do, causal=True, lse=lse)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("shape,xdtype,gdtype", [
@@ -739,6 +815,32 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, shape, xdtype, gdtype):
     assert rmsnorm_bwd.launches == before + 1
     torch.cuda.synchronize()
     _hold_grads(got, rmsnorm_bwd_plain, (x, gamma, dy), xdtype)
+
+
+@pytest.mark.parametrize("shape,xdtype,gdtype,want", [
+    ((4096, 1536), torch.bfloat16, torch.bfloat16, ("register", 6)),
+    ((5, 264), torch.float32, torch.float32, ("register", 3)),
+    ((3, 2048), torch.bfloat16, torch.float32, ("register", 8)),
+    ((3, 5, 100), torch.bfloat16, torch.float32, ("generic", 0)),
+    ((1000, 7168), torch.float32, torch.float32, ("generic", 0)),
+])
+def test_rmsnorm_bwd_route_is_deterministic(cuda, shape, xdtype, gdtype,
+                                            want):
+    """Each route of B4's backward: the route the width picks, dx and
+    dgamma the same bits in two runs (no atomics; every sum in a fixed
+    order), held against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(shape, device=cuda, generator=gen).to(xdtype)
+    gamma = (1 + 0.5 * torch.randn(shape[-1], device=cuda,
+                                   generator=gen)).to(gdtype)
+    dy = torch.randn(shape, device=cuda, generator=gen).to(xdtype)
+    assert rms_bwd_route(x, gamma, dy) == want
+    first = rmsnorm_bwd(x, gamma, dy)
+    second = rmsnorm_bwd(x, gamma, dy)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    _hold_grads(first, rmsnorm_bwd_plain, (x, gamma, dy), xdtype)
 
 
 def test_backward_runs_the_kernels_through_the_functions(cuda):

@@ -22,6 +22,7 @@ the tolerance the witness sets.
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,7 +33,8 @@ from repro.kernels.flash_attention.flash_attention import \
 from repro.kernels.flash_attention.ref import attention_ref
 from repro.models import attention as ref_attn
 from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_plain)
+                                                 flash_attention_plain,
+                                                 flash_lse_plain)
 from repro_torch.models import attention
 
 F32_TOL = 3e-5
@@ -345,3 +347,45 @@ def test_plain_matches_pallas_at_head_dim_256(causal):
     pallas = flash_pallas(jq, jk, jv, causal=causal, block_q=64, block_k=64,
                           interpret=True)
     _close(_run(arrays, torch.float32, causal), pallas, F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("causal,prefix_len", [(True, 0), (False, 0),
+                                               (True, 5)])
+def test_lse_plain_matches_jax_logsumexp_of_the_reference_logits(
+        dtype, causal, prefix_len):
+    """The LSE the bf16 forward kernel writes for the backward, in its
+    plain version, against ``jax.nn.logsumexp`` of the reference model's
+    masked logits (``repro/models/attention.py:107-121``: the einsum in
+    float32, the causal and prefix-LM masks, -1e30), its GQA head order
+    mapped to the port's (ROADMAP C4)."""
+    bsz, heads, kv_heads, sq, skv, hd = 2, 6, 2, 11, 11, 16
+    group = heads // kv_heads
+    q, k, _ = _inputs(bsz, heads, kv_heads, sq, skv, hd, seed=4)
+    tq, tk = torch.from_numpy(q), torch.from_numpy(k)
+    jq, jk = jnp.asarray(q), jnp.asarray(k)
+    if dtype == "bfloat16":
+        tq, tk = tq.bfloat16(), tk.bfloat16()
+        jq, jk = jq.astype(jnp.bfloat16), jk.astype(jnp.bfloat16)
+    got = flash_lse_plain(tq, tk, causal=causal, prefix_len=prefix_len)
+    # the reference's layout: [B, S, H, hd], q head g * Hkv + j on kv head j
+    perm = [j * group + g for g in range(group) for j in range(kv_heads)]
+    qg = jnp.transpose(jq[:, perm], (0, 2, 1, 3)).reshape(
+        bsz, sq, group, kv_heads, hd)
+    kr = jnp.transpose(jk, (0, 2, 1, 3))
+    logits = jnp.einsum("bqghd,bkhd->bghqk", qg, kr,
+                        preferred_element_type=jnp.float32) / math.sqrt(hd)
+    if causal:
+        qp, kp = jnp.arange(sq)[None, :], jnp.arange(skv)[None, :]
+        mask = kp[:, None, :] <= qp[:, :, None]
+        if prefix_len:
+            mask = mask | ((kp[:, None, :] < prefix_len)
+                           & (qp[:, :, None] < prefix_len))
+        logits = jnp.where(mask[:, None, None, :, :], logits, -1e30)
+    ref = np.asarray(jax.nn.logsumexp(logits, axis=-1))   # [B, G, Hkv, Sq]
+    want = np.empty((bsz, heads, sq), np.float32)
+    for g in range(group):
+        for j in range(kv_heads):
+            want[:, j * group + g] = ref[:, g, j]
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)

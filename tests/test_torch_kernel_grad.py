@@ -1,19 +1,21 @@
-"""The kernel wrappers give a gradient where they have a backward
-kernel, and refuse one they cannot give.
+"""The kernel wrappers give a gradient where they have a backward kernel,
+and refuse one they cannot give.
 
 B2 (flash attention) and B4 (RMSNorm) return through their
 ``torch.autograd.Function``: on CUDA a call that needs a gradient runs
 the forward kernel inside the Function (grad mode off there) and its
 backward runs the backward kernels (``flash_attention_bwd``,
-``rmsnorm_bwd``).  B1 (segment sum) and B3 (the SSD scan) write into a
-fresh tensor through ``ctypes`` and have no backward: where grad mode is
-on and an input requires a gradient, their wrappers raise (naming
-ROADMAP A.5) instead of returning a result whose gradient would
-silently be zero.  On the CPU the plain versions stay differentiable.
-The card's branch is reached here without a card: the routing helper's
-device check is patched to answer "cuda", and each kernel library's
-loader to fail loudly, so a call that gets past the guard is seen to
-reach the kernel.
+``rmsnorm_bwd``).  A bfloat16 B2 call that needs a gradient asks the
+forward for its LSE, which the Function saves and hands to the backward;
+one under ``no_grad`` asks for none.  B1 (segment sum) and B3 (the SSD
+scan) write into a fresh tensor through ``ctypes`` and have no backward:
+where grad mode is on and an input requires a gradient, their wrappers
+raise (naming ROADMAP A.5) instead of returning a result whose gradient
+would silently be zero.  On the CPU the plain versions stay
+differentiable.  The card's branch is reached here without a card: the
+routing helper's device check is patched to answer "cuda", and each
+kernel library's loader to fail loudly, so a call that gets past the
+guard is seen to reach the kernel.
 """
 
 import numpy as np
@@ -22,7 +24,10 @@ import torch
 
 from repro_torch.kernels import _route
 from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_bwd)
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_plain,
+                                                 flash_attention_plain,
+                                                 flash_lse_plain)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_fused
@@ -124,12 +129,19 @@ def _flash_bwd(rng):
     return lambda: flash_attention_bwd(q, k, v, q, q)
 
 
+def _flash_bwd_lse(rng):
+    q, k, v = (_t(rng, *s, grad=False).bfloat16()
+               for s in ((1, 2, 5, 8), (1, 1, 5, 8), (1, 1, 5, 8)))
+    lse = torch.zeros(1, 2, 5)
+    return lambda: flash_attention_bwd(q, k, v, q, q, lse=lse)
+
+
 def _rmsnorm_bwd(rng):
     x = _t(rng, 3, 16, grad=False)
     return lambda: rmsnorm_bwd(x, _t(rng, 16, grad=False), x)
 
 
-@pytest.mark.parametrize("make", [_flash_bwd, _rmsnorm_bwd])
+@pytest.mark.parametrize("make", [_flash_bwd, _flash_bwd_lse, _rmsnorm_bwd])
 def test_cuda_backward_wrappers_reach_their_kernels(card_branch, make):
     with pytest.raises(LibraryReached):
         make(np.random.default_rng(0))()
@@ -180,3 +192,98 @@ def test_cuda_gradient_above_the_backward_builds_is_refused(card_branch):
     with torch.no_grad(), pytest.raises(LibraryReached):
         flash_attention(_t(rng, 1, 1, 4, 256), _t(rng, 1, 1, 4, 256),
                         _t(rng, 1, 1, 4, 256))
+
+
+def _bf16(rng, *shape, grad=True):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) \
+        .bfloat16().requires_grad_(grad)
+
+
+def _plain_forward(calls):
+    """A stand-in for ``flash_ops._forward`` that records each call's
+    ``want_lse`` and the LSE it returns, computed by the plain versions."""
+    def forward(q, k, v, causal, prefix_len, *, want_lse=False):
+        lse = flash_lse_plain(q, k, causal=causal,
+                              prefix_len=prefix_len) if want_lse else None
+        calls.append((want_lse, lse))
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     prefix_len=prefix_len), lse
+    return forward
+
+
+@pytest.mark.parametrize("case,want", [("bf16 gradient", True),
+                                       ("no_grad", False),
+                                       ("frozen inputs", False),
+                                       ("float32 gradient", False)])
+def test_function_asks_the_forward_for_an_lse_only_when_a_gradient_is_needed(
+        card_branch, monkeypatch, case, want):
+    """On the card's branch the Function asks the forward kernel for its
+    LSE only for a bfloat16 call whose gradient will be taken (the
+    float32 backward recomputes it); under ``no_grad`` it passes none."""
+    calls = []
+    monkeypatch.setattr(flash_ops, "_forward", _plain_forward(calls))
+    rng = np.random.default_rng(0)
+    grad = case != "frozen inputs"
+    q, k, v = (_bf16(rng, *s, grad=grad)
+               for s in ((1, 4, 6, 8), (1, 2, 6, 8), (1, 2, 6, 8)))
+    if case == "float32 gradient":
+        q, k, v = (t.detach().float().requires_grad_() for t in (q, k, v))
+    if case == "no_grad":
+        with torch.no_grad():
+            flash_attention(q, k, v)
+    else:
+        flash_attention(q, k, v)
+    assert [w for w, _ in calls] == [want]
+    assert (calls[0][1] is not None) == want
+
+
+def test_function_hands_the_forwards_lse_to_the_backward(card_branch,
+                                                         monkeypatch):
+    """The LSE the forward wrote reaches the backward wrapper, and the
+    gradient is the plain backward's."""
+    calls, seen = [], []
+
+    def backward(q, k, v, o, do, *, causal, prefix_len, lse=None):
+        seen.append(lse)
+        return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                         prefix_len=prefix_len)
+    monkeypatch.setattr(flash_ops, "_forward", _plain_forward(calls))
+    monkeypatch.setattr(flash_ops, "flash_attention_bwd", backward)
+    rng = np.random.default_rng(1)
+    q, k, v = (_bf16(rng, *s)
+               for s in ((1, 4, 6, 8), (1, 2, 6, 8), (1, 2, 6, 8)))
+    out = flash_attention(q, k, v, causal=True, prefix_len=3)
+    out.float().sum().backward()
+    (_, lse), = calls
+    assert len(seen) == 1 and seen[0] is not None
+    assert seen[0].data_ptr() == lse.data_ptr() and torch.equal(seen[0], lse)
+    want = flash_attention_bwd_plain(
+        q.detach(), k.detach(), v.detach(), out.detach(),
+        torch.ones_like(out), causal=True, prefix_len=3)
+    for t, w in zip((q, k, v), want):
+        assert torch.equal(t.grad, w)
+
+
+def test_dkdv_parts_balance_the_causal_grid():
+    """The tensor-core backward splits a kv head's G q heads into the
+    fewest parts (a divisor of G) that give every SM an item."""
+    # qwen2-1.5b's train step: 8 x 2 x 8 = 128 kv tiles on 132 SMs
+    assert flash_ops.dkdv_parts(8, 2, 512, 6, 132) == 2
+    assert flash_ops.dkdv_parts(8, 8, 512, 3, 132) == 1     # 512 tiles
+    assert flash_ops.dkdv_parts(1, 1, 150, 6, 132) == 6     # too few
+    assert flash_ops.dkdv_parts(2, 2, 130, 3, 132) == 3
+    assert flash_ops.dkdv_parts(1, 1, 64, 1, 132) == 1      # G = 1
+
+
+def test_bwd_route_follows_what_tma_can_describe():
+    rng = np.random.default_rng(2)
+    q, k, v = (_bf16(rng, *s, grad=False)
+               for s in ((1, 2, 8, 16), (1, 1, 8, 16), (1, 1, 8, 16)))
+    assert flash_ops.bwd_route(q, k, v, q, q) == "wgmma"
+    f32 = [t.float() for t in (q, k, v)]
+    assert flash_ops.bwd_route(*f32, f32[0], f32[0]) == "simt"
+    odd = [_bf16(rng, 1, 2, 8, 20, grad=False)] * 5       # hd % 8 != 0
+    assert flash_ops.bwd_route(*odd) == "simt"
+    shifted = torch.zeros(1 * 2 * 8 * 16 + 1, dtype=torch.bfloat16)[1:] \
+        .view(1, 2, 8, 16)                                 # 2-byte aligned
+    assert flash_ops.bwd_route(shifted, k, v, q, q) == "simt"

@@ -211,3 +211,21 @@ def test_calibration_matches_the_reference(seed):
     got, want = calibrate_scaling_factors(obs), ref_calibrate(obs)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.as_router_kwargs() == want.as_router_kwargs()
+
+
+def test_flit_threshold_keeps_the_reference_minus_inf_at_a_subnormal_gap():
+    """ROADMAP C12, a fault of the reference kept for parity: Eq. (4)'s
+    ``flit_threshold`` divides by ``s_b - s_a`` and returns -inf when
+    that gap is subnormal and ``l_a < l_b``, where hypothesis's draw
+    ``s_b = 5e-324`` makes tests/test_perf_model.py's crossover test read
+    it as "b dominates".  Both packages return -inf there, and no flit
+    count falls below it."""
+    from repro.core.perf_model import flit_threshold as ref_threshold
+    from repro_torch.core.perf_model import (flit_threshold,
+                                             flits_and_packets)
+
+    flits, packets = flits_and_packets(64)
+    for fn in (ref_threshold, flit_threshold):
+        thr = fn(100.0, 0.0, 101.0, 5e-324, packets)
+        assert thr == -np.inf
+        assert not flits < thr
