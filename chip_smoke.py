@@ -54,7 +54,14 @@ Drives the port's main paths on the card at full width:
   train_loop``: 8 AdamW steps of 8 x 512 tokens of the synthetic stream,
   bf16 compute over float32 masters, Algorithm 1 over the gradient
   buckets; B2's and B4's backward kernels (``flash_attention_bwd``,
-  ``rmsnorm_bwd``) on every step.
+  ``rmsnorm_bwd``) on every step;
+* the SSM training path: mamba2-130m at its published width and depth
+  through ``train_loop``, 8 steps of 8 x 512 tokens: B3's backward
+  (``ssd_inner_bwd``) and B4's on every step;
+* the hybrid training path: zamba2-7b at its published width and 14 of
+  its 81 layers (at 81 its float32 masters, gradients and AdamW moments
+  exceed the card), 3 steps of 8 x 512 tokens: B2's, B3's and B4's
+  backward kernels on every step.
 
 Phases:
 
@@ -205,7 +212,29 @@ Phases:
 25. card vs CPU, one float32 train step of qwen2-1.5b at full width and
     2 layers from the same weights and batch (TF32 off): loss, gradient
     norm, every gradient, and the updated parameters under the sign
-    rule of tests/test_torch_train.py.
+    rule of tests/test_torch_train.py;
+26. B3's backward on the inputs of a bf16 mamba2-130m train step's
+    first backward call (x ``[8,4,24,128,64]``, N = 128, one group), in
+    bf16 and cast to float32, against its plain version under phase
+    23's rules, the same bits in two runs, timed by graph replay beside
+    the plain version, with its bound;
+27. the SSM training path: ``train_loop`` on mamba2-130m for 8 steps,
+    24 B3 and 24 B3-backward calls and 49 B4 and 49 B4-backward calls a
+    step asserted, ``train_step_s``, tokens/s, peak memory, one more
+    step profiled (B3's three backward kernels 24 times each); the loss
+    finite and lower at step 7 than at step 0;
+28. as phase 25 for mamba2-130m at full width and 2 layers;
+29. the hybrid training path: ``train_loop`` on zamba2-7b at 14 layers
+    for 3 steps, the launches of B2, B3, B4 and their backward calls a
+    step asserted, every loss finite and step 1's below step 0's; again
+    for 5 steps at a tenth of the lr, every loss after step 0's below
+    it; then, on the first run's captured inputs, B3's backward at
+    ``[8,4,112,128,64]``, N = 64, B2's at q, k, v ``[8,32,512,112]`` and
+    B4's at widths 3584 and 7168 (its generic route), each held and
+    timed as in phases 23 and 26;
+30. as phase 25 for zamba2-7b at full width and 3 layers with the
+    shared block between each two, so that its gradient sums over two
+    applications.
 
 Prints the kernel summary as one JSON line, then the ``ok`` line last.
 Any failed check exits non-zero; so does a machine without CUDA, and a
@@ -217,6 +246,7 @@ directory without the rest of the repository.
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import subprocess
@@ -263,7 +293,7 @@ from repro_torch.configs.whisper_large_v3 import \
     CONFIG as WHISPER  # noqa: E402
 from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
-from repro_torch.kernels import libraries  # noqa: E402
+from repro_torch.kernels import _route, libraries  # noqa: E402
 from repro_torch.kernels._build import build_all, find_nvcc  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
@@ -277,7 +307,8 @@ from repro_torch.kernels.segment_sum import (  # noqa: E402
     segment_sum_scatter, segment_sum_scatter_plain, segment_sum_sorted,
     segment_sum_sorted_plain)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd_inner, ssd_inner_plain  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    ssd_inner, ssd_inner_bwd, ssd_inner_bwd_plain, ssd_inner_plain)
 from repro_torch.kernels.ssd_scan.build import LIB as SSD_LIB  # noqa: E402
 from repro_torch.models import attention as model_attention  # noqa: E402
 from repro_torch.models import common as model_common  # noqa: E402
@@ -2561,57 +2592,80 @@ STEP_CPU_LAYERS, STEP_CPU_BATCH, STEP_CPU_SEQ = 2, 2, 64
 STEP_LOSS_RTOL, STEP_GNORM_RTOL, STEP_GRAD_TOL = 1e-5, 1e-4, 1e-4
 #: the sign rule (tests/test_torch_train.py): updated parameters compared
 #: where |g_cpu| exceeds SIGN_FLOOR of its tensor's largest, at PARAM_TOL
+#: plus what the gradient limits allow where the clipped g nears AdamW's
+#: eps: the first step moves an entry by lr g / (|g| + eps), so a gap dg
+#: in g (STEP_GRAD_TOL of the tensor's largest |g|, STEP_GNORM_RTOL of
+#: |g| through the clip) moves it by up to lr eps dg / (|g| + eps)^2,
+#: which vanishes where |g| >> eps
 SIGN_FLOOR, PARAM_TOL = 1e-3, 1e-6
 #: the optimizer of phase 25: a one-step warm-up, so the step moves each
 #: parameter by about lr
 STEP_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=8)
 
 
+#: the backward wrappers a capture records, by name: their key
+BACKWARDS = {"flash_attention_bwd": "flash", "rmsnorm_bwd": "rms",
+             "ssd_inner_bwd": "ssd"}
+
+
+@contextlib.contextmanager
+def backward_inputs():
+    """Records the first call of each backward wrapper of BACKWARDS at
+    each shape of its first input while the block runs, through the
+    wrappers' observers (``kernels._route.OBSERVERS``): ``{(key, shape):
+    (args, kwargs)}``, tensors detached.  Launches nothing, and leaves
+    the wrappers and their counts as they are."""
+    seen: dict = {}
+
+    def keep(name, args, kw):
+        seen.setdefault((BACKWARDS[name], tuple(args[0].shape)), (tuple(
+            a.detach() if isinstance(a, torch.Tensor) else a
+            for a in args), kw))
+
+    _route.OBSERVERS.append(keep)
+    try:
+        yield seen
+    finally:
+        _route.OBSERVERS.remove(keep)
+
+
 def capture_train_inputs(cfg, cuda) -> dict:
     """One bf16 train step of ``cfg`` on the card (its first forward and
     backward, no update), recording the first call of each backward
-    wrapper: B2's q, k, v, o and dO, and B4's x, gamma and dy."""
+    wrapper (:func:`backward_inputs`), by key: B2's q, k, v, o and dO,
+    B3's x, B, C, dA, gy, gS and dt, B4's x, gamma and dy."""
     from repro_torch.train.train_step import TrainConfig, value_and_grad
 
-    seen: dict = {}
-    real = {"flash": flash_ops.flash_attention_bwd,
-            "rms": rms_ops.rmsnorm_bwd}
-
-    def keep(key, fn):
-        def wrapped(*args, **kw):
-            seen.setdefault(key, (tuple(
-                a.detach() if isinstance(a, torch.Tensor) else a
-                for a in args), kw))
-            return fn(*args, **kw)
-        wrapped.launches = 0     # the wrapper counts under the module's name
-        return wrapped
-
-    flash_ops.flash_attention_bwd = keep("flash", real["flash"])
-    rms_ops.rmsnorm_bwd = keep("rms", real["rms"])
-    try:
+    with backward_inputs() as seen:
         model = model_registry.init_params(cfg, SEED, cuda)
         batch = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ).batch(
             seed=SEED, step=0, shard=0, n_shards=1, batch_size=TRAIN_BATCH)
         batch = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
         value_and_grad(model, batch, cfg, TrainConfig())
         torch.cuda.synchronize()
-    finally:
-        flash_ops.flash_attention_bwd = real["flash"]
-        rms_ops.rmsnorm_bwd = real["rms"]
     del model
     torch.cuda.empty_cache()
-    return seen
+    first: dict = {}
+    for (key, _), call in seen.items():
+        first.setdefault(key, call)
+    return first
 
 
 def hold_grads(label: str, got, plain_fn, inputs) -> float:
     """Each gradient of ``got`` against ``plain_fn(*inputs)`` under the
-    rules above; prints and returns the largest gap to the plain
-    version."""
+    rules above (a gradient the plain version does not give, None, the
+    kernel must not give either); prints and returns the largest gap to
+    the plain version."""
     want = plain_fn(*inputs)
     ref = plain_fn(*(t.float() for t in inputs))
     torch.cuda.synchronize()
     worst = 0.0
-    for name, g, w, r in zip(("d0", "d1", "d2"), got, want, ref):
+    for i, (g, w, r) in enumerate(zip(got, want, ref)):
+        name = f"d{i}"
+        if w is None:
+            check(g is None, f"{label}: {name} given, the plain version "
+                  f"gives none")
+            continue
         check(g.dtype == w.dtype and g.shape == w.shape,
               f"{label}: {name} {g.dtype} {tuple(g.shape)}")
         gap = max_err(g.float(), w.float())
@@ -2668,12 +2722,13 @@ def kernels_named(label: str, names) -> dict:
     return found
 
 
-def flash_bwd_row(args, lse) -> dict:
-    """Phase 23, B2's backward at the train step's shape: held in bf16
+def flash_bwd_row(args, lse, full: bool = True) -> dict:
+    """Phase 23, B2's backward at a train step's shape: held in bf16
     (the tensor-core route, with the forward's LSE) and in float32 (the
     inputs cast; the SIMT route), timed by graph replay beside the plain
-    backward and SDPA's autograd backward, with its bound, and its
-    kernels' HGMMA counts (phase 24's profiled step times them)."""
+    backward and SDPA's autograd backward, with its bound; with
+    ``full``, also its kernels' HGMMA counts (phase 24's profiled step
+    times them) and seeded causal, non-causal and prefix cases."""
     import torch.nn.functional as F
 
     q, k, v, o, do = args
@@ -2688,10 +2743,12 @@ def flash_bwd_row(args, lse) -> dict:
     check(route == "wgmma" and lse is not None,
           f"the train step's bf16 backward takes the {route} route")
     hgmma = {n: sum(c for f, c in hgmma_by_function(FLASH_LIB).items()
-                    if n in f) for n in FLASH_BWD_WG}
-    print(f"  HGMMA instructions in the SASS: {hgmma}")
-    check(hgmma["flash_bwd_dkdv_wg"] > 0 and hgmma["flash_bwd_dq_wg"] > 0,
-          f"the tensor-core backward's SASS holds no HGMMA: {hgmma}")
+                    if n in f) for n in FLASH_BWD_WG} if full else None
+    if full:
+        print(f"  HGMMA instructions in the SASS: {hgmma}")
+        check(hgmma["flash_bwd_dkdv_wg"] > 0 and hgmma["flash_bwd_dq_wg"]
+              > 0, f"the tensor-core backward's SASS holds no HGMMA: "
+              f"{hgmma}")
     err = hold_grads("bf16", flash_attention_bwd(q, k, v, o, do, lse=lse),
                      lambda *t: flash_attention_bwd_plain(*t), args)
     f32 = [t.float() for t in args]
@@ -2703,7 +2760,7 @@ def flash_bwd_row(args, lse) -> dict:
                                    (False, 0, (1, 3, 65, 64),
                                     (1, 1, 130, 64)),
                                    (True, 70, (1, 6, 150, 72),
-                                    (1, 1, 150, 72))):
+                                    (1, 1, 150, 72))) if full else ():
         for dt in (torch.bfloat16, torch.float32):
             a, b, c = (torch.randn(s, device=q.device, generator=rng).to(dt)
                        for s in (qs, ks, ks))
@@ -2758,11 +2815,11 @@ def flash_bwd_row(args, lse) -> dict:
                  "float32": times["float32"]}, **times["bf16"])
 
 
-def rms_bwd_row(args) -> dict:
-    """Phase 23, B4's backward at the train step's shape: held in bf16
-    and float32, timed by graph replay over a ring of copies of x beside
-    the plain backward and ``F.rms_norm``'s autograd backward, with its
-    bound."""
+def rms_bwd_row(args, want_route: str = "register") -> dict:
+    """Phase 23, B4's backward at a train step's shape: held in bf16 and
+    float32, timed by graph replay over a ring of copies of x beside the
+    plain backward and ``F.rms_norm``'s autograd backward, with its
+    bound; the route must be ``want_route``."""
     import torch.nn.functional as F
 
     x, gamma, dy = args[:3]
@@ -2774,7 +2831,7 @@ def rms_bwd_row(args) -> dict:
     ins = (x2, gamma, dy2)
     route = rms_ops.bwd_route(*ins)
     print(f"  route {route}")
-    check(route[0] == "register", f"B4's backward at {tuple(x2.shape)} "
+    check(route[0] == want_route, f"B4's backward at {tuple(x2.shape)} "
           f"takes the {route} route")
     first = rmsnorm_bwd(*ins, eps)
     again = rmsnorm_bwd(*ins, eps)
@@ -2832,111 +2889,141 @@ def backward_kernel_checks(cuda) -> list:
 TRAINED = (flash_attention, flash_attention_bwd, rmsnorm_fused, rmsnorm_bwd)
 
 
+def train_run(cfg, cuda, trained: tuple, per_step: tuple,
+              steps: int = TRAIN_STEPS, lr: float = TRAIN_LR,
+              **loop) -> tuple:
+    """``train_loop`` on ``cfg`` (bf16 compute, TRAIN_BATCH x TRAIN_SEQ
+    tokens, ``steps`` AdamW steps at peak ``lr``; ``loop``: more of its
+    arguments) with the counts of ``trained`` set to 0 just before and
+    read just after: ``per_step`` launches of each a step asserted, every
+    loss finite.  Prints each step, ``train_step_s`` (the mean of steps
+    TRAIN_TIMED of 8, else of every step after the first), tokens/s and
+    peak memory; returns (model, opt, stats, history)."""
+    from repro_torch.launch.train import train_loop
+
+    for k in trained:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    history: list = []
+    t0 = time.perf_counter()
+    model, opt, losses = train_loop(
+        cfg, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=SEED,
+        ckpt_dir=None, ckpt_every=0, lr=lr, log_every=1, device=cuda,
+        history=history, **loop)
+    wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in trained}
+    want = {k.__name__: steps * n for k, n in zip(trained, per_step)}
+    print(f"  launches over {steps} steps {counts} (want {want})")
+    check(counts == want, f"training launches {counts}, want {want}")
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(all(np.isfinite(losses)) and len(losses) == steps,
+          f"losses {losses}")
+    for h in history:
+        print(f"  step {h['step']}: loss {h['loss']:.6f} lr {h['lr']:.6e} "
+              f"grad_norm {h['grad_norm']:.6f} step_s {h['step_s']:.6f} "
+              f"modes {dict((m, h['modes'].count(m)) for m in set(h['modes']))}")
+    timed = history[TRAIN_TIMED] if steps == TRAIN_STEPS else history[1:]
+    step_s = float(np.mean([h["step_s"] for h in timed]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = 6 * n_params * tokens / step_s / BF16_FLOP_PER_S
+    print(f"  train_step_s {step_s:.6f} (mean of steps {timed[0]['step']}-"
+          f"{timed[-1]['step']}, host wall, synchronised), tokens_per_s "
+          f"{tokens / step_s:.1f}, peak memory {peak / 1e9:.3f} GB, "
+          f"{n_params} parameters, loop {wall:.1f} s wall; for information "
+          f"only 6 N tokens / train_step_s / 989e12 = {mfu:.4f}")
+    return model, opt, {
+        "launches": counts, "train_step_s": step_s,
+        "tokens_per_s": tokens / step_s, "peak_memory_gb": peak / 1e9,
+        "losses": losses, "mfu_info": mfu, "loop_wall_s": wall,
+        "n_params": n_params,
+        "grad_norm": [h["grad_norm"] for h in history],
+        "lr": [h["lr"] for h in history]}, history
+
+
+def profile_train_step(cfg, model, opt, cuda, label: str,
+                       want: dict) -> None:
+    """One more train step under ``torch.profiler``; where the trace has
+    device events, the launches of the kernels named in ``want`` (a
+    name: count) must be those counts."""
+    from repro_torch.launch.train import make_batch_np
+    from repro_torch.train.train_step import TrainConfig, train_step
+
+    b = make_batch_np(cfg, SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ),
+                      step=TRAIN_STEPS, batch=TRAIN_BATCH, seed=SEED)
+    b = {k: torch.from_numpy(v).to(cuda) for k, v in b.items()}
+    device_profile(lambda: train_step(model, opt, b, cfg=cfg,
+                                      tcfg=TrainConfig()), label)
+    if label in PROFILE_KERNELS:
+        got = kernels_named(label, want)
+        print("  the profiled step's backward kernels: " + ", ".join(
+            f"{n} x{c} {us / 1e3:.3f} ms" for n, (c, us) in got.items()))
+        check({n: c for n, (c, _) in got.items()} == want,
+              f"backward kernel launches in the profiled step {got}, "
+              f"want {want}")
+
+
 def train_path(cuda) -> dict:
     """Phase 24: ``repro_torch.launch.train.train_loop`` on qwen2-1.5b at
     full width, bf16 compute, with Algorithm 1 over the gradient
     buckets; the launches of every kernel per step asserted; one more
     step profiled."""
-    from repro_torch.launch.train import make_batch_np, train_loop
-    from repro_torch.train.train_step import TrainConfig, train_step
-
     cfg = QWEN2
     print(f"phase 24: train {cfg.name} ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} of "
           f"{cfg.hd}, vocab {cfg.vocab}), bf16 compute, {TRAIN_BATCH} x "
           f"{TRAIN_SEQ} tokens, {TRAIN_STEPS} AdamW steps, lr {TRAIN_LR}, "
           f"comm_policy app_aware")
-    for k in TRAINED:
-        k.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    history: list = []
-    t0 = time.perf_counter()
-    model, opt, losses = train_loop(
-        cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=SEED,
-        ckpt_dir=None, ckpt_every=0, lr=TRAIN_LR, log_every=1,
-        comm_policy="app_aware", device=cuda, history=history)
-    wall = time.perf_counter() - t0
-    counts = {k.__name__: k.launches for k in TRAINED}
     per_step = (cfg.n_layers, cfg.n_layers, 2 * cfg.n_layers + 1,
                 2 * cfg.n_layers + 1)
-    want = {k.__name__: TRAIN_STEPS * n for k, n in zip(TRAINED, per_step)}
-    print(f"  launches over {TRAIN_STEPS} steps {counts} (want {want}: "
-          f"per step B2 {per_step[0]} forward calls (each writing its LSE) "
-          f"and {per_step[1]} backward calls of 4 tensor-core kernels, B4 "
-          f"{per_step[2]} and {per_step[3]} of 2)")
-    check(counts == want, f"training launches {counts}, want {want}")
-    peak = torch.cuda.max_memory_allocated()
-    n_params = sum(p.numel() for p in model.parameters())
-    check(n_params == QWEN2_PARAMS, f"{n_params} parameters")
-    check(all(np.isfinite(losses)) and len(losses) == TRAIN_STEPS,
-          f"losses {losses}")
+    print(f"  per step: B2 {per_step[0]} forward calls (each writing its "
+          f"LSE) and {per_step[1]} backward calls of 4 tensor-core kernels, "
+          f"B4 {per_step[2]} and {per_step[3]} of 2")
+    model, opt, stats, history = train_run(cfg, cuda, TRAINED, per_step,
+                                           comm_policy="app_aware")
+    losses = stats["losses"]
+    check(stats["n_params"] == QWEN2_PARAMS, f"{stats['n_params']} "
+          f"parameters")
     check(losses[7] < losses[0], f"loss at step 7 {losses[7]} is not below "
           f"step 0's {losses[0]}")
-    for h in history:
-        print(f"  step {h['step']}: loss {h['loss']:.6f} lr {h['lr']:.6e} "
-              f"grad_norm {h['grad_norm']:.6f} step_s {h['step_s']:.6f} "
-              f"modes {dict((m, h['modes'].count(m)) for m in set(h['modes']))}")
-    step_s = float(np.mean([h["step_s"] for h in history[TRAIN_TIMED]]))
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    mfu = 6 * n_params * tokens / step_s / BF16_FLOP_PER_S
-    print(f"  train_step_s {step_s:.6f} (mean of steps 2-7, host wall, "
-          f"synchronised), tokens_per_s {tokens / step_s:.1f}, peak memory "
-          f"{peak / 1e9:.3f} GB, {n_params} parameters, loop {wall:.1f} s "
-          f"wall; for information only 6 N tokens / train_step_s / 989e12 "
-          f"= {mfu:.4f}")
     buckets = history[0]["modes"]
     print(f"  Algorithm 1: {len(buckets)} gradient buckets a step, "
           f"decisions per step {[h['modes'] for h in history[:1]]} ... "
           f"{sum(m == 'HIERARCHICAL' for h in history for m in h['modes'])}"
           f" HIERARCHICAL of {sum(len(h['modes']) for h in history)}")
-    b = make_batch_np(cfg, SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ),
-                      step=TRAIN_STEPS, batch=TRAIN_BATCH, seed=SEED)
-    b = {k: torch.from_numpy(v).to(cuda) for k, v in b.items()}
-    device_profile(lambda: train_step(model, opt, b, cfg=cfg,
-                                      tcfg=TrainConfig()), "train step")
-    if "train step" in PROFILE_KERNELS:
-        got = {**kernels_named("train step", FLASH_BWD_WG),
-               **kernels_named("train step", RMS_BWD_REGS)}
-        print("  the profiled step's backward kernels: " + ", ".join(
-            f"{n} x{c} {us / 1e3:.3f} ms" for n, (c, us) in got.items()))
-        sms = torch.cuda.get_device_properties(
-            cuda).multi_processor_count
-        parts = flash_ops.dkdv_parts(TRAIN_BATCH, cfg.n_kv_heads, TRAIN_SEQ,
-                                     cfg.n_heads // cfg.n_kv_heads, sms)
-        want_k = {n: per_step[1] * int(n != "flash_bwd_kv_sum" or parts > 1)
-                  for n in FLASH_BWD_WG}
-        want_k.update({n: per_step[3] for n in RMS_BWD_REGS})
-        check({n: c for n, (c, _) in got.items()} == want_k,
-              f"backward kernel launches in the profiled step {got}, "
-              f"want {want_k}")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    parts = flash_ops.dkdv_parts(TRAIN_BATCH, cfg.n_kv_heads, TRAIN_SEQ,
+                                 cfg.n_heads // cfg.n_kv_heads, sms)
+    want_k = {n: per_step[1] * int(n != "flash_bwd_kv_sum" or parts > 1)
+              for n in FLASH_BWD_WG}
+    want_k.update({n: per_step[3] for n in RMS_BWD_REGS})
+    profile_train_step(cfg, model, opt, cuda, "train step", want_k)
     del model, opt
     torch.cuda.empty_cache()
-    return {"launches": counts, "train_step_s": step_s,
-            "tokens_per_s": tokens / step_s, "peak_memory_gb": peak / 1e9,
-            "losses": losses, "mfu_info": mfu, "loop_wall_s": wall,
-            "idle": PROFILES.get("train step"),
-            "grad_norm": [h["grad_norm"] for h in history],
-            "lr": [h["lr"] for h in history],
-            "buckets": len(buckets),
-            "hierarchical_share": float(np.mean(
-                [m == "HIERARCHICAL" for h in history for m in h["modes"]]))}
+    return dict(stats, idle=PROFILES.get("train step"), buckets=len(buckets),
+                hierarchical_share=float(np.mean(
+                    [m == "HIERARCHICAL" for h in history
+                     for m in h["modes"]])))
 
 
-def train_cpu_compare(cuda) -> dict:
-    """Phase 25: one float32 step of qwen2-1.5b at full width and
-    STEP_CPU_LAYERS layers on the card and on the CPU, from the same
-    weights and batch: loss, gradient norm, every gradient, and the
-    updated parameters under the sign rule."""
+def train_cpu_compare(cuda, base=QWEN2, phase: int = 25, **cut) -> dict:
+    """Phase 25 (28 for mamba2-130m, 30 for zamba2-7b): one float32 step
+    of ``base`` at full width and STEP_CPU_LAYERS layers (or the fields
+    ``cut`` gives) on the card and on the CPU, from the same weights and
+    batch: loss, gradient norm, every gradient, and the updated
+    parameters under the sign rule."""
     from repro_torch.train.optimizer import AdamWConfig, adamw_init, \
         adamw_update
     from repro_torch.train.train_step import TrainConfig, value_and_grad
 
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
     torch.backends.cudnn.allow_tf32 = False
-    cfg = QWEN2.scaled(n_layers=STEP_CPU_LAYERS, dtype=torch.float32)
-    print(f"phase 25: card vs CPU, one float32 train step of {cfg.name} at "
-          f"{cfg.n_layers} layers, {STEP_CPU_BATCH} x {STEP_CPU_SEQ} tokens "
-          f"(TF32 off for matmul and cuDNN)")
+    cut = {"n_layers": STEP_CPU_LAYERS, **cut}
+    cfg = base.scaled(dtype=torch.float32, **cut)
+    print(f"phase {phase}: card vs CPU, one float32 train step of {cfg.name} "
+          f"at full width, {', '.join(f'{k} {v}' for k, v in cut.items())}, "
+          f"{STEP_CPU_BATCH} x {STEP_CPU_SEQ} tokens (TF32 off for matmul "
+          f"and cuDNN)")
     t0 = time.perf_counter()
     host = model_registry.init_params(cfg, SEED, "cpu")
     batch = SyntheticLM(vocab=cfg.vocab, seq_len=STEP_CPU_SEQ).batch(
@@ -2946,8 +3033,7 @@ def train_cpu_compare(cuda) -> dict:
     for label, dev in (("card", cuda), ("cpu", torch.device("cpu"))):
         model = host           # the CPU run updates the host's model last
         if label == "card":
-            model = model_tf.DenseLM(cfg, device=dev)
-            model.load_state_dict(host.state_dict())
+            model = copy.deepcopy(host).to(dev)
         b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         t1 = time.perf_counter()
         loss, _, grads = value_and_grad(model, b, cfg, tcfg)
@@ -2955,6 +3041,7 @@ def train_cpu_compare(cuda) -> dict:
         params = dict(model.named_parameters())
         _, _, m = adamw_update(tcfg.optimizer, params, grads,
                                adamw_init(params))
+        lr_used = m["lr"]
         out[label] = (float(loss), float(m["grad_norm"]), g_host,
                       {k: p.detach().cpu().clone() for k, p in params.items()})
         print(f"  {label}: loss {float(loss):.7f}, grad_norm "
@@ -2966,28 +3053,233 @@ def train_cpu_compare(cuda) -> dict:
     gnorm_rel = abs(nc - nh) / abs(nh)
     grad_gap = max(float((gc[k] - g).abs().max() / g.abs().max())
                    for k, g in gh.items())
+    eps, lr = tcfg.optimizer.eps, float(lr_used)
+    clip = min(1.0, tcfg.optimizer.grad_clip_norm / nh)
     compared = total = 0
-    param_gap = 0.0
+    param_gap, worst = 0.0, (0.0, "-", 0.0, 0.0)
     for k, g in gh.items():
-        keep = g.abs() > SIGN_FLOOR * g.abs().max()
-        param_gap = max(param_gap, float((pc[k] - ph[k])[keep].abs().max()))
+        a = g.abs()
+        keep = a > SIGN_FLOOR * a.max()
+        dg = clip * (STEP_GRAD_TOL * a.max() + STEP_GNORM_RTOL * a)
+        limit = PARAM_TOL + lr * eps * dg / (clip * a + eps) ** 2
+        gap = (pc[k] - ph[k]).abs()
+        share = torch.where(keep, gap / limit, 0.0)
+        at = int(share.argmax())
+        if keep.any():
+            param_gap = max(param_gap, float(gap[keep].max()))
+        worst = max(worst, (float(share.flatten()[at]), k,
+                            float(gap.flatten()[at]),
+                            float(a.flatten()[at] * clip / eps)))
         compared += int(keep.sum())
         total += keep.numel()
     print(f"  loss rel diff {loss_rel:.3e} (limit {STEP_LOSS_RTOL}), "
           f"grad_norm rel diff {gnorm_rel:.3e} (limit {STEP_GNORM_RTOL}), "
           f"largest gradient gap {grad_gap:.3e} of its tensor's largest "
           f"entry (limit {STEP_GRAD_TOL}), updated parameters: largest gap "
-          f"{param_gap:.3e} (limit {PARAM_TOL}) over the "
-          f"{compared / total:.1%} of entries whose |g| exceeds "
-          f"{SIGN_FLOOR} of their tensor's largest; "
+          f"{param_gap:.3e} (limit {PARAM_TOL}, more where the clipped |g| "
+          f"nears eps) over the {compared / total:.1%} of entries whose |g| "
+          f"exceeds {SIGN_FLOOR} of their tensor's largest; nearest its "
+          f"limit: {worst[2]:.3e}, {worst[0]:.3f} of it ({worst[1]}, "
+          f"clipped |g| {worst[3]:.1f} eps); "
           f"{time.perf_counter() - t0:.1f} s wall")
     check(loss_rel <= STEP_LOSS_RTOL, f"loss {lc} vs {lh}")
     check(gnorm_rel <= STEP_GNORM_RTOL, f"grad_norm {nc} vs {nh}")
     check(grad_gap <= STEP_GRAD_TOL, f"gradient gap {grad_gap}")
-    check(param_gap <= PARAM_TOL, f"updated parameter gap {param_gap}")
+    check(worst[0] <= 1.0, f"updated parameter gap {worst[2]} at {worst[1]}, "
+          f"{worst[0]} of its limit")
     return {"loss_rel": loss_rel, "grad_norm_rel": gnorm_rel,
             "grad_gap": grad_gap, "param_gap": param_gap,
-            "compared_share": compared / total}
+            "compared_share": compared / total,
+            "param_limit_share": worst[0]}
+
+
+# --------------------------------------------------------- phases 26-30
+SSD_BWD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu"
+#: B3's backward kernels, one launch each a call (the heads' sum where a
+#: group has several, as in both models)
+SSD_BWD = ("ssd_bwd_head", "ssd_bwd_sum", "ssd_bwd_group")
+#: the SSM family's kernels on its training path
+SSM_TRAINED = (ssd_inner, ssd_inner_bwd, rmsnorm_fused, rmsnorm_bwd)
+#: mamba2-130m's parameters (tied embedding over the padded vocab)
+MAMBA2_PARAMS = 129_001_920
+#: zamba2-7b's training depth: its float32 masters, gradients and AdamW
+#: moments take 16 bytes a parameter, 108 GB at 81 layers; at 14 (two
+#: super-blocks of 6 with the shared block once between them, 2 trailing
+#: layers; phase 20's depth) they take 24.4 GB
+ZAMBA2_TRAIN_LAYERS, ZAMBA2_TRAIN_STEPS = 14, 3
+#: phase 29's second run: ZAMBA2_LOW_STEPS steps at a tenth of TRAIN_LR,
+#: where every loss after step 0's must be below it (at TRAIN_LR the
+#: warm-up reaches 6e-4 at step 2, and the loss of this 3584-wide model
+#: rises there above step 0's, as qwen2-1.5b's does in phase 24)
+ZAMBA2_LOW_LR, ZAMBA2_LOW_STEPS = TRAIN_LR / 10, 5
+#: phase 30's cut of zamba2-7b: 3 layers, the shared block between each two
+#: (period 1), so that it is applied twice and its gradient sums over
+#: both applications
+ZAMBA2_CPU_CUT = dict(n_layers=3, shared_attn_period=1)
+
+
+def ssd_bwd_row(args, model: str) -> dict:
+    """B3's backward on a train step's captured inputs (x, B, C, dA, gy,
+    gS, dt): held in bf16 (as captured) and in float32 (x, B and C cast),
+    the same bits in two runs, timed by graph replay beside the plain
+    version, with its bound."""
+    x, b, c, da, gy, gs, dt = args
+    bsz, nc, heads, q, p = x.shape
+    groups, n = b.shape[2], b.shape[-1]
+    print(f"  ssd_inner_bwd on the {model} train step's inputs: x "
+          f"{tuple(x.shape)} {str(x.dtype)[6:]}, B, C {tuple(b.shape)}, gy, "
+          f"gS float32, dt given")
+    check(x.dtype == torch.bfloat16 and dt is not None,
+          f"the {model} train step's B3 backward ran on {x.dtype}")
+    first = ssd_inner_bwd(*args)
+    again = ssd_inner_bwd(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(f, g) for f, g in zip(first, again)),
+          "ssd_inner_bwd: two runs differ")
+    print("  gx, gB, gC, gdA and gdt the same bits in two runs")
+    err = hold_grads("bf16", first, ssd_inner_bwd_plain, args)
+    f32 = [t.float() for t in args]
+    err = max(err, hold_grads("float32", ssd_inner_bwd(*f32),
+                              ssd_inner_bwd_plain, f32))
+    cells, pairs = bsz * nc * heads, q * (q + 1) // 2
+    flops = 2 * (cells * (2 * pairs * p + 2 * q * n * p)
+                 + bsz * nc * groups * 3 * pairs * n)
+    scratch_mb = cells * q * (q + n) * 4 / 1e6
+    times = {}
+    for label, ins in (("bf16", args), ("float32", f32)):
+        nbytes = sum(t.numel() * t.element_size() for t in ins) + \
+            sum(t.numel() * t.element_size() for t in (ins[0], ins[1],
+                                                       ins[2], ins[3], ins[6]))
+        ms = graph_ms(lambda: ssd_inner_bwd(*ins), 10)
+        plain_ms = cuda_ms(lambda: ssd_inner_bwd_plain(*ins), 3)
+        peak = BF16_FLOP_PER_S if label == "bf16" else F32_FLOP_PER_S
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / peak * 1e3
+        times[label] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                        "bound_ms": max(bytes_ms, ops_ms),
+                        "bound_by": "bytes" if bytes_ms >= ops_ms
+                        else "operations"}
+        print(f"  ssd_inner_bwd {label}: {ms * 1e3:.2f} us/call (3 SIMT "
+              f"kernels, graph replay), plain {plain_ms * 1e3:.2f} us, bound "
+              f"{max(bytes_ms, ops_ms) * 1e3:.2f} us ({nbytes} bytes: "
+              f"{bytes_ms * 1e3:.2f} us; {flops} flop at {peak:.3g} flop/s: "
+              f"{ops_ms * 1e3:.2f} us), {max(bytes_ms, ops_ms) / ms:.1%} of "
+              f"the bound, {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; scratch "
+              f"{scratch_mb:.1f} MB a call")
+    return dict({"name": "ssd_inner_bwd", "route": "cuda",
+                 "source": SSD_BWD_SOURCE, "replaces": SSD_TPU,
+                 "launches": 0, "max_abs_err": err, "model": model,
+                 "shape": list(x.shape) + [n, groups],
+                 "scratch_mb": scratch_mb, "float32": times["float32"]},
+                **times["bf16"])
+
+
+def ssm_backward_checks(cuda) -> dict:
+    """Phase 26: B3's backward on the inputs of a mamba2-130m train
+    step's first backward call (the last layer's), against its plain
+    version, timed."""
+    t0 = time.perf_counter()
+    print(f"phase 26: B3's backward on a {MAMBA2.name} train step's inputs "
+          f"({TRAIN_BATCH} x {TRAIN_SEQ} tokens, bf16)")
+    seen = capture_train_inputs(MAMBA2, cuda)
+    args, kw = seen["ssd"]
+    check(not kw, f"the train step's B3 backward ran with {kw}")
+    row = ssd_bwd_row(args, MAMBA2.name)
+    del seen, args
+    torch.cuda.empty_cache()
+    print(f"phase 26: {time.perf_counter() - t0:.1f} s wall")
+    return row
+
+
+def ssm_train_path(cuda) -> dict:
+    """Phase 27: ``train_loop`` on mamba2-130m at full width and depth,
+    bf16 compute, TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens;
+    per step 24 B3 and 24 B3-backward calls, 49 B4 and 49 B4-backward
+    calls asserted; one more step profiled."""
+    cfg = MAMBA2
+    d_inner = cfg.ssm_expand * cfg.d_model
+    print(f"phase 27: train {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {d_inner // cfg.ssm_head_dim} SSD heads of "
+          f"{cfg.ssm_head_dim}, N = {cfg.ssm_state}, chunk {cfg.ssm_chunk}, "
+          f"vocab {cfg.vocab}), bf16 compute, {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens, {TRAIN_STEPS} AdamW steps, lr {TRAIN_LR}")
+    per_step = (cfg.n_layers, cfg.n_layers, 2 * cfg.n_layers + 1,
+                2 * cfg.n_layers + 1)
+    ssd_inner.bf16_launches = 0
+    model, opt, stats, _ = train_run(cfg, cuda, SSM_TRAINED, per_step)
+    losses = stats["losses"]
+    check(stats["n_params"] == MAMBA2_PARAMS, f"{stats['n_params']} "
+          f"parameters")
+    check(losses[7] < losses[0], f"loss at step 7 {losses[7]} is not below "
+          f"step 0's {losses[0]}")
+    check(ssd_inner.bf16_launches == ssd_inner.launches,
+          f"{ssd_inner.launches - ssd_inner.bf16_launches} B3 launches "
+          f"off the tensor-core route")
+    want_k = {n: per_step[1] for n in SSD_BWD}
+    want_k.update({n: per_step[3] for n in RMS_BWD_REGS})
+    profile_train_step(cfg, model, opt, cuda, "ssm train step", want_k)
+    del model, opt
+    torch.cuda.empty_cache()
+    return dict(stats, idle=PROFILES.get("ssm train step"))
+
+
+def hybrid_train_path(cuda) -> tuple:
+    """Phase 29: ``train_loop`` on zamba2-7b at full width and
+    ZAMBA2_TRAIN_LAYERS layers for ZAMBA2_TRAIN_STEPS steps, the launches
+    of B2, B3, B4 and their backward calls per step asserted, every loss
+    finite and step 1's below step 0's; again for ZAMBA2_LOW_STEPS steps
+    at ZAMBA2_LOW_LR, every loss after step 0's below it; then the backward
+    kernels on the first run's captured inputs (B3's, B2's at head dim
+    112, B4's at widths 3584 and 7168) against their plain versions,
+    timed.  Returns (stats, rows)."""
+    cfg = ZAMBA2.scaled(n_layers=ZAMBA2_TRAIN_LAYERS)
+    n_super, period, rem, apps = hybrid_layout(cfg)
+    d_inner = cfg.ssm_expand * cfg.d_model
+    print(f"phase 29: train {cfg.name} at full width, {cfg.n_layers} of "
+          f"{ZAMBA2.n_layers} Mamba2 layers ({n_super} super-blocks of "
+          f"{period}, the shared block {apps} time(s), {rem} trailing; "
+          f"d_model {cfg.d_model}, {d_inner // cfg.ssm_head_dim} SSD heads "
+          f"at N = {cfg.ssm_state}, the shared block's {cfg.n_heads} heads "
+          f"of {cfg.hd}), bf16 compute, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+          f"{ZAMBA2_TRAIN_STEPS} AdamW steps")
+    t0 = time.perf_counter()
+    trained = TRAINED + (ssd_inner, ssd_inner_bwd)
+    norms = 2 * cfg.n_layers + 2 * apps + 1
+    per_step = (apps, apps, norms, norms, cfg.n_layers, cfg.n_layers)
+    with backward_inputs() as seen:
+        model, opt, stats, _ = train_run(cfg, cuda, trained, per_step,
+                                         steps=ZAMBA2_TRAIN_STEPS)
+    del model, opt
+    torch.cuda.empty_cache()
+    losses = stats["losses"]
+    check(losses[1] < losses[0], f"loss at step 1 {losses[1]} is not below "
+          f"step 0's {losses[0]}")
+    print(f"  again at lr {ZAMBA2_LOW_LR} for {ZAMBA2_LOW_STEPS} steps")
+    model, opt, low, _ = train_run(cfg, cuda, trained, per_step,
+                                   steps=ZAMBA2_LOW_STEPS, lr=ZAMBA2_LOW_LR)
+    del model, opt
+    torch.cuda.empty_cache()
+    check(max(low["losses"][1:]) < low["losses"][0],
+          f"losses at lr {ZAMBA2_LOW_LR} {low['losses']}: one after step 0 "
+          f"is not below step 0's")
+    stats["low_lr"] = {k: low[k] for k in ("losses", "grad_norm", "lr")}
+    print(f"  {time.perf_counter() - t0:.1f} s wall to here")
+    calls = {}
+    for (key, shape), call in seen.items():
+        calls.setdefault((key, shape[-1]), call)
+    check(sorted(calls) == [("flash", cfg.hd), ("rms", cfg.d_model),
+                            ("rms", d_inner), ("ssd", cfg.ssm_head_dim)],
+          f"backward calls seen {sorted(calls)}")
+    (fa, fkw) = calls["flash", cfg.hd]
+    rows = {"flash": flash_bwd_row(fa, fkw.get("lse"), full=False),
+            "ssd": ssd_bwd_row(calls["ssd", cfg.ssm_head_dim][0], ZAMBA2.name),
+            "rms": [rms_bwd_row(ra + tuple(rkw.values()), "generic")
+                    for ra, rkw in (calls["rms", cfg.d_model],
+                                    calls["rms", d_inner])]}
+    del seen, calls, fa
+    torch.cuda.empty_cache()
+    print(f"phase 29: {time.perf_counter() - t0:.1f} s wall")
+    return stats, rows
 
 
 def main() -> int:
@@ -3367,12 +3659,45 @@ def main() -> int:
 
     # phase 25: card vs CPU, one float32 train step at 2 layers
     train["card_vs_cpu"] = train_cpu_compare(cuda)
+    trains = {QWEN2.name: train}
+
+    # phase 26: B3's backward on a mamba2-130m train step's inputs
+    kernels.append(ssm_backward_checks(cuda))
+
+    # phase 27: the SSM training path; launch counts from here on are its
+    # own
+    t0 = time.perf_counter()
+    trains[MAMBA2.name] = ssm_train_path(cuda)
+    print(f"phase 27: {time.perf_counter() - t0:.1f} s wall")
+
+    # phase 28: card vs CPU, one float32 mamba2-130m step at 2 layers
+    trains[MAMBA2.name]["card_vs_cpu"] = train_cpu_compare(cuda, MAMBA2, 28)
+
+    # phase 29: the hybrid training path at a cut depth, then its backward
+    # kernels on its first step's inputs
+    trains[ZAMBA2.name], zrows = hybrid_train_path(cuda)
+
+    # phase 30: card vs CPU, one float32 zamba2-7b step at full width with
+    # the shared block applied twice
+    trains[ZAMBA2.name]["card_vs_cpu"] = train_cpu_compare(
+        cuda, ZAMBA2, 30, **ZAMBA2_CPU_CUT)
+    rows = {r["name"]: r for r in kernels}
+    for name, entries in (("flash_attention_bwd", [zrows["flash"]]),
+                          ("ssd_inner_bwd", [zrows["ssd"]]),
+                          ("rmsnorm_bwd", zrows["rms"])):
+        rows[name].setdefault("by_shape", []).extend(
+            {k: e[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms")}
+            for e in entries)
+        rows[name]["max_abs_err"] = max([rows[name]["max_abs_err"]] +
+                                        [e["max_abs_err"] for e in entries])
 
     # each kernel's launches on the serving and training paths that run
-    # it; the backward kernels on the training path
+    # it; the backward kernels on a training path
     paths = {f"serve {name}": st["launches"]
              for name, st in serve_stats.items()}
-    paths[f"train {QWEN2.name}"] = train["launches"]
+    paths.update({f"train {name}": st["launches"]
+                  for name, st in trains.items()})
     for row in kernels:
         if row["name"].startswith("segment_sum"):
             continue
@@ -3382,15 +3707,17 @@ def main() -> int:
               f"{row['name']} never ran on a serving or training path: "
               f"{by_path}")
         if row["name"].endswith("_bwd"):
-            check(by_path.get(f"train {QWEN2.name}", 0) > 0,
-                  f"{row['name']} never ran on the training path")
+            check(any(n > 0 for name, n in by_path.items()
+                      if name.startswith("train ")),
+                  f"{row['name']} never ran on a training path")
         row["launches"], row["launches_by_path"] = sum(by_path.values()), \
             by_path
     for name, st in serve_stats.items():
         print(f"  serve {name} " + json.dumps(
             {k: v for k, v in st.items() if k != "launches"}))
-    print(f"  train {QWEN2.name} " + json.dumps(
-        {k: v for k, v in train.items() if k != "launches"}))
+    for name, st in trains.items():
+        print(f"  train {name} " + json.dumps(
+            {k: v for k, v in st.items() if k != "launches"}))
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

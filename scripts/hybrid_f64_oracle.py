@@ -217,7 +217,7 @@ def port_layers(model, toks, cfg, feed=None) -> dict:
         return torch.from_numpy(feed[prev]).to(cfg.dtype)
 
     with torch.no_grad():
-        for a, layers in _groups(model):
+        for a, layers in _groups(model, w["ln"]):
             if a:
                 name = next(it)
                 x, _ = block_forward(w["shared"], start(x), cfg, positions)

@@ -60,7 +60,7 @@ import math
 import torch
 
 from repro_torch.kernels import _route
-from repro_torch.kernels._route import launches_kernel
+from repro_torch.kernels._route import launches_kernel, observed
 from repro_torch.kernels.flash_attention.build import LIB
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -309,6 +309,7 @@ def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             and aligned else "simt")
 
 
+@observed
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
                         causal: bool = True, prefix_len: int = 0,

@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._route import launches_kernel
+from repro_torch.kernels._route import launches_kernel, observed
 from repro_torch.kernels.rmsnorm.build import LIB
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -135,6 +135,7 @@ def _forward(x: torch.Tensor, gamma: torch.Tensor,
 rmsnorm_fused.launches = 0
 
 
+@observed
 def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
                 eps: float = 1e-5) -> tuple:
     """``(dx, dgamma)`` of :func:`rmsnorm_fused` at ``x``, ``gamma`` for

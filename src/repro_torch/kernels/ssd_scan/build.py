@@ -1,5 +1,6 @@
-"""The SSD within-chunk CUDA library (``csrc/ssd_scan.cu``), built with
-``nvcc`` for ``sm_90a`` at first use and loaded with ``ctypes``
+"""The SSD within-chunk CUDA library: the forward (``csrc/ssd_scan.cu``)
+and its backward (``csrc/ssd_scan_bwd.cu``), built with ``nvcc`` for
+``sm_90a`` at first use and loaded with ``ctypes``
 (:mod:`repro_torch.kernels._build`)."""
 
 from __future__ import annotations
@@ -8,8 +9,11 @@ from pathlib import Path
 
 from repro_torch.kernels._build import HOPPER_HEADER, KernelLibrary
 
+_CSRC = Path(__file__).resolve().parent / "csrc"
+
 LIB = KernelLibrary(
-    Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu", "ssd_scan",
+    (_CSRC / "ssd_scan.cu", _CSRC / "ssd_scan_bwd.cu"), "ssd_scan",
     {"ssd_inner": ("ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "i32",
-                   "i32", "i32", "i32", "i32", "i32", "i32", "ptr")},
+                   "i32", "i32", "i32", "i32", "i32", "i32", "ptr"),
+     "ssd_inner_bwd": ("ptr",) * 13 + ("i32",) * 7 + ("ptr",)},
     headers=(HOPPER_HEADER,))

@@ -1,5 +1,6 @@
-"""Mamba2 SSD scan: the within-chunk CUDA wrapper, its plain PyTorch
-version, and the full chunked scan built on it.
+"""Mamba2 SSD scan: the within-chunk CUDA wrappers (forward and
+backward), their plain PyTorch versions, the autograd Function that
+joins them, and the full chunked scan built on them.
 
 Counterpart of ``repro/kernels/ssd_scan``.  :func:`ssd_inner` computes,
 per (batch, chunk, head) cell, the quadratic within-chunk term and the
@@ -29,17 +30,19 @@ contract) or ``x`` and ``dt`` ``[B,Nc,H,Q]`` float32, from which it
 forms ``x * dt`` in float32 on either route (what :func:`ssd_scan_op`
 passes).
 
-Mixed dtypes raise.  :func:`ssd_inner` runs the plain version of its
-route only for tensors on the CPU (which only the tests pass), launches
-a kernel of ``csrc/ssd_scan.cu`` for CUDA tensors or raises (also
-where an input needs a gradient: the kernels have no backward, which
-waits for mamba2-130m's training, ROADMAP A.5;
-:mod:`repro_torch.kernels._route`), and counts
-its launches in ``ssd_inner.launches`` (those of the tensor-core kernel
-also in ``ssd_inner.bf16_launches``).  :func:`ssd_scan_op` adds the
-chunk reshape, the cumulative decay, the cross-chunk state recurrence
-(a loop over chunks) and the off-diagonal term as torch ops: the
-contract of ``models.mamba2.ssd_chunked``, with B and C per group.
+Mixed dtypes raise.  :func:`ssd_inner` returns through
+:class:`SSDInnerFunction`: its forward runs the forward kernel with grad
+mode off and saves the inputs, its backward runs :func:`ssd_inner_bwd`,
+the kernels of ``csrc/ssd_scan_bwd.cu`` (float32 math on either input
+dtype).  Each wrapper runs its plain version only for tensors on the CPU (which
+only the tests pass), launches its kernel for CUDA tensors or raises
+(:mod:`repro_torch.kernels._route`), and counts its launches in
+``ssd_inner.launches`` (those of the tensor-core kernel also in
+``ssd_inner.bf16_launches``) and ``ssd_inner_bwd.launches``.
+:func:`ssd_scan_op` adds the chunk reshape, the cumulative decay, the
+cross-chunk state recurrence (a loop over chunks) and the off-diagonal
+term as torch ops: the contract of ``models.mamba2.ssd_chunked``, with
+B and C per group.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._route import launches_kernel
+from repro_torch.kernels._route import launches_kernel, observed
 from repro_torch.kernels.ssd_scan.build import LIB
 
 #: the kernels' tile limits (``csrc/ssd_scan.cu``)
@@ -117,51 +120,59 @@ def bf16_limits(xdt, b_mat, c_mat, dacum, dt=None):
                                                       w)))
 
 
-def ssd_inner(xdt: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
-              dacum: torch.Tensor, dt: Optional[torch.Tensor] = None):
-    """xdt ``[B,Nc,H,Q,P]`` (x where dt is given); b/c ``[B,Nc,G,Q,N]``
-    with G dividing H; dacum and dt ``[B,Nc,H,Q]`` float32; xdt, b and c
-    all float32 or all bfloat16; all contiguous, on one device.  Returns
-    ``(y_diag [B,Nc,H,Q,P], states [B,Nc,H,N,P])``, float32."""
+def _check(name: str, xdt, b_mat, c_mat, dacum, dt, gy=None,
+           gstates=None) -> None:
+    """The contract of :func:`ssd_inner`, and of the output gradients
+    ``gy`` and ``gstates`` where given (:func:`ssd_inner_bwd`)."""
     if xdt.dim() != 5 or b_mat.dim() != 5:
-        raise ValueError(f"ssd_inner: want xdt [B,Nc,H,Q,P] and b, c "
+        raise ValueError(f"{name}: want xdt [B,Nc,H,Q,P] and b, c "
                          f"[B,Nc,G,Q,N], got {tuple(xdt.shape)}, "
                          f"{tuple(b_mat.shape)}")
     bsz, nc, heads, q, p = xdt.shape
     groups, n = b_mat.shape[2], b_mat.shape[-1]
     if groups == 0 or heads % groups:
-        raise ValueError(f"ssd_inner: {heads} heads are not a multiple of "
+        raise ValueError(f"{name}: {heads} heads are not a multiple of "
                          f"{groups} groups")
-    want = {"b_mat": (b_mat, (bsz, nc, groups, q, n)),
-            "c_mat": (c_mat, (bsz, nc, groups, q, n)),
-            "dacum": (dacum, (bsz, nc, heads, q))}
-    if dt is not None:
-        want["dt"] = (dt, (bsz, nc, heads, q))
-    for name, (t, shape) in want.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"ssd_inner: {name} {tuple(t.shape)}, want "
-                             f"{shape}")
+    given = {k: t for k, t in (("xdt", xdt), ("b_mat", b_mat),
+                               ("c_mat", c_mat), ("dacum", dacum),
+                               ("dt", dt), ("gy", gy), ("gstates", gstates))
+             if t is not None}
+    want = {"xdt": (bsz, nc, heads, q, p), "b_mat": (bsz, nc, groups, q, n),
+            "c_mat": (bsz, nc, groups, q, n), "dacum": (bsz, nc, heads, q),
+            "dt": (bsz, nc, heads, q), "gy": (bsz, nc, heads, q, p),
+            "gstates": (bsz, nc, heads, n, p)}
+    for key, t in given.items():
+        if tuple(t.shape) != want[key]:
+            raise ValueError(f"{name}: {key} {tuple(t.shape)}, want "
+                             f"{want[key]}")
     if xdt.dtype not in DTYPES or b_mat.dtype != xdt.dtype or \
-            c_mat.dtype != xdt.dtype or dacum.dtype != torch.float32 or \
-            (dt is not None and dt.dtype != torch.float32):
-        raise ValueError(f"ssd_inner: want xdt, b, c all float32 or all "
-                         f"bfloat16 and dacum, dt float32, got {xdt.dtype}, "
-                         f"{b_mat.dtype}, {c_mat.dtype}, {dacum.dtype}, "
-                         f"{None if dt is None else dt.dtype}")
-    tensors = {"xdt": xdt, "b_mat": b_mat, "c_mat": c_mat, "dacum": dacum}
-    if dt is not None:
-        tensors["dt"] = dt
-    for name, t in tensors.items():
+            c_mat.dtype != xdt.dtype or any(
+                t.dtype != torch.float32 for k, t in given.items()
+                if k not in ("xdt", "b_mat", "c_mat")):
+        raise ValueError(f"{name}: want xdt, b, c all float32 or all "
+                         f"bfloat16 and the rest float32, got " + ", ".join(
+                             f"{k} {t.dtype}" for k, t in given.items()))
+    for key, t in given.items():
         if not t.is_contiguous():
-            raise ValueError(f"ssd_inner: {name} must be contiguous")
+            raise ValueError(f"{name}: {key} must be contiguous")
         if t.device != xdt.device:
-            raise ValueError(f"ssd_inner: {name} on {t.device}, xdt on "
+            raise ValueError(f"{name}: {key} on {t.device}, xdt on "
                              f"{xdt.device}")
+
+
+def _tile_limits(name: str, q: int, n: int, p: int) -> None:
+    if not (1 <= q <= MAX_Q and 1 <= n <= MAX_N and 1 <= p <= MAX_P):
+        raise ValueError(f"{name}: Q={q}, N={n}, P={p}; the kernel "
+                         f"takes Q <= {MAX_Q}, N <= {MAX_N}, P <= {MAX_P}")
+
+
+def _forward(xdt, b_mat, c_mat, dacum, dt):
+    """The forward kernel on the card, the plain version on the CPU."""
     if not launches_kernel("ssd_inner", xdt, b_mat, c_mat, dacum, dt):
         return ssd_inner_plain(xdt, b_mat, c_mat, dacum, dt)
-    if not (1 <= q <= MAX_Q and 1 <= n <= MAX_N and 1 <= p <= MAX_P):
-        raise ValueError(f"ssd_inner: Q={q}, N={n}, P={p}; the kernel "
-                         f"takes Q <= {MAX_Q}, N <= {MAX_N}, P <= {MAX_P}")
+    bsz, nc, heads, q, p = xdt.shape
+    groups, n = b_mat.shape[2], b_mat.shape[-1]
+    _tile_limits("ssd_inner", q, n, p)
     bf16 = xdt.dtype == torch.bfloat16
     y = torch.empty(xdt.shape, dtype=torch.float32, device=xdt.device)
     states = torch.empty((bsz, nc, heads, n, p), dtype=torch.float32,
@@ -182,8 +193,126 @@ def ssd_inner(xdt: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
     return y, states
 
 
+class SSDInnerFunction(torch.autograd.Function):
+    """B3 with its gradient: the forward kernel forward and the backward
+    kernels backward on the card, the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, xdt, b_mat, c_mat, dacum, dt):
+        ctx.save_for_backward(xdt, b_mat, c_mat, dacum, dt)
+        return _forward(xdt, b_mat, c_mat, dacum, dt)
+
+    @staticmethod
+    def backward(ctx, gy, gstates):
+        xdt, b_mat, c_mat, dacum, dt = ctx.saved_tensors
+        return ssd_inner_bwd(xdt, b_mat, c_mat, dacum, gy.contiguous(),
+                             gstates.contiguous(), dt)
+
+
+def ssd_inner(xdt: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
+              dacum: torch.Tensor, dt: Optional[torch.Tensor] = None):
+    """xdt ``[B,Nc,H,Q,P]`` (x where dt is given); b/c ``[B,Nc,G,Q,N]``
+    with G dividing H; dacum and dt ``[B,Nc,H,Q]`` float32; xdt, b and c
+    all float32 or all bfloat16; all contiguous, on one device.  Returns
+    ``(y_diag [B,Nc,H,Q,P], states [B,Nc,H,N,P])``, float32,
+    differentiable in every input through :class:`SSDInnerFunction`."""
+    _check("ssd_inner", xdt, b_mat, c_mat, dacum, dt)
+    return SSDInnerFunction.apply(xdt, b_mat, c_mat, dacum, dt)
+
+
 ssd_inner.launches = 0
 ssd_inner.bf16_launches = 0
+
+
+def ssd_inner_bwd_plain(xdt, b_mat, c_mat, dacum, gy, gstates, dt=None):
+    """The gradient of :func:`ssd_inner_plain` by the explicit formulas,
+    in float32.  Per cell, with u = xdt (or x * dt), L_ij = exp(dA_i -
+    dA_j) [j <= i], M = (C.B^T) L, e_j = exp(dA_last - dA_j) and the
+    output gradients gy (of y) and gS (of the states): gu = M^T gy + e
+    (B gS); gM = gy u^T on j <= i; per group, G = the sum over its heads
+    of gM L, gC = G B and gB = G^T C + the sum over its heads of e (u
+    gS^T); with R = gM M, gdA_i = sum_j R_ij - sum_j R_ji, less r_j = e_j
+    sum_n B_jn (u gS^T)_jn at j, plus sum_j r_j at the last row; where
+    dt is given gx = gu dt and gdt = sum_p gu x.  Returns ``(gxdt, gb,
+    gc, gdacum, gdt)`` in the inputs' dtypes (``gdt`` None without
+    dt)."""
+    bsz, nc, heads, q, p = xdt.shape
+    groups, n = b_mat.shape[2], b_mat.shape[-1]
+    split = (bsz, nc, groups, heads // groups)
+    x = xdt.float().reshape(*split, q, p)
+    u = x if dt is None else x * dt.float().reshape(*split, q, 1)
+    bm = b_mat.float()[:, :, :, None]
+    cm = c_mat.float()[:, :, :, None]
+    da = dacum.float().reshape(*split, q)
+    gy_ = gy.float().reshape(*split, q, p)
+    gs = gstates.float().reshape(*split, n, p)
+    causal = torch.ones(q, q, dtype=torch.bool, device=xdt.device).tril()
+    decay = torch.where(causal, torch.exp(da[..., :, None] - da[..., None, :]),
+                        0.0)
+    m = torch.matmul(cm, bm.transpose(-1, -2)) * decay
+    e = torch.exp(da[..., -1:] - da)
+    gu = torch.matmul(m.transpose(-1, -2), gy_) + \
+        e[..., None] * torch.matmul(bm, gs)
+    gm = torch.where(causal, torch.matmul(gy_, u.transpose(-1, -2)), 0.0)
+    ghat = (gm * decay).sum(3)                               # per group
+    w = torch.matmul(u, gs.transpose(-1, -2))                # u gS^T
+    gc = torch.matmul(ghat, b_mat.float())
+    gb = torch.matmul(ghat.transpose(-1, -2), c_mat.float()) + \
+        (e[..., None] * w).sum(3)
+    r_mat = gm * m
+    r = e * (bm * w).sum(-1)
+    last = torch.zeros(q, device=xdt.device)
+    last[-1] = 1.0
+    ga = r_mat.sum(-1) - r_mat.sum(-2) - r + last * r.sum(-1, keepdim=True)
+    gdt = None
+    if dt is not None:
+        gdt = (gu * x).sum(-1).reshape(dt.shape)
+        gu = gu * dt.float().reshape(*split, q, 1)
+    return (_merge_heads(gu).to(xdt.dtype), gb.to(b_mat.dtype),
+            gc.to(c_mat.dtype), ga.reshape(dacum.shape), gdt)
+
+
+@observed
+def ssd_inner_bwd(xdt, b_mat, c_mat, dacum, gy, gstates, dt=None):
+    """``(gxdt, gb, gc, gdacum, gdt)`` of :func:`ssd_inner` at its inputs
+    for the float32 output gradients ``gy`` ``[B,Nc,H,Q,P]`` and
+    ``gstates`` ``[B,Nc,H,N,P]`` (contiguous): the kernels of
+    ``csrc/ssd_scan_bwd.cu`` on the card (one call, counted once), the
+    plain version on the CPU.  gxdt, gb and gc come in the inputs'
+    dtypes, gdacum and gdt (None without dt) in float32."""
+    _check("ssd_inner_bwd", xdt, b_mat, c_mat, dacum, dt, gy, gstates)
+    if not launches_kernel("ssd_inner_bwd", xdt, b_mat, c_mat, dacum, dt, gy,
+                           gstates):
+        return ssd_inner_bwd_plain(xdt, b_mat, c_mat, dacum, gy, gstates, dt)
+    bsz, nc, heads, q, p = xdt.shape
+    groups, n = b_mat.shape[2], b_mat.shape[-1]
+    _tile_limits("ssd_inner_bwd", q, n, p)
+    dev = xdt.device
+    gx = torch.empty_like(xdt)
+    gb, gc = torch.empty_like(b_mat), torch.empty_like(c_mat)
+    ga = torch.empty_like(dacum)
+    gdt = None if dt is None else torch.empty_like(dt)
+    if gx.numel() == 0:
+        return gx, gb, gc, ga, gdt
+    # per head: gM L [Q, Q] and the state term of gB [Q, N], float32
+    cells = bsz * nc * heads
+    scratch = torch.empty(cells * q * (q + n), dtype=torch.float32,
+                          device=dev)
+    err = LIB.load().ssd_inner_bwd(
+        xdt.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
+        dacum.data_ptr(), None if dt is None else dt.data_ptr(),
+        gy.data_ptr(), gstates.data_ptr(), gx.data_ptr(), gb.data_ptr(),
+        gc.data_ptr(), ga.data_ptr(),
+        None if gdt is None else gdt.data_ptr(), scratch.data_ptr(),
+        bsz * nc, heads, groups, q, n, p, int(xdt.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"ssd_inner_bwd: CUDA error {err}")
+    ssd_inner_bwd.launches += 1
+    return gx, gb, gc, ga, gdt
+
+
+ssd_inner_bwd.launches = 0
 
 
 def chunk_len(seq: int, chunk: int) -> int:

@@ -1,7 +1,10 @@
-"""Training launcher: the dense family's AdamW steps with checkpoint and
-restart, a straggler watch and Algorithm 1 over the gradient buckets.
+"""Training launcher: AdamW steps of the dense, SSM and hybrid families
+with checkpoint and restart, a straggler watch and Algorithm 1 over the
+gradient buckets.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
+        --batch 8 --seq 512 --steps 8                      # on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
         --batch 8 --seq 512 --steps 8                      # on the card
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
         --smoke --steps 6 --batch 2 --seq 32 --device cpu \
@@ -12,9 +15,11 @@ Counterpart of ``repro/launch/train.py``, with its flags plus
 The weights are random, drawn from ``--seed`` by the port's own
 initialiser; the batches are the reference's ``SyntheticLM`` stream,
 bit for bit.  The port trains the dense family (qwen2-1.5b,
-stablelm-1.6b, llama3-8b, codeqwen1.5-7b): every kernel of its forward,
-B2 and B4, has a backward kernel; other families raise
-(``models.registry.trainable``).  ``--comm-policy`` runs Algorithm 1 over
+stablelm-1.6b, llama3-8b, codeqwen1.5-7b), the SSM family (mamba2-130m)
+and the hybrid family (zamba2-7b; at full depth its float32 masters,
+gradients and AdamW moments exceed one card): every kernel of their
+forwards, B2, B3 and B4, has a backward kernel; the MoE, enc-dec and VLM
+families raise (``models.registry.trainable``, ROADMAP A.5).  ``--comm-policy`` runs Algorithm 1 over
 the gradient buckets each step, on the cost model's self-fed telemetry,
 as the reference does on one host; the decisions parameterise no reduce
 on one card.

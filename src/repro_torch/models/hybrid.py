@@ -103,9 +103,8 @@ class HybridLM(CastCache):
                 "ln": [layer.ln.to(dt) for layer in self.mamba_layers()]}
 
 
-def _logits(model: HybridLM, x: torch.Tensor) -> torch.Tensor:
-    w = model.weights()
-    return rmsnorm(x, w["ln_f"], model.cfg.norm_eps) @ w["head"]
+def _logits(w: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return rmsnorm(x, w["ln_f"], cfg.norm_eps) @ w["head"]
 
 
 def _write(dst: Mamba2State, src: Mamba2State) -> None:
@@ -113,11 +112,11 @@ def _write(dst: Mamba2State, src: Mamba2State) -> None:
         d.copy_(s)
 
 
-def _groups(model: HybridLM) -> list:
+def _groups(model: HybridLM, lns: list) -> list:
     """The layers in forward order: ``(a, [(layer, cast ln, state
     index), ...])`` per super-block ``a`` (the shared block runs before
-    its Mamba2 layers where ``a`` > 0), then ``(None, trailing)``."""
-    lns = model.weights()["ln"]
+    its Mamba2 layers where ``a`` > 0), then ``(None, trailing)``;
+    ``lns``: the cast norms of every Mamba2 layer in forward order."""
     n_super, period, rem, _ = hybrid_layout(model.cfg)
     groups = [(a, [(model.main[a][j], lns[a * period + j], ("main", a, j))
                    for j in range(period)]) for a in range(n_super)]
@@ -132,14 +131,18 @@ def _state_of(state: "HybridDecodeState", idx) -> Mamba2State:
 
 
 def _forward(model: HybridLM, tokens: torch.Tensor, cfg: ModelConfig,
-             state=None) -> torch.Tensor:
-    """The hidden states after every layer of a sequence from position 0;
-    with ``state``, the Mamba states and the shared block's cache slots
-    are written into it."""
-    w = model.weights()
+             state=None, *, train: bool = False):
+    """The hidden states after every layer of a sequence from position 0,
+    and the compute dict they were made with, under the caller's grad
+    mode; with ``state``, the Mamba states and the shared block's cache
+    slots are written into it.  ``train``: every compute copy is cast
+    anew from the masters (``_cast``, with gradients; the shared block's
+    once, so its gradient sums over its applications), else the serving
+    caches."""
+    w = model._cast() if train else model.weights()
     x = w["embed"][tokens.long()]
     positions = _positions(tokens)
-    for a, layers in _groups(model):
+    for a, layers in _groups(model, w["ln"]):
         if a:
             x, (k, v, _) = block_forward(w["shared"], x, cfg, positions)
             if state is not None:
@@ -147,18 +150,30 @@ def _forward(model: HybridLM, tokens: torch.Tensor, cfg: ModelConfig,
                                   state.attn_cache.v[a], k, v, 0)
         for layer, ln, idx in layers:
             st = None if state is None else _state_of(state, idx)
-            y, new = layer.mamba(rmsnorm(x, ln, cfg.norm_eps), st)
+            y, new = layer.mamba(rmsnorm(x, ln, cfg.norm_eps), st,
+                                 w=layer.mamba._cast() if train else None)
             if st is not None:
                 _write(st, new)
             x = x + y
-    return x
+    return x, w
 
 
 @torch.no_grad()
 def hybrid_apply(model: HybridLM, tokens: torch.Tensor, cfg: ModelConfig):
-    """Teacher-forced logits ``[B,S,Vp]`` and a zero aux loss."""
-    x = _forward(model, tokens, cfg)
-    return _logits(model, x), torch.zeros((), device=x.device)
+    """Teacher-forced logits ``[B,S,Vp]`` and a zero aux loss, without
+    gradients, over the cached compute copies."""
+    x, w = _forward(model, tokens, cfg)
+    return _logits(w, x, cfg), torch.zeros((), device=x.device)
+
+
+def hybrid_train_apply(model: HybridLM, tokens: torch.Tensor,
+                       cfg: ModelConfig):
+    """The reference's ``hybrid_apply`` under the caller's grad mode,
+    over compute copies cast anew from the float32 masters, so the
+    gradient reaches the masters and an optimizer step is seen by the
+    next call."""
+    x, w = _forward(model, tokens, cfg, train=True)
+    return _logits(w, x, cfg), torch.zeros((), device=x.device)
 
 
 # ------------------------------------------------------------------ serving
@@ -193,8 +208,8 @@ def hybrid_prefill(model: HybridLM, tokens: torch.Tensor, cfg: ModelConfig,
     the shared block's cache slots 1 .. n_super-1; returns (last-token
     logits ``[B,1,Vp]``, state)."""
     bsz, seq = tokens.shape
-    x = _forward(model, tokens, cfg, state)
-    logits = _logits(model, x[:, -1:, :].contiguous())
+    x, w = _forward(model, tokens, cfg, state)
+    logits = _logits(w, x[:, -1:, :].contiguous(), cfg)
     length = torch.full((bsz,), seq, dtype=torch.int32, device=x.device)
     return logits, state._replace(
         attn_cache=state.attn_cache._replace(length=length), pos=seq)
@@ -209,7 +224,7 @@ def hybrid_decode_step(model: HybridLM, token: torch.Tensor,
     w = model.weights()
     x = w["embed"][token.long()]
     cache = state.attn_cache
-    for a, layers in _groups(model):
+    for a, layers in _groups(model, w["ln"]):
         if a:
             x, _, _ = block_decode(w["shared"], x, cfg, cache.k[a],
                                    cache.v[a], state.pos)
@@ -218,11 +233,11 @@ def hybrid_decode_step(model: HybridLM, token: torch.Tensor,
             y, new = layer.mamba.decode(rmsnorm(x, ln, cfg.norm_eps), st)
             _write(st, new)
             x = x + y
-    return _logits(model, x), state._replace(
+    return _logits(w, x, cfg), state._replace(
         attn_cache=cache._replace(length=cache.length + 1),
         pos=state.pos + 1)
 
 
 __all__ = ["HybridDecodeState", "HybridLM", "hybrid_apply",
            "hybrid_decode_step", "hybrid_layout", "hybrid_make_state",
-           "hybrid_prefill"]
+           "hybrid_prefill", "hybrid_train_apply"]

@@ -12,8 +12,10 @@ Parameters are float32 masters (``cfg.param_dtype``) under the
 reference's names.  The reference casts a weight to ``cfg.dtype`` at
 each use; :meth:`Mamba2Block.weights` casts each once and keeps the
 copies until the module moves or is reloaded, which gives the same
-numbers.  The five input projections share one product against their
-concatenated weights.
+numbers; training passes copies cast anew with gradients
+(:meth:`Mamba2Block._cast`), so the gradient reaches the masters
+through B3's and B4's backward kernels.  The five input projections
+share one product against their concatenated weights.
 """
 
 from __future__ import annotations
@@ -172,11 +174,15 @@ class Mamba2Block(CastCache):
                                     groups * n, heads], dim=-1)
 
     def forward(self, x: torch.Tensor,
-                init_state: Mamba2State | None = None):
-        """Full-sequence forward.  x ``[B,S,D]``.  Returns ``(y, final
-        Mamba2State)``."""
+                init_state: Mamba2State | None = None, *,
+                w: dict | None = None):
+        """Full-sequence forward.  x ``[B,S,D]``; ``w``: the compute dict
+        (default the serving cache, :meth:`weights`; training passes
+        :meth:`_cast` copies made with gradients).  Returns ``(y, final
+        Mamba2State)``, under the caller's grad mode."""
         d, d_inner, heads, groups, n = self.dims
-        cfg, w = self.cfg, self.weights()
+        cfg = self.cfg
+        w = self.weights() if w is None else w
         bsz, seq, _ = x.shape
         dt_, k = cfg.dtype, cfg.ssm_conv
         z, xs, bm, cm, dt_raw = self._split(x @ w["w_in"])

@@ -71,18 +71,17 @@ def trainable(cfg: ModelConfig) -> None:
     """Raises ``ValueError`` unless every kernel of ``cfg``'s forward has
     a backward kernel: the dense family up to head dim
     ``MAX_BWD_HEAD_DIM`` (B2's backward builds; B4's backward takes
-    every width).  The SSM and hybrid families wait for B3's backward,
-    the VLM's head dim 256 for B2's there, and the MoE and enc-dec
-    families for their training on the card (ROADMAP A.5)."""
-    if cfg.family != Family.DENSE:
-        missing = {Family.SSM: "B3's backward (the SSD scan)",
-                   Family.HYBRID: "B3's backward (the SSD scan)",
-                   Family.VLM: f"B2's backward at head dim {cfg.hd}"}.get(
+    every width), the SSM family (B3's and B4's backward) and the hybrid
+    family (B2's, B3's and B4's).  The VLM's head dim 256 waits for B2's
+    backward there, and the MoE and enc-dec families for their training
+    on the card (ROADMAP A.5)."""
+    if cfg.family not in (Family.DENSE, Family.SSM, Family.HYBRID):
+        missing = {Family.VLM: f"B2's backward at head dim {cfg.hd}"}.get(
             cfg.family, f"the {cfg.family.value} family's training path")
-        raise ValueError(f"{cfg.name}: the port trains the dense family "
-                         f"only; the {cfg.family.value} family waits for "
-                         f"{missing} (ROADMAP A.5)")
-    if cfg.hd > MAX_BWD_HEAD_DIM:
+        raise ValueError(f"{cfg.name}: the port trains the dense, SSM and "
+                         f"hybrid families; the {cfg.family.value} family "
+                         f"waits for {missing} (ROADMAP A.5)")
+    if cfg.family != Family.SSM and cfg.hd > MAX_BWD_HEAD_DIM:
         raise ValueError(f"{cfg.name}: head dim {cfg.hd}; B2's backward is "
                          f"built up to {MAX_BWD_HEAD_DIM}, a larger head "
                          f"dim waits for ROADMAP A.5")
@@ -90,12 +89,12 @@ def trainable(cfg: ModelConfig) -> None:
 
 def train_forward(model, batch: dict, cfg: ModelConfig):
     """-> (logits [B,S,Vp] over the *token* part, aux_loss), under the
-    caller's grad mode.  The dense family is differentiable: its compute
-    dict is cast anew from the masters with gradients on every call.  A
-    model of another family (or a larger head dim, :func:`trainable`)
-    whose parameters require a gradient raises ``ValueError``; with
-    frozen parameters every family runs its forward, without
-    gradients."""
+    caller's grad mode.  The dense, SSM and hybrid families are
+    differentiable: their compute dicts are cast anew from the masters
+    with gradients on every call.  A model of another family (or a
+    larger head dim, :func:`trainable`) whose parameters require a
+    gradient raises ``ValueError``; with frozen parameters every family
+    runs its forward, without gradients."""
     mod, tokens = _module(cfg), batch["tokens"]
     if torch.is_grad_enabled() and any(p.requires_grad
                                        for p in model.parameters()):
@@ -108,10 +107,10 @@ def train_forward(model, batch: dict, cfg: ModelConfig):
         logits, aux = _vlm.vlm_apply(model, batch["patches"], tokens, cfg)
         return logits[:, cfg.img_tokens:], aux   # the text positions
     if mod is _hybrid:
-        return _hybrid.hybrid_apply(model, tokens, cfg)
+        return _hybrid.hybrid_train_apply(model, tokens, cfg)
     if mod is _encdec:
         return _encdec.encdec_apply(model, batch["frames"], tokens, cfg)
-    return _ssm.ssm_lm_apply(model, tokens, cfg)
+    return _ssm.ssm_lm_train_apply(model, tokens, cfg)
 
 
 def make_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,

@@ -65,25 +65,43 @@ class SSMLM(CastCache):
                 "ln": [layer.ln.to(dt_) for layer in self.blocks]}
 
 
-def _embed(model: SSMLM, tokens: torch.Tensor) -> torch.Tensor:
-    return model.weights()["embed"][tokens.long()]
+def _embed(w: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return w["embed"][tokens.long()]
 
 
-def _logits(model: SSMLM, x: torch.Tensor) -> torch.Tensor:
-    w, cfg = model.weights(), model.cfg
+def _logits(w: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     x = rmsnorm(x, w["ln_f"], cfg.norm_eps)
     return x @ w["embed"].T
 
 
+def _apply(model: SSMLM, tokens: torch.Tensor, cfg: ModelConfig,
+           w: dict, blocks: list):
+    """Logits ``[B,S,Vp]`` and a zero aux loss over the compute dicts
+    ``w`` (the model's) and ``blocks`` (one per Mamba2 block, or None for
+    its serving cache), under the caller's grad mode."""
+    x = _embed(w, tokens)
+    for ln, layer, wb in zip(w["ln"], model.blocks, blocks):
+        y, _ = layer.mamba(rmsnorm(x, ln, cfg.norm_eps), w=wb)
+        x = x + y
+    return _logits(w, x, cfg), torch.zeros((), device=x.device)
+
+
 @torch.no_grad()
 def ssm_lm_apply(model: SSMLM, tokens: torch.Tensor, cfg: ModelConfig):
-    """Teacher-forced logits ``[B,S,Vp]`` and a zero aux loss."""
-    x = _embed(model, tokens)
-    lns = model.weights()["ln"]
-    for ln, layer in zip(lns, model.blocks):
-        y, _ = layer.mamba(rmsnorm(x, ln, cfg.norm_eps))
-        x = x + y
-    return _logits(model, x), torch.zeros((), device=x.device)
+    """Teacher-forced logits ``[B,S,Vp]`` and a zero aux loss, without
+    gradients, over the cached compute copies."""
+    return _apply(model, tokens, cfg, model.weights(),
+                  [None] * len(model.blocks))
+
+
+def ssm_lm_train_apply(model: SSMLM, tokens: torch.Tensor,
+                       cfg: ModelConfig):
+    """The reference's ``ssm_lm_apply`` under the caller's grad mode:
+    every compute copy is cast anew from the float32 masters (``_cast``,
+    not the serving cache), so the gradient reaches the masters and an
+    optimizer step is seen by the next call."""
+    return _apply(model, tokens, cfg, model._cast(),
+                  [layer.mamba._cast() for layer in model.blocks])
 
 
 class SSMDecodeState(NamedTuple):
@@ -103,14 +121,14 @@ def ssm_prefill(model: SSMLM, tokens: torch.Tensor, cfg: ModelConfig,
                 state: SSMDecodeState):
     """Logits of the last position ``[B,1,Vp]`` and the state after
     ``tokens``."""
-    x = _embed(model, tokens)
-    lns = model.weights()["ln"]
+    w = model.weights()
+    x = _embed(w, tokens)
     new_states = []
-    for ln, layer, st in zip(lns, model.blocks, state.states):
+    for ln, layer, st in zip(w["ln"], model.blocks, state.states):
         y, new_st = layer.mamba(rmsnorm(x, ln, cfg.norm_eps), st)
         x = x + y
         new_states.append(new_st)
-    logits = _logits(model, x[:, -1:, :].contiguous())
+    logits = _logits(w, x[:, -1:, :].contiguous(), cfg)
     return logits, SSMDecodeState(states=new_states,
                                   pos=state.pos + tokens.shape[1])
 
@@ -119,17 +137,17 @@ def ssm_prefill(model: SSMLM, tokens: torch.Tensor, cfg: ModelConfig,
 def ssm_decode_step(model: SSMLM, token: torch.Tensor, cfg: ModelConfig,
                     state: SSMDecodeState):
     """Logits ``[B,1,Vp]`` for one token ``[B,1]`` and the next state."""
-    x = _embed(model, token)
-    lns = model.weights()["ln"]
+    w = model.weights()
+    x = _embed(w, token)
     new_states = []
-    for ln, layer, st in zip(lns, model.blocks, state.states):
+    for ln, layer, st in zip(w["ln"], model.blocks, state.states):
         y, new_st = layer.mamba.decode(rmsnorm(x, ln, cfg.norm_eps), st)
         x = x + y
         new_states.append(new_st)
-    return _logits(model, x), SSMDecodeState(states=new_states,
-                                             pos=state.pos + 1)
+    return _logits(w, x, cfg), SSMDecodeState(states=new_states,
+                                              pos=state.pos + 1)
 
 
 __all__ = ["Mamba2State", "SSMDecodeState", "SSMLM", "SSMLayer",
-           "ssm_decode_step", "ssm_lm_apply", "ssm_make_state",
-           "ssm_prefill"]
+           "ssm_decode_step", "ssm_lm_apply", "ssm_lm_train_apply",
+           "ssm_make_state", "ssm_prefill"]

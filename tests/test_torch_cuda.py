@@ -34,8 +34,9 @@ tests/test_torch_flash_attention.py::test_kernel_order_witness (and its
 prefix-LM form at head dims 192 and 256).  The qwen2-1.5b smoke serve is
 held like the mamba2-130m one.
 
-The backward kernels (B2's and B4's, ``flash_attention_bwd`` and
-``rmsnorm_bwd``) against their plain versions on the same inputs: in
+The backward kernels (B2's, B3's and B4's, ``flash_attention_bwd``,
+``ssd_inner_bwd`` and ``rmsnorm_bwd``) against their plain versions on
+the same inputs: in
 float32 both sum float32 products in other orders, held at
 ``BWD_F32_RTOL = 1e-4`` of each gradient's largest entry (dK and dV sum
 up to G Skv = 3072 products at the qwen2-1.5b shape: ``n * 2**-24`` is
@@ -49,7 +50,8 @@ forward's LSE and carries dS into dQ and dK as two bf16 terms).  B2's bf16
 forward writes that LSE only where asked: the output is the same bits
 either way, and the LSE is a float32 logsumexp of the masked scores
 within ``LSE_RTOL = 1e-5``.  The qwen2 smoke train step on the card is
-held against the CPU's in float32.
+held against the CPU's in float32, and so are mamba2-130m's and
+zamba2-7b's.
 """
 
 import numpy as np
@@ -72,7 +74,9 @@ from repro_torch.kernels.rmsnorm import (rmsnorm_bwd, rmsnorm_bwd_plain,
                                          rmsnorm_fused, rmsnorm_plain)
 from repro_torch.kernels.rmsnorm.ops import bwd_route as rms_bwd_route
 from repro_torch.kernels.rmsnorm.ops import route as rms_route
-from repro_torch.kernels.ssd_scan import ssd_inner, ssd_inner_plain
+from repro_torch.kernels.ssd_scan import (ssd_inner, ssd_inner_bwd,
+                                          ssd_inner_bwd_plain,
+                                          ssd_inner_plain)
 from repro_torch.kernels.ssd_scan.ops import bf16_limits
 from repro_torch.kernels.segment_sum import (segment_sum_scatter,
                                              segment_sum_scatter_plain,
@@ -690,11 +694,15 @@ def _hold_grads(got, plain_fn, inputs, dtype):
     """Each gradient of ``got`` against ``plain_fn(*inputs)``: a float32
     gradient at BWD_F32_RTOL of its largest entry, a bf16 one by the
     spread rule against the plain version run in float32 on the same
-    inputs (``dtype``: the inputs')."""
+    inputs (``dtype``: the inputs'); a gradient the plain version does
+    not give (None) the kernel does not give either."""
     want = plain_fn(*inputs)
     ref = plain_fn(*(t.float() for t in inputs)) \
         if dtype == torch.bfloat16 else want
     for g, w, r in zip(got, want, ref):
+        if w is None:
+            assert g is None
+            continue
         assert g.dtype == w.dtype and g.shape == w.shape
         if g.dtype == torch.float32:
             scale = float(w.abs().max())
@@ -873,14 +881,84 @@ def test_backward_runs_the_kernels_through_the_functions(cuda):
         flash_attention(big, big.detach(), big.detach())
 
 
-def test_smoke_train_step_on_the_card_matches_the_cpu(cuda):
-    """One float32 train step of the qwen2 smoke config from the same
+SSD_BWD_SHAPES = [
+    (8, 4, 24, 1, 128, 64, 128),   # mamba2-130m train step, 8 x 512 tokens
+    (8, 4, 112, 1, 128, 64, 64),   # zamba2-7b train step
+    (2, 3, 3, 3, 8, 16, 16),       # smoke config, one group per head
+    (1, 2, 6, 2, 64, 64, 128),     # two groups
+    (2, 2, 4, 2, 100, 5, 7),       # Q not a power of two, odd P and N
+    (1, 1, 2, 1, 1, 5, 7),         # one row
+]
+
+
+def _ssd_bwd_inputs(cuda, dtype, with_dt, B, Nc, H, G, Q, P, N, seed=2):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    x = (torch.randn(B, Nc, H, Q, P, device=cuda, generator=gen) * 0.5) \
+        .to(dt)
+    bm = torch.randn(B, Nc, G, Q, N, device=cuda, generator=gen).to(dt)
+    cm = torch.randn(B, Nc, G, Q, N, device=cuda, generator=gen).to(dt)
+    da = torch.cumsum(-0.1 * torch.rand(B, Nc, H, Q, device=cuda,
+                                        generator=gen), -1)
+    dts = 0.3 + torch.rand(B, Nc, H, Q, device=cuda, generator=gen) \
+        if with_dt else None
+    gy = torch.randn(B, Nc, H, Q, P, device=cuda, generator=gen)
+    gs = torch.randn(B, Nc, H, N, P, device=cuda, generator=gen)
+    return x, bm, cm, da, dts, gy, gs
+
+
+@pytest.mark.parametrize("with_dt", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Nc,H,G,Q,P,N", SSD_BWD_SHAPES)
+def test_ssd_bwd_kernel_matches_plain(cuda, dtype, with_dt, B, Nc, H, G, Q,
+                                      P, N):
+    """B3's backward kernels against ``ssd_inner_bwd_plain``: float32
+    gradients at BWD_F32_RTOL of their largest entry, bf16 ones (gx, gB,
+    gC of bf16 inputs) by the spread rule; one counted launch, and the
+    same bits in a second call (no atomics)."""
+    x, bm, cm, da, dts, gy, gs = _ssd_bwd_inputs(cuda, dtype, with_dt, B,
+                                                 Nc, H, G, Q, P, N)
+    before = ssd_inner_bwd.launches
+    got = ssd_inner_bwd(x, bm, cm, da, gy, gs, dts)
+    assert ssd_inner_bwd.launches == before + 1
+    torch.cuda.synchronize()
+    _hold_grads(got, lambda *t: ssd_inner_bwd_plain(*t, dts),
+                (x, bm, cm, da, gy, gs), x.dtype)
+    again = ssd_inner_bwd(x, bm, cm, da, gy, gs, dts)
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_ssd_gradient_through_the_function(cuda):
+    """A gradient through ``ssd_inner`` on the card launches the forward
+    kernel once and the backward once, with the bits of the backward
+    wrapper; the forward's output is the bits of a call under
+    ``no_grad`` (the serving route)."""
+    x, bm, cm, da, dts, gy, gs = _ssd_bwd_inputs(
+        cuda, "bfloat16", True, 2, 2, 6, 2, 128, 64, 64, seed=3)
+    leaves = [t.clone().requires_grad_() for t in (x, bm, cm, da, dts)]
+    before = ssd_inner.launches, ssd_inner_bwd.launches
+    y, s = ssd_inner(*leaves)
+    got = torch.autograd.grad((y, s), leaves, (gy, gs))
+    assert (ssd_inner.launches, ssd_inner_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        y0, s0 = ssd_inner(x, bm, cm, da, dts)
+    assert torch.equal(y, y0) and torch.equal(s, s0)
+    want = ssd_inner_bwd(x, bm, cm, da, gy, gs, dts)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-130m", "zamba2-7b"])
+def test_smoke_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One float32 train step of ``arch``'s smoke config from the same
     seeded weights and batch: the loss, the gradient norm and the
     updated parameters agree (the card's own check at full width is
-    chip_smoke phase 25)."""
+    chip_smoke phase 25, and for mamba2-130m phase 28)."""
     from repro_torch.launch.train import train_loop
 
-    cfg = get_smoke_config("qwen2-1.5b").scaled(dtype=torch.float32)
+    cfg = get_smoke_config(arch).scaled(dtype=torch.float32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {}

@@ -1,17 +1,17 @@
 """The kernel wrappers give a gradient where they have a backward kernel,
 and refuse one they cannot give.
 
-B2 (flash attention) and B4 (RMSNorm) return through their
-``torch.autograd.Function``: on CUDA a call that needs a gradient runs
-the forward kernel inside the Function (grad mode off there) and its
-backward runs the backward kernels (``flash_attention_bwd``,
-``rmsnorm_bwd``).  A bfloat16 B2 call that needs a gradient asks the
-forward for its LSE, which the Function saves and hands to the backward;
-one under ``no_grad`` asks for none.  B1 (segment sum) and B3 (the SSD
-scan) write into a fresh tensor through ``ctypes`` and have no backward:
-where grad mode is on and an input requires a gradient, their wrappers
-raise (naming ROADMAP A.5) instead of returning a result whose gradient
-would silently be zero.  On the CPU the plain versions stay
+B2 (flash attention), B3 (the SSD scan) and B4 (RMSNorm) return through
+their ``torch.autograd.Function`` (B3 where an input needs a gradient):
+on CUDA a call that needs a gradient runs the forward kernel inside the
+Function (grad mode off there) and its backward runs the backward
+kernels (``flash_attention_bwd``, ``ssd_inner_bwd``, ``rmsnorm_bwd``).
+A bfloat16 B2 call that needs a gradient asks the forward for its LSE,
+which the Function saves and hands to the backward; one under
+``no_grad`` asks for none.  B1 (segment sum) writes into a fresh tensor
+through ``ctypes`` and has no backward: where grad mode is on and an
+input requires a gradient, its wrappers raise (naming ROADMAP A.5)
+instead of returning a result whose gradient would silently be zero.  On the CPU the plain versions stay
 differentiable.  The card's branch is reached here without a card: the
 routing helper's device check is patched to answer "cuda", and each
 kernel library's loader to fail loudly, so a call that gets past the
@@ -35,7 +35,7 @@ from repro_torch.kernels.segment_sum import (segment_sum, segment_sum_scatter,
                                              segment_sum_sorted)
 from repro_torch.kernels.segment_sum import ops as seg_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan import ssd_inner
+from repro_torch.kernels.ssd_scan import ssd_inner, ssd_inner_bwd
 
 
 class LibraryReached(Exception):
@@ -89,7 +89,7 @@ WRAPPERS = {"rmsnorm_fused": _rmsnorm, "flash_attention": _flash,
             "ssd_inner": _ssd, "segment_sum_sorted": _sorted,
             "segment_sum_scatter": _scatter, "segment_sum": _segment_sum}
 #: the wrappers with a backward kernel, behind an autograd Function
-WITH_BACKWARD = ("rmsnorm_fused", "flash_attention")
+WITH_BACKWARD = ("rmsnorm_fused", "flash_attention", "ssd_inner")
 WITHOUT_BACKWARD = tuple(n for n in WRAPPERS if n not in WITH_BACKWARD)
 
 
@@ -115,8 +115,9 @@ def test_cuda_call_needing_a_gradient_is_refused(card_branch, name):
 @pytest.mark.parametrize("name", WITH_BACKWARD)
 def test_cuda_call_needing_a_gradient_reaches_the_kernel_through_the_function(
         card_branch, name):
-    """B2 and B4 take a call that needs a gradient: the forward kernel
-    is reached inside the autograd Function, where grad mode is off."""
+    """B2, B3 and B4 take a call that needs a gradient: the forward
+    kernel is reached inside the autograd Function, where grad mode is
+    off."""
     call = WRAPPERS[name](np.random.default_rng(0))
     with pytest.raises(LibraryReached) as reached:
         call()
@@ -141,7 +142,16 @@ def _rmsnorm_bwd(rng):
     return lambda: rmsnorm_bwd(x, _t(rng, 16, grad=False), x)
 
 
-@pytest.mark.parametrize("make", [_flash_bwd, _flash_bwd_lse, _rmsnorm_bwd])
+def _ssd_bwd(rng):
+    x, gy = (_t(rng, 1, 1, 2, 4, 3, grad=False) for _ in range(2))
+    b, c = (_t(rng, 1, 1, 1, 4, 5, grad=False) for _ in range(2))
+    da = torch.cumsum(-torch.rand(1, 1, 2, 4), -1)
+    gs = _t(rng, 1, 1, 2, 5, 3, grad=False)
+    return lambda: ssd_inner_bwd(x, b, c, da, gy, gs, torch.rand(1, 1, 2, 4))
+
+
+@pytest.mark.parametrize("make", [_flash_bwd, _flash_bwd_lse, _rmsnorm_bwd,
+                                  _ssd_bwd])
 def test_cuda_backward_wrappers_reach_their_kernels(card_branch, make):
     with pytest.raises(LibraryReached):
         make(np.random.default_rng(0))()
@@ -153,13 +163,37 @@ def test_cpu_gradient_runs_the_plain_backward(name, monkeypatch):
     backward wrapper, reached once), never a kernel library."""
     seen = []
     wrapper = {"rmsnorm_fused": (rms_ops, "rmsnorm_bwd"),
-               "flash_attention": (flash_ops, "flash_attention_bwd")}[name]
+               "flash_attention": (flash_ops, "flash_attention_bwd"),
+               "ssd_inner": (ssd_ops, "ssd_inner_bwd")}[name]
     real = getattr(*wrapper)
     monkeypatch.setattr(wrapper[0], wrapper[1],
                         lambda *a, **kw: seen.append(1) or real(*a, **kw))
     out = WRAPPERS[name](np.random.default_rng(0))()
-    out.sum().backward()
+    sum(o.sum() for o in (out if isinstance(out, tuple) else (out,))) \
+        .backward()
     assert seen == [1]
+
+
+#: each wrapper with a backward: the backward wrapper its Function calls
+BACKWARD_OF = {"rmsnorm_fused": "rmsnorm_bwd",
+               "flash_attention": "flash_attention_bwd",
+               "ssd_inner": "ssd_inner_bwd"}
+
+
+@pytest.mark.parametrize("name", WITH_BACKWARD)
+def test_backward_wrappers_call_their_observers(name, monkeypatch):
+    """A gradient through the Function calls each of ``_route.OBSERVERS``
+    once, with the backward wrapper's name and arguments (the output
+    gradient, all ones, among them)."""
+    seen = []
+    monkeypatch.setattr(_route, "OBSERVERS", [
+        lambda *call: seen.append(call)])
+    out = WRAPPERS[name](np.random.default_rng(0))()
+    sum(o.sum() for o in (out if isinstance(out, tuple) else (out,))) \
+        .backward()
+    assert [c[0] for c in seen] == [BACKWARD_OF[name]]
+    assert any(isinstance(a, torch.Tensor) and bool((a == 1).all())
+               for a in seen[0][1])
 
 
 @pytest.mark.parametrize("name", list(WRAPPERS))

@@ -21,16 +21,19 @@ the kernel's order against it within ``bf16_limits``, the card's
 tolerance.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels.ssd_scan.ops import ssd_scan_op as ref_scan_op
+from repro.kernels.ssd_scan.ref import ssd_inner_ref
 from repro.kernels.ssd_scan.ssd_scan import ssd_inner as pallas_inner
 from repro.models.mamba2 import ssd_chunked as ref_chunked
-from repro_torch.kernels.ssd_scan import (ssd_inner, ssd_inner_plain,
-                                          ssd_scan_op)
+from repro_torch.kernels.ssd_scan import (ssd_inner, ssd_inner_bwd,
+                                          ssd_inner_bwd_plain,
+                                          ssd_inner_plain, ssd_scan_op)
 from repro_torch.kernels.ssd_scan.ops import (bf16_limits, chunk_inputs,
                                               chunk_len)
 
@@ -368,3 +371,110 @@ def test_scan_refuses_groups_that_do_not_divide_the_heads():
     x, dt, a_log, bm, cm = _t(_scan_inputs(1, 16, 4, 8, 8))
     with pytest.raises(ValueError, match="groups"):
         ssd_scan_op(x, dt, a_log, bm[:, :, :3], cm[:, :, :3], 8)
+
+
+# ------------------------------------------------------------- backward
+#: the plain backward against autograd of the plain forward (both float32
+#: sums of at most a few hundred terms in other orders), against
+#: ``jax.vjp`` of the reference's ``ssd_inner_ref`` and, through the whole
+#: scan, ``jax.grad`` of its ``ssd_chunked``: each gradient within this
+#: share of its largest entry
+BWD_TOL = 1e-5
+SCAN_BWD_TOL = 1e-4
+
+
+def _gap(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _bwd_inputs(B, Nc, H, G, Q, P, N, seed):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    xdt = rng.standard_normal((B, Nc, H, Q, P)).astype(f)
+    bm, cm = (rng.standard_normal((B, Nc, G, Q, N)).astype(f)
+              for _ in range(2))
+    da = np.cumsum(-rng.uniform(0.05, 0.5, (B, Nc, H, Q)), -1).astype(f)
+    dt = rng.uniform(0.1, 1.0, (B, Nc, H, Q)).astype(f)
+    gy = rng.standard_normal((B, Nc, H, Q, P)).astype(f)
+    gs = rng.standard_normal((B, Nc, H, N, P)).astype(f)
+    return xdt, bm, cm, da, dt, gy, gs
+
+
+@pytest.mark.parametrize("with_dt", [False, True])
+@pytest.mark.parametrize("G", [1, 2, 6])
+@pytest.mark.parametrize("Q", [16, 13])
+def test_inner_bwd_plain_matches_autograd(G, Q, with_dt):
+    """The explicit formulas against ``torch.autograd`` of
+    ``ssd_inner_plain``, float32, for one group, one per head and one in
+    between, with and without dt, Q a power of two and not."""
+    xdt, bm, cm, da, dt, gy, gs = _t(_bwd_inputs(2, 2, 6, G, Q, 8, 12,
+                                                 seed=G + Q))
+    dt = dt if with_dt else None
+    leaves = [t.clone().requires_grad_() for t in (xdt, bm, cm, da)] + \
+        ([dt.clone().requires_grad_()] if with_dt else [])
+    y, s = ssd_inner_plain(*leaves[:4], leaves[4] if with_dt else None)
+    want = torch.autograd.grad((y, s), leaves, (gy, gs))
+    got = ssd_inner_bwd_plain(xdt, bm, cm, da, gy, gs, dt)
+    assert (got[4] is None) == (not with_dt)
+    for name, g, w in zip(("x", "b", "c", "dacum", "dt"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert _gap(g, w) <= BWD_TOL, (name, _gap(g, w))
+
+
+def test_inner_bwd_plain_matches_reference_vjp():
+    """G = H, the reference kernel's per-head contract: the plain
+    backward against ``jax.vjp`` of ``ssd_inner_ref``."""
+    xdt, bm, cm, da, _, gy, gs = _bwd_inputs(2, 3, 4, 4, 16, 8, 16, seed=3)
+    _, vjp = jax.vjp(ssd_inner_ref, *_j((xdt, bm, cm, da)))
+    want = vjp((jnp.asarray(gy), jnp.asarray(gs)))
+    got = ssd_inner_bwd_plain(*_t((xdt, bm, cm, da, gy, gs)))
+    for name, g, w in zip(("xdt", "b", "c", "dacum"), got, want):
+        assert _gap(g, w) <= BWD_TOL, (name, _gap(g, w))
+
+
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("S,chunk", [(64, 16), (50, 16)])
+def test_scan_gradients_match_reference(G, S, chunk):
+    """Every input's gradient of the whole scan (``ssd_scan_op`` through
+    B3's autograd Function, its plain backward here) against
+    ``jax.grad`` of the reference's ``ssd_chunked`` (B and C broadcast
+    to the heads there, so a group's gradient is its heads' sum), for a
+    random cotangent of y and of the final state and an initial state."""
+    B, H, P, N = 2, 6, 8, 16
+    x, dt, a_log, bm, cm = _scan_inputs(B, S, H, P, N, seed=6)
+    bm, cm = bm[:, :, :G], cm[:, :, :G]
+    rng = np.random.default_rng(7)
+    init = rng.standard_normal((B, H, N, P)).astype(np.float32)
+    gy = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    gf = rng.standard_normal((B, H, N, P)).astype(np.float32)
+    rep = H // G
+
+    def ref_loss(x, dt, a_log, bm, cm, init):
+        y, f = ref_chunked(x, dt, a_log, jnp.repeat(bm, rep, 2),
+                           jnp.repeat(cm, rep, 2), chunk, init_state=init)
+        return jnp.sum(y * gy) + jnp.sum(f * gf)
+
+    want = jax.grad(ref_loss, argnums=tuple(range(6)))(
+        *_j((x, dt, a_log, bm, cm, init)))
+    leaves = [t.requires_grad_() for t in _t((x, dt, a_log, bm, cm, init))]
+    before = ssd_inner.launches
+    y, f = ssd_scan_op(*leaves[:5], chunk, init_state=leaves[5])
+    got = torch.autograd.grad(
+        (y * torch.from_numpy(gy)).sum() + (f * torch.from_numpy(gf)).sum(),
+        leaves)
+    assert ssd_inner.launches == before           # no kernel on the CPU
+    for name, g, w in zip(("x", "dt", "a_log", "b", "c", "init"), got, want):
+        assert _gap(g, w) <= SCAN_BWD_TOL, (name, _gap(g, w))
+
+
+def test_bwd_refuses_gradients_of_another_shape_or_dtype():
+    xdt, bm, cm, da, dt, gy, gs = _t(_bwd_inputs(1, 1, 2, 1, 8, 4, 6,
+                                                 seed=1))
+    with pytest.raises(ValueError, match="gstates"):
+        ssd_inner_bwd(xdt, bm, cm, da, gy, gs[..., :3].contiguous(), dt)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_inner_bwd(xdt, bm, cm, da, gy.double(), gs, dt)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_inner_bwd(xdt, bm, cm, da, gy.transpose(3, 4).contiguous()
+                      .transpose(3, 4), gs, dt)

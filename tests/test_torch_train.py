@@ -49,7 +49,11 @@ from repro_torch.kernels.rmsnorm import rmsnorm_bwd_plain, rmsnorm_plain
 from repro_torch.launch import train as launch
 from repro_torch.models import registry
 from repro_torch.models.convert import (dense_lm_from_reference,
-                                        dense_state_dict)
+                                        dense_state_dict,
+                                        hybrid_from_reference,
+                                        hybrid_state_dict,
+                                        ssm_lm_from_reference,
+                                        ssm_state_dict)
 from repro_torch.models.transformer import DenseLM
 from repro_torch.train import grad_comm
 from repro_torch.train import optimizer as opt
@@ -65,17 +69,44 @@ OPT_RTOL = 1e-6
 PLAIN_TOL = 1e-5
 #: a short warm-up, so that the first step moves parameters by about lr
 OPT_CFG = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+#: -A's range over the heads in the SSM and hybrid comparisons: the
+#: reference's gradient is NaN once a chunk's decay exp(dA_i - dA_j)
+#: overflows float32 above the diagonal, which its initial -A up to 16
+#: reaches (ROADMAP C13; test_reference_ssd_gradient_overflows_where_the_
+#: ports_stays_finite)
+REF_A_RANGE = (0.5, 2.0)
 
 
 def _np(x):
     return np.asarray(x, np.float32)
 
 
+def _perturb_constants(tree: dict, rng) -> None:
+    """Every leaf of ``tree`` that its initialiser made constant (norm
+    gammas, conv biases, ``d_skip``, ``dt_bias``) gets random values
+    around its constant, so that those paths carry numbers; ``a_log``
+    becomes ``log(linspace(0.5, 2, H))`` (REF_A_RANGE), where the
+    reference's gradient is finite (ROADMAP C13)."""
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            _perturb_constants(leaf, rng)
+        elif name == "a_log":
+            tree[name] = np.broadcast_to(np.log(np.linspace(
+                *REF_A_RANGE, leaf.shape[-1])), leaf.shape).astype(np.float32)
+        elif np.ptp(leaf) == 0:
+            tree[name] = (leaf + 0.1 * rng.standard_normal(leaf.shape)) \
+                .astype(np.float32)
+
+
 def _host_params(jc, seed=0):
-    """Reference weights with random biases and norm gammas, as NumPy."""
+    """Reference weights with random QKV biases, norm gammas and (in the
+    Mamba2 layers) every other constant, as NumPy."""
     host = jax.tree_util.tree_map(np.asarray,
                                   ref_registry.init_params(jc, seed))
     rng = np.random.default_rng(seed + 100)
+    if "blocks" not in host or "ln1" not in host["blocks"]:
+        _perturb_constants(host, rng)     # the SSM and hybrid families
+        return host
     blocks = host["blocks"]
     for name in ("bq", "bk", "bv"):
         blocks["attn"][name] = rng.normal(
@@ -88,12 +119,28 @@ def _host_params(jc, seed=0):
     return host
 
 
-def _setup(dtype="float32", seed=0, batch=2, seq=16):
+#: each family's state dict of a reference tree, and its port model
+CONVERT = {"qwen2-1.5b": (dense_state_dict, dense_lm_from_reference),
+           "mamba2-130m": (ssm_state_dict, ssm_lm_from_reference),
+           "zamba2-7b": (hybrid_state_dict, hybrid_from_reference)}
+
+
+def _state_dict(tree, tc) -> dict:
+    """A reference tree (parameters or gradients) under the port's
+    names, as NumPy."""
+    return {k: v.numpy() for k, v in CONVERT[tc.name][0](tree, tc).items()}
+
+
+def _port_model(host, tc):
+    return CONVERT[tc.name][1](host, tc, device="cpu")
+
+
+def _setup(dtype="float32", seed=0, batch=2, seq=16, arch="qwen2-1.5b"):
     jd, td = {"float32": (jnp.float32, torch.float32),
               "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
     # vocab 500: 12 padded rows (the smoke config's 512 has none)
-    jc = ref_smoke("qwen2-1.5b").scaled(dtype=jd, vocab=500)
-    tc = get_smoke_config("qwen2-1.5b").scaled(dtype=td, vocab=500)
+    jc = ref_smoke(arch).scaled(dtype=jd, vocab=500)
+    tc = get_smoke_config(arch).scaled(dtype=td, vocab=500)
     host = _host_params(jc, seed)
     rng = np.random.default_rng(seed + 7)
     toks = rng.integers(0, jc.vocab, (batch, seq + 1)).astype(np.int32)
@@ -257,17 +304,24 @@ def _hold_updated(model, grads_ref: dict, before: dict, after_ref: dict):
     return compared / total
 
 
-def test_train_step_matches_reference_value_and_grad():
-    """One float32 step of qwen2-1.5b's smoke config from the same
-    weights and batch: the loss, every gradient (the padded embedding
-    rows included, tied to the head) and the updated parameters."""
-    jc, tc, host, batch_np = _setup()
+#: the families that train, by the smoke config of one of each
+TRAINED_ARCHS = ["qwen2-1.5b", "mamba2-130m", "zamba2-7b"]
+
+
+@pytest.mark.parametrize("arch", TRAINED_ARCHS)
+def test_train_step_matches_reference_value_and_grad(arch):
+    """One float32 step of ``arch``'s smoke config from the same weights
+    and batch: the loss, every gradient (the padded embedding rows
+    included, tied to the head where the config ties them) and the
+    updated parameters.  mamba2-130m's and zamba2-7b's gradients run
+    through B3's backward (its plain version here) and the reference's
+    through ``jax.grad`` of its plain SSD."""
+    jc, tc, host, batch_np = _setup(arch=arch)
     tcfg_ref = ref_ts.TrainConfig(optimizer=ref_opt.AdamWConfig(**OPT_CFG))
     tcfg = ts.TrainConfig(optimizer=opt.AdamWConfig(**OPT_CFG))
     loss_ref, grads_ref = _ref_grads(jc, host, batch_np, tcfg_ref)
-    grads_ref = {k: v.numpy() for k, v in
-                 dense_state_dict(grads_ref, tc).items()}
-    model = dense_lm_from_reference(host, tc, device="cpu")
+    grads_ref = _state_dict(grads_ref, tc)
+    model = _port_model(host, tc)
     loss, metrics, grads = ts.value_and_grad(model, _port_batch(batch_np),
                                              tc, tcfg)
     np.testing.assert_allclose(float(loss), loss_ref, rtol=1e-5)
@@ -276,15 +330,15 @@ def test_train_step_matches_reference_value_and_grad():
     assert max(gaps.values()) <= GRAD_TOL, gaps
     pad = grads["embed"][tc.vocab:]
     assert pad.shape[0] == tc.vocab_padded - tc.vocab > 0
-    assert float(pad.abs().max()) > 0       # the head reads those rows
+    if tc.tie_embeddings:
+        assert float(pad.abs().max()) > 0   # the head reads those rows
 
     params = jax.tree_util.tree_map(jnp.asarray, host)
     new_ref, _, m_ref = jax.jit(lambda p, o, b: ref_ts.train_step(
         p, o, b, cfg=jc, tcfg=tcfg_ref))(
         params, ref_opt.adamw_init(params),
         {k: jnp.asarray(v) for k, v in batch_np.items()})
-    after_ref = {k: v.numpy() for k, v in dense_state_dict(
-        jax.tree_util.tree_map(np.asarray, new_ref), tc).items()}
+    after_ref = _state_dict(jax.tree_util.tree_map(np.asarray, new_ref), tc)
     before = {n: p.detach().numpy().copy()
               for n, p in model.named_parameters()}
     model.weights()                      # a serving cache, to be dropped
@@ -298,6 +352,32 @@ def test_train_step_matches_reference_value_and_grad():
                                float(m_ref["grad_norm"]), rtol=1e-4)
     share = _hold_updated(model, grads_ref, before, after_ref)
     assert share > 0.5, share  # most embedding rows see only the head
+
+
+def test_reference_ssd_gradient_overflows_where_the_ports_stays_finite():
+    """ROADMAP C13, the witness of REF_A_RANGE: at the initialiser's own
+    -A (1 to 16 over the heads), a chunk's decay exp(dA_i - dA_j)
+    overflows float32 above the diagonal, where the reference's
+    ``jnp.where`` drops the value but not its gradient, so ``jax.grad``
+    gives NaN.  The port's backward never differentiates that
+    exponential (the plain version's explicit formulas; the kernel
+    masks before it): the same step's gradients are finite, and the
+    losses agree."""
+    jc, tc, host, batch_np = _setup(arch="mamba2-130m")
+    a_log = ref_registry.init_params(jc, 0)["blocks"]["mamba"]["a_log"]
+    host["blocks"]["mamba"]["a_log"] = np.asarray(a_log)
+    assert float(np.exp(host["blocks"]["mamba"]["a_log"]).max()) == \
+        pytest.approx(16.0)
+    tcfg_ref = ref_ts.TrainConfig(optimizer=ref_opt.AdamWConfig(**OPT_CFG))
+    loss_ref, grads_ref = _ref_grads(jc, host, batch_np, tcfg_ref)
+    assert any(np.isnan(g).any()
+               for g in jax.tree_util.tree_leaves(grads_ref))
+    model = _port_model(host, tc)
+    loss, _, grads = ts.value_and_grad(
+        model, _port_batch(batch_np), tc,
+        ts.TrainConfig(optimizer=opt.AdamWConfig(**OPT_CFG)))
+    np.testing.assert_allclose(float(loss), loss_ref, rtol=1e-5)
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
 
 
 def test_microbatch_matches_full_batch():
@@ -327,21 +407,23 @@ def test_microbatch_matches_full_batch():
     assert share > 0.5, share
 
 
-def test_bf16_gradients_spread_like_reference():
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-130m"])
+def test_bf16_gradients_spread_like_reference(arch):
     """bf16 compute: over 2 seeds, the port's gradients lie as far from
     the reference's float32 gradients as the reference's own bf16
     gradients do, within a factor of 2 either way (the mean over the
-    parameters of each one's mean gap over its largest entry)."""
+    parameters of each one's mean gap over its largest entry).  The SSM
+    family's run through B3's bf16 route and its backward (the plain
+    versions here: float32 math on the bf16 inputs)."""
     gaps = {"port": 0.0, "ref": 0.0}
     for seed in range(2):
         grads = {}
         for dtype in ("float32", "bfloat16"):
-            jc, tc, host, batch_np = _setup(dtype, seed=seed)
+            jc, tc, host, batch_np = _setup(dtype, seed=seed, arch=arch)
             tcfg_ref = ref_ts.TrainConfig()
             _, g_ref = _ref_grads(jc, host, batch_np, tcfg_ref)
-            grads["ref", dtype] = {k: v.numpy() for k, v in
-                                   dense_state_dict(g_ref, tc).items()}
-            model = dense_lm_from_reference(host, tc, device="cpu")
+            grads["ref", dtype] = _state_dict(g_ref, tc)
+            model = _port_model(host, tc)
             _, _, g = ts.value_and_grad(model, _port_batch(batch_np), tc,
                                         ts.TrainConfig())
             grads["port", dtype] = {k: v.float().numpy()
@@ -354,7 +436,7 @@ def test_bf16_gradients_spread_like_reference():
             gaps[who] += float(np.mean([
                 np.abs(grads[who, "bfloat16"][k] - w).mean()
                 / np.abs(w).max() for k, w in f32.items()]))
-    print(f"bf16 gradient gaps to the reference's float32: {gaps}")
+    print(f"{arch}: bf16 gradient gaps to the reference's float32: {gaps}")
     assert 0.5 <= gaps["port"] / gaps["ref"] <= 2.0, gaps
 
 
@@ -437,23 +519,27 @@ def test_train_loop_decides_the_references_bucket_modes(monkeypatch):
 
 
 # --------------------------------------------------------------- refusals
-@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b", "paligemma-3b",
-                                  "granite-moe-3b-a800m",
-                                  "whisper-large-v3"])
-def test_families_without_backward_kernels_refuse_to_train(arch):
-    """A model whose parameters require a gradient, of a family whose
-    kernels lack a backward (B3 for SSM and hybrid, B2 at head dim 256
-    for the VLM) or whose training waits (MoE, enc-dec), raises naming
-    ROADMAP A.5; frozen, the same model still runs its forward."""
-    cfg = get_smoke_config(arch)
-    model = registry.init_params(cfg, 0, "cpu")
+def _family_batch(cfg):
     rng = np.random.default_rng(0)
     batch = {"tokens": torch.from_numpy(
         rng.integers(0, cfg.vocab, (1, 8)).astype(np.int32))}
-    if arch == "whisper-large-v3":
+    if cfg.name == "whisper-large-v3":
         batch["frames"] = torch.zeros(1, cfg.encoder_frames, cfg.d_model)
-    if arch == "paligemma-3b":
+    if cfg.name == "paligemma-3b":
         batch["patches"] = torch.zeros(1, cfg.img_tokens, cfg.d_model)
+    return batch
+
+
+@pytest.mark.parametrize("arch", ["paligemma-3b", "granite-moe-3b-a800m",
+                                  "whisper-large-v3"])
+def test_families_without_backward_kernels_refuse_to_train(arch):
+    """A model whose parameters require a gradient, of a family whose
+    kernels lack a backward (B2 at head dim 256 for the VLM) or whose
+    training waits (MoE, enc-dec), raises naming ROADMAP A.5; frozen,
+    the same model still runs its forward."""
+    cfg = get_smoke_config(arch)
+    model = registry.init_params(cfg, 0, "cpu")
+    batch = _family_batch(cfg)
     logits, _ = registry.train_forward(model, batch, cfg)
     assert not logits.requires_grad
     for p in model.parameters():
@@ -463,6 +549,31 @@ def test_families_without_backward_kernels_refuse_to_train(arch):
     with pytest.raises(ValueError, match=r"ROADMAP A\.5"):
         launch.train_loop(cfg, steps=1, batch=1, seq=8, seed=0,
                           ckpt_dir=None, ckpt_every=0, lr=1e-3, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b"])
+def test_ssm_and_hybrid_families_train(arch):
+    """The SSM and hybrid families, whose every kernel (B3, B4 and, in
+    the hybrid's shared block, B2) has a backward: frozen, the forward
+    runs without gradients; with parameters that require a gradient
+    ``train_forward`` gives differentiable logits (the serving cache's
+    logits, the same values), and the launcher trains two steps."""
+    cfg = get_smoke_config(arch)
+    registry.trainable(cfg)
+    registry.trainable(get_config(arch))
+    model = registry.init_params(cfg, 0, "cpu")
+    batch = _family_batch(cfg)
+    frozen, _ = registry.train_forward(model, batch, cfg)
+    assert not frozen.requires_grad
+    for p in model.parameters():
+        p.requires_grad_(True)
+    logits, _ = registry.train_forward(model, batch, cfg)
+    assert logits.requires_grad
+    torch.testing.assert_close(logits.detach(), frozen, rtol=0, atol=0)
+    _, state, losses = launch.train_loop(
+        cfg, steps=2, batch=1, seq=8, seed=0, ckpt_dir=None, ckpt_every=0,
+        lr=1e-3, device="cpu")
+    assert state.step == 2 and all(np.isfinite(losses))
 
 
 def test_paligemma_head_dim_is_named():
