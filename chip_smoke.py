@@ -215,20 +215,25 @@ Phases:
     rule of tests/test_torch_train.py;
 26. B3's backward on the inputs of a bf16 mamba2-130m train step's
     first backward call (x ``[8,4,24,128,64]``, N = 128, one group), in
-    bf16 and cast to float32, against its plain version under phase
-    23's rules, the same bits in two runs, timed by graph replay beside
-    the plain version, with its bound;
+    bf16 (the tensor-core route, asserted) and cast to float32 (the SIMT
+    route), against its plain version under phase 23's rules, the same
+    bits in two runs, timed by graph replay in one run beside the plain
+    version, with its bound, its share of the bound, TFLOP/s and its
+    scratch;
 27. the SSM training path: ``train_loop`` on mamba2-130m for 8 steps,
     24 B3 and 24 B3-backward calls and 49 B4 and 49 B4-backward calls a
-    step asserted, ``train_step_s``, tokens/s, peak memory, one more
-    step profiled (B3's three backward kernels 24 times each); the loss
-    finite and lower at step 7 than at step 0;
+    step asserted, every B3 and B3-backward call on the tensor-core
+    route, ``train_step_s``, tokens/s, peak memory, one more step
+    profiled (B3's two tensor-core backward kernels 24 times each); the
+    loss finite and lower at step 7 than at step 0;
 28. as phase 25 for mamba2-130m at full width and 2 layers;
 29. the hybrid training path: ``train_loop`` on zamba2-7b at 14 layers
     for 3 steps, the launches of B2, B3, B4 and their backward calls a
-    step asserted, every loss finite and step 1's below step 0's; again
-    for 5 steps at a tenth of the lr, every loss after step 0's below
-    it; then, on the first run's captured inputs, B3's backward at
+    step asserted (every B3-backward call on the tensor-core route),
+    every loss finite and step 1's below step 0's; again for 5 steps at
+    a tenth of the lr, every loss after step 0's below it, and one more
+    step of that run profiled (B3's two tensor-core backward kernels 14
+    times each); then, on the first run's captured inputs, B3's backward at
     ``[8,4,112,128,64]``, N = 64, B2's at q, k, v ``[8,32,512,112]`` and
     B4's at widths 3584 and 7168 (its generic route), each held and
     timed as in phases 23 and 26;
@@ -3095,9 +3100,11 @@ def train_cpu_compare(cuda, base=QWEN2, phase: int = 25, **cut) -> dict:
 
 # --------------------------------------------------------- phases 26-30
 SSD_BWD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu"
-#: B3's backward kernels, one launch each a call (the heads' sum where a
-#: group has several, as in both models)
-SSD_BWD = ("ssd_bwd_head", "ssd_bwd_sum", "ssd_bwd_group")
+#: B3's backward kernels by route, one launch each a call: the tensor
+#: cores' (bf16, every trained shape) and the SIMT route's (float32; the
+#: heads' sum where a group has several)
+SSD_BWD = ("ssd_bwd_wg", "ssd_bwd_gbc")
+SSD_BWD_SIMT = ("ssd_bwd_head", "ssd_bwd_sum", "ssd_bwd_group")
 #: the SSM family's kernels on its training path
 SSM_TRAINED = (ssd_inner, ssd_inner_bwd, rmsnorm_fused, rmsnorm_bwd)
 #: mamba2-130m's parameters (tied embedding over the padded vocab)
@@ -3118,35 +3125,55 @@ ZAMBA2_LOW_LR, ZAMBA2_LOW_STEPS = TRAIN_LR / 10, 5
 ZAMBA2_CPU_CUT = dict(n_layers=3, shared_attn_period=1)
 
 
-def ssd_bwd_row(args, model: str) -> dict:
+def ssd_bwd_row(args, model: str, full: bool = True) -> dict:
     """B3's backward on a train step's captured inputs (x, B, C, dA, gy,
-    gS, dt): held in bf16 (as captured) and in float32 (x, B and C cast),
-    the same bits in two runs, timed by graph replay beside the plain
-    version, with its bound."""
+    gS, dt): its route (the tensor cores in bf16, asserted; the SIMT
+    kernels in float32), held in bf16 (as captured) and in float32 (x, B
+    and C cast), the same bits in two runs, both timed by graph replay in
+    this run beside the plain version, with its bound, its share of the
+    bound, TFLOP/s and its scratch; with ``full``, also its tensor-core
+    kernels' HGMMA counts in the SASS (each must be above 0)."""
     x, b, c, da, gy, gs, dt = args
     bsz, nc, heads, q, p = x.shape
     groups, n = b.shape[2], b.shape[-1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     print(f"  ssd_inner_bwd on the {model} train step's inputs: x "
           f"{tuple(x.shape)} {str(x.dtype)[6:]}, B, C {tuple(b.shape)}, gy, "
           f"gS float32, dt given")
     check(x.dtype == torch.bfloat16 and dt is not None,
           f"the {model} train step's B3 backward ran on {x.dtype}")
+    f32 = [t.float() for t in args]
+    plans = {"bf16": ssd_ops.bwd_plan(x, b, c, gy, gs, sms),
+             "float32": ssd_ops.bwd_plan(f32[0], f32[1], f32[2], gy, gs,
+                                         sms)}
+    check(plans["bf16"][0] == "wgmma" and plans["float32"][0] == "simt",
+          f"ssd_inner_bwd routes {plans}")
+    before = ssd_inner_bwd.bf16_launches
     first = ssd_inner_bwd(*args)
     again = ssd_inner_bwd(*args)
     torch.cuda.synchronize()
+    check(ssd_inner_bwd.bf16_launches == before + 2,
+          "ssd_inner_bwd: a bf16 call off the tensor-core route")
     check(all(torch.equal(f, g) for f, g in zip(first, again)),
           "ssd_inner_bwd: two runs differ")
-    print("  gx, gB, gC, gdA and gdt the same bits in two runs")
+    print(f"  bf16: the tensor-core route ({', '.join(SSD_BWD)}; "
+          f"{plans['bf16'][1]} head slices a group); gx, gB, gC, gdA and "
+          f"gdt the same bits in two runs")
+    if full:
+        hgmma = {k: sum(c for fn, c in hgmma_by_function(SSD_LIB).items()
+                        if k in fn) for k in SSD_BWD}
+        print(f"  HGMMA instructions in the SASS: {hgmma}")
+        check(all(c > 0 for c in hgmma.values()),
+              f"the tensor-core backward's SASS holds no HGMMA: {hgmma}")
     err = hold_grads("bf16", first, ssd_inner_bwd_plain, args)
-    f32 = [t.float() for t in args]
     err = max(err, hold_grads("float32", ssd_inner_bwd(*f32),
                               ssd_inner_bwd_plain, f32))
     cells, pairs = bsz * nc * heads, q * (q + 1) // 2
     flops = 2 * (cells * (2 * pairs * p + 2 * q * n * p)
                  + bsz * nc * groups * 3 * pairs * n)
-    scratch_mb = cells * q * (q + n) * 4 / 1e6
     times = {}
     for label, ins in (("bf16", args), ("float32", f32)):
+        route, slices, floats = plans[label]
         nbytes = sum(t.numel() * t.element_size() for t in ins) + \
             sum(t.numel() * t.element_size() for t in (ins[0], ins[1],
                                                        ins[2], ins[3], ins[6]))
@@ -3155,23 +3182,29 @@ def ssd_bwd_row(args, model: str) -> dict:
         peak = BF16_FLOP_PER_S if label == "bf16" else F32_FLOP_PER_S
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / peak * 1e3
+        bound = max(bytes_ms, ops_ms)
+        names = SSD_BWD if route == "wgmma" else SSD_BWD_SIMT
         times[label] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                        "bound_ms": max(bytes_ms, ops_ms),
+                        "bound_ms": bound,
                         "bound_by": "bytes" if bytes_ms >= ops_ms
-                        else "operations"}
-        print(f"  ssd_inner_bwd {label}: {ms * 1e3:.2f} us/call (3 SIMT "
-              f"kernels, graph replay), plain {plain_ms * 1e3:.2f} us, bound "
-              f"{max(bytes_ms, ops_ms) * 1e3:.2f} us ({nbytes} bytes: "
-              f"{bytes_ms * 1e3:.2f} us; {flops} flop at {peak:.3g} flop/s: "
-              f"{ops_ms * 1e3:.2f} us), {max(bytes_ms, ops_ms) / ms:.1%} of "
-              f"the bound, {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; scratch "
-              f"{scratch_mb:.1f} MB a call")
+                        else "operations", "route_kernels": names,
+                        "scratch_mb": floats * 4 / 1e6,
+                        "bound_share": bound / ms,
+                        "tflops": flops / (ms * 1e-3) / 1e12}
+        print(f"  ssd_inner_bwd {label}: {ms * 1e3:.2f} us/call ({route} "
+              f"route: {', '.join(names)}; graph replay), plain "
+              f"{plain_ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us "
+              f"({nbytes} bytes: {bytes_ms * 1e3:.2f} us; {flops} flop at "
+              f"{peak:.3g} flop/s: {ops_ms * 1e3:.2f} us), {bound / ms:.1%} "
+              f"of the bound, {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; "
+              f"scratch {floats * 4 / 1e6:.1f} MB a call")
+    print(f"  ssd_inner_bwd bf16 against float32 in this run: "
+          f"{times['float32']['ms'] / times['bf16']['ms']:.2f}x faster")
     return dict({"name": "ssd_inner_bwd", "route": "cuda",
                  "source": SSD_BWD_SOURCE, "replaces": SSD_TPU,
                  "launches": 0, "max_abs_err": err, "model": model,
                  "shape": list(x.shape) + [n, groups],
-                 "scratch_mb": scratch_mb, "float32": times["float32"]},
-                **times["bf16"])
+                 "float32": times["float32"]}, **times["bf16"])
 
 
 def ssm_backward_checks(cuda) -> dict:
@@ -3205,7 +3238,7 @@ def ssm_train_path(cuda) -> dict:
           f"tokens, {TRAIN_STEPS} AdamW steps, lr {TRAIN_LR}")
     per_step = (cfg.n_layers, cfg.n_layers, 2 * cfg.n_layers + 1,
                 2 * cfg.n_layers + 1)
-    ssd_inner.bf16_launches = 0
+    ssd_inner.bf16_launches = ssd_inner_bwd.bf16_launches = 0
     model, opt, stats, _ = train_run(cfg, cuda, SSM_TRAINED, per_step)
     losses = stats["losses"]
     check(stats["n_params"] == MAMBA2_PARAMS, f"{stats['n_params']} "
@@ -3215,6 +3248,11 @@ def ssm_train_path(cuda) -> dict:
     check(ssd_inner.bf16_launches == ssd_inner.launches,
           f"{ssd_inner.launches - ssd_inner.bf16_launches} B3 launches "
           f"off the tensor-core route")
+    check(ssd_inner_bwd.bf16_launches == ssd_inner_bwd.launches,
+          f"{ssd_inner_bwd.launches - ssd_inner_bwd.bf16_launches} B3 "
+          f"backward calls off the tensor-core route")
+    print(f"  every B3 call ({ssd_inner.launches}) and B3 backward call "
+          f"({ssd_inner_bwd.launches}) on the tensor-core route")
     want_k = {n: per_step[1] for n in SSD_BWD}
     want_k.update({n: per_step[3] for n in RMS_BWD_REGS})
     profile_train_step(cfg, model, opt, cuda, "ssm train step", want_k)
@@ -3246,17 +3284,26 @@ def hybrid_train_path(cuda) -> tuple:
     trained = TRAINED + (ssd_inner, ssd_inner_bwd)
     norms = 2 * cfg.n_layers + 2 * apps + 1
     per_step = (apps, apps, norms, norms, cfg.n_layers, cfg.n_layers)
+    ssd_inner_bwd.bf16_launches = 0
     with backward_inputs() as seen:
         model, opt, stats, _ = train_run(cfg, cuda, trained, per_step,
                                          steps=ZAMBA2_TRAIN_STEPS)
     del model, opt
     torch.cuda.empty_cache()
+    check(ssd_inner_bwd.bf16_launches == ssd_inner_bwd.launches,
+          f"{ssd_inner_bwd.launches - ssd_inner_bwd.bf16_launches} B3 "
+          f"backward calls off the tensor-core route")
+    print(f"  every B3 backward call ({ssd_inner_bwd.launches}) on the "
+          f"tensor-core route")
     losses = stats["losses"]
     check(losses[1] < losses[0], f"loss at step 1 {losses[1]} is not below "
           f"step 0's {losses[0]}")
     print(f"  again at lr {ZAMBA2_LOW_LR} for {ZAMBA2_LOW_STEPS} steps")
     model, opt, low, _ = train_run(cfg, cuda, trained, per_step,
                                    steps=ZAMBA2_LOW_STEPS, lr=ZAMBA2_LOW_LR)
+    profile_train_step(cfg, model, opt, cuda, "hybrid train step",
+                       {n: cfg.n_layers for n in SSD_BWD})
+    stats["idle"] = PROFILES.get("hybrid train step")
     del model, opt
     torch.cuda.empty_cache()
     check(max(low["losses"][1:]) < low["losses"][0],
@@ -3272,7 +3319,8 @@ def hybrid_train_path(cuda) -> tuple:
           f"backward calls seen {sorted(calls)}")
     (fa, fkw) = calls["flash", cfg.hd]
     rows = {"flash": flash_bwd_row(fa, fkw.get("lse"), full=False),
-            "ssd": ssd_bwd_row(calls["ssd", cfg.ssm_head_dim][0], ZAMBA2.name),
+            "ssd": ssd_bwd_row(calls["ssd", cfg.ssm_head_dim][0], ZAMBA2.name,
+                               full=False),
             "rms": [rms_bwd_row(ra + tuple(rkw.values()), "generic")
                     for ra, rkw in (calls["rms", cfg.d_model],
                                     calls["rms", d_inner])]}

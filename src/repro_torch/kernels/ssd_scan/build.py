@@ -15,5 +15,5 @@ LIB = KernelLibrary(
     (_CSRC / "ssd_scan.cu", _CSRC / "ssd_scan_bwd.cu"), "ssd_scan",
     {"ssd_inner": ("ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "i32",
                    "i32", "i32", "i32", "i32", "i32", "i32", "ptr"),
-     "ssd_inner_bwd": ("ptr",) * 13 + ("i32",) * 7 + ("ptr",)},
+     "ssd_inner_bwd": ("ptr",) * 13 + ("i32",) * 8 + ("ptr",)},
     headers=(HOPPER_HEADER,))

@@ -33,12 +33,15 @@ passes).
 Mixed dtypes raise.  :func:`ssd_inner` returns through
 :class:`SSDInnerFunction`: its forward runs the forward kernel with grad
 mode off and saves the inputs, its backward runs :func:`ssd_inner_bwd`,
-the kernels of ``csrc/ssd_scan_bwd.cu`` (float32 math on either input
-dtype).  Each wrapper runs its plain version only for tensors on the CPU (which
+the kernels of ``csrc/ssd_scan_bwd.cu``, whose route :func:`bwd_plan`
+picks from the dtype and the shapes (float32 math on either route; bf16
+through the tensor cores, every float32 operand as two bf16 terms).
+Each wrapper runs its plain version only for tensors on the CPU (which
 only the tests pass), launches its kernel for CUDA tensors or raises
 (:mod:`repro_torch.kernels._route`), and counts its launches in
-``ssd_inner.launches`` (those of the tensor-core kernel also in
-``ssd_inner.bf16_launches``) and ``ssd_inner_bwd.launches``.
+``ssd_inner.launches`` and ``ssd_inner_bwd.launches`` (those of the
+tensor-core kernels also in ``ssd_inner.bf16_launches`` and
+``ssd_inner_bwd.bf16_launches``).
 :func:`ssd_scan_op` adds the chunk reshape, the cumulative decay, the
 cross-chunk state recurrence (a loop over chunks) and the off-diagonal
 term as torch ops: the contract of ``models.mamba2.ssd_chunked``, with
@@ -272,14 +275,63 @@ def ssd_inner_bwd_plain(xdt, b_mat, c_mat, dacum, gy, gstates, dt=None):
             gc.to(c_mat.dtype), ga.reshape(dacum.shape), gdt)
 
 
+def bwd_slices(bc: int, heads: int, groups: int, sms: int) -> int:
+    """Head slices per group of the backward's tensor-core route: the
+    most (a divisor of H / G) that keep its ``bc * groups * slices``
+    blocks within one wave of ``sms`` multiprocessors, 1 where even one
+    a group exceeds it.  4 at the mamba2-130m and zamba2-7b train steps
+    (``bc = 8 x 4``, G = 1) on 132 SMs."""
+    rep = heads // groups
+    for slices in range(rep, 0, -1):
+        if rep % slices == 0 and bc * groups * slices <= sms:
+            return slices
+    return 1
+
+
+def bwd_plan(xdt, b_mat, c_mat, gy, gstates, sms: Optional[int] = None):
+    """``(route, slices, scratch_floats)`` of :func:`ssd_inner_bwd` on the
+    card.  Route ``"wgmma"`` (the tensor cores: ``ssd_bwd_wg`` and
+    ``ssd_bwd_gbc``) for bf16 inputs with N and P multiples of 8 and x,
+    B, C, gy and gS 16-byte aligned, which covers every shape a model
+    trains (mamba2-130m's and zamba2-7b's and their smoke configs');
+    ``"simt"`` (``ssd_bwd_head``, ``ssd_bwd_sum``, ``ssd_bwd_group``) for
+    float32 and for bf16 the tensor cores cannot take (TMA cannot
+    describe them).  Scratch, float32: the tensor-core route's per-slice
+    buffer ``bc * G * slices * (3 * 64 * 64 + 128 Nb)`` (Nb the build's
+    N, 64 or 128: the block's G^T tiles and its part of gB's state
+    term, summed over the slices in order by ``ssd_bwd_gbc``), the SIMT
+    route's per-head ``bc * H * Q * (Q + N)``.  ``sms``: the card's
+    multiprocessors (read from x's device where None)."""
+    bsz, nc, heads, q, p = xdt.shape
+    groups, n = b_mat.shape[2], b_mat.shape[-1]
+    bc = bsz * nc
+    if xdt.dtype == torch.bfloat16 and n % 8 == 0 and p % 8 == 0 and all(
+            t.data_ptr() % 16 == 0 for t in (xdt, b_mat, c_mat, gy,
+                                             gstates)):
+        slices = bwd_slices(bc, heads, groups, sms or torch.cuda
+                            .get_device_properties(xdt.device)
+                            .multi_processor_count)
+        nb = 64 if n <= 64 else 128
+        return "wgmma", slices, bc * groups * slices * (3 * 64 * 64 + 128 * nb)
+    return "simt", 0, bc * heads * q * (q + n)
+
+
 @observed
 def ssd_inner_bwd(xdt, b_mat, c_mat, dacum, gy, gstates, dt=None):
     """``(gxdt, gb, gc, gdacum, gdt)`` of :func:`ssd_inner` at its inputs
     for the float32 output gradients ``gy`` ``[B,Nc,H,Q,P]`` and
     ``gstates`` ``[B,Nc,H,N,P]`` (contiguous): the kernels of
-    ``csrc/ssd_scan_bwd.cu`` on the card (one call, counted once), the
-    plain version on the CPU.  gxdt, gb and gc come in the inputs'
-    dtypes, gdacum and gdt (None without dt) in float32."""
+    ``csrc/ssd_scan_bwd.cu`` on the card (one call, counted once; its
+    route from :func:`bwd_plan`: bf16 with N and P multiples of 8 and
+    aligned operands through the tensor cores, two launches and a
+    per-slice scratch of 14.7 MB at mamba2-130m's train step, x
+    ``[8,4,24,128,64]`` with N = 128; otherwise the SIMT kernels, three
+    launches and a per-head scratch of 100.7 MB there), the plain
+    version on the CPU.  At that shape the call is bound by bytes: 81.3
+    MB of inputs and outputs, 24.3 us at 3.35 TB/s (its 5.1 GFLOP of
+    causal products take 5 us at the bf16 tensor-core rate).  gxdt, gb
+    and gc come in the inputs' dtypes, gdacum and gdt (None without dt)
+    in float32."""
     _check("ssd_inner_bwd", xdt, b_mat, c_mat, dacum, dt, gy, gstates)
     if not launches_kernel("ssd_inner_bwd", xdt, b_mat, c_mat, dacum, dt, gy,
                            gstates):
@@ -294,10 +346,8 @@ def ssd_inner_bwd(xdt, b_mat, c_mat, dacum, gy, gstates, dt=None):
     gdt = None if dt is None else torch.empty_like(dt)
     if gx.numel() == 0:
         return gx, gb, gc, ga, gdt
-    # per head: gM L [Q, Q] and the state term of gB [Q, N], float32
-    cells = bsz * nc * heads
-    scratch = torch.empty(cells * q * (q + n), dtype=torch.float32,
-                          device=dev)
+    route, slices, floats = bwd_plan(xdt, b_mat, c_mat, gy, gstates)
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev)
     err = LIB.load().ssd_inner_bwd(
         xdt.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
         dacum.data_ptr(), None if dt is None else dt.data_ptr(),
@@ -305,14 +355,17 @@ def ssd_inner_bwd(xdt, b_mat, c_mat, dacum, gy, gstates, dt=None):
         gc.data_ptr(), ga.data_ptr(),
         None if gdt is None else gdt.data_ptr(), scratch.data_ptr(),
         bsz * nc, heads, groups, q, n, p, int(xdt.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
+        slices, torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"ssd_inner_bwd: CUDA error {err}")
+        raise RuntimeError(f"ssd_inner_bwd: CUDA error {err} on the {route} "
+                           f"route")
     ssd_inner_bwd.launches += 1
+    ssd_inner_bwd.bf16_launches += route == "wgmma"
     return gx, gb, gc, ga, gdt
 
 
 ssd_inner_bwd.launches = 0
+ssd_inner_bwd.bf16_launches = 0
 
 
 def chunk_len(seq: int, chunk: int) -> int:

@@ -77,7 +77,7 @@ from repro_torch.kernels.rmsnorm.ops import route as rms_route
 from repro_torch.kernels.ssd_scan import (ssd_inner, ssd_inner_bwd,
                                           ssd_inner_bwd_plain,
                                           ssd_inner_plain)
-from repro_torch.kernels.ssd_scan.ops import bf16_limits
+from repro_torch.kernels.ssd_scan.ops import bf16_limits, bwd_plan
 from repro_torch.kernels.segment_sum import (segment_sum_scatter,
                                              segment_sum_scatter_plain,
                                              segment_sum_sorted,
@@ -888,7 +888,13 @@ SSD_BWD_SHAPES = [
     (1, 2, 6, 2, 64, 64, 128),     # two groups
     (2, 2, 4, 2, 100, 5, 7),       # Q not a power of two, odd P and N
     (1, 1, 2, 1, 1, 5, 7),         # one row
+    (4, 4, 16, 2, 100, 64, 128),   # G = 2, 4 head slices a group, Q = 100
 ]
+#: the bf16 route of each SSD_BWD_SHAPES entry: the tensor cores wherever
+#: N and P are multiples of 8 (every trained shape)
+SSD_BWD_ROUTES = dict(zip(SSD_BWD_SHAPES, ["wgmma", "wgmma", "wgmma",
+                                           "wgmma", "simt", "simt",
+                                           "wgmma"]))
 
 
 def _ssd_bwd_inputs(cuda, dtype, with_dt, B, Nc, H, G, Q, P, N, seed=2):
@@ -914,13 +920,20 @@ def test_ssd_bwd_kernel_matches_plain(cuda, dtype, with_dt, B, Nc, H, G, Q,
                                       P, N):
     """B3's backward kernels against ``ssd_inner_bwd_plain``: float32
     gradients at BWD_F32_RTOL of their largest entry, bf16 ones (gx, gB,
-    gC of bf16 inputs) by the spread rule; one counted launch, and the
-    same bits in a second call (no atomics)."""
+    gC of bf16 inputs) by the spread rule; one counted launch on the
+    route the shape takes (bf16: ``SSD_BWD_ROUTES``, counted in
+    ``bf16_launches`` on the tensor cores; float32: the SIMT kernels),
+    and the same bits in a second call (no atomics)."""
     x, bm, cm, da, dts, gy, gs = _ssd_bwd_inputs(cuda, dtype, with_dt, B,
                                                  Nc, H, G, Q, P, N)
-    before = ssd_inner_bwd.launches
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    want = SSD_BWD_ROUTES[B, Nc, H, G, Q, P, N] if dtype == "bfloat16" \
+        else "simt"
+    assert bwd_plan(x, bm, cm, gy, gs, sms)[0] == want
+    before = ssd_inner_bwd.launches, ssd_inner_bwd.bf16_launches
     got = ssd_inner_bwd(x, bm, cm, da, gy, gs, dts)
-    assert ssd_inner_bwd.launches == before + 1
+    assert (ssd_inner_bwd.launches, ssd_inner_bwd.bf16_launches) == (
+        before[0] + 1, before[1] + (want == "wgmma"))
     torch.cuda.synchronize()
     _hold_grads(got, lambda *t: ssd_inner_bwd_plain(*t, dts),
                 (x, bm, cm, da, gy, gs), x.dtype)

@@ -18,7 +18,11 @@ route, which reads x and dt apart and carries its float32 operands M
 and W as three bf16 terms each: its plain version is the float32
 reference, and :func:`test_bf16_route_witness` holds an emulation of
 the kernel's order against it within ``bf16_limits``, the card's
-tolerance.
+tolerance.  The backward's tensor-core route carries gy, gS, M and G^
+as two bf16 terms each: :func:`test_bwd_kernel_order_witness` holds an
+emulation of it against the plain backward under the card's rules
+(tests/test_torch_cuda.py: gdA and gdt at ``BWD_F32_RTOL`` of their
+largest entry, gx, gB and gC by the spread rule).
 """
 
 import jax
@@ -34,8 +38,8 @@ from repro.models.mamba2 import ssd_chunked as ref_chunked
 from repro_torch.kernels.ssd_scan import (ssd_inner, ssd_inner_bwd,
                                           ssd_inner_bwd_plain,
                                           ssd_inner_plain, ssd_scan_op)
-from repro_torch.kernels.ssd_scan.ops import (bf16_limits, chunk_inputs,
-                                              chunk_len)
+from repro_torch.kernels.ssd_scan.ops import (bf16_limits, bwd_slices,
+                                              chunk_inputs, chunk_len)
 
 INNER_TOL = 1e-5
 SCAN_TOL = 1e-4
@@ -478,3 +482,142 @@ def test_bwd_refuses_gradients_of_another_shape_or_dtype():
     with pytest.raises(ValueError, match="contiguous"):
         ssd_inner_bwd(xdt, bm, cm, da, gy.transpose(3, 4).contiguous()
                       .transpose(3, 4), gs, dt)
+
+
+# ------------------------------------------------ backward, tensor cores
+#: the card's rules for a backward kernel (tests/test_torch_cuda.py): a
+#: float32 gradient within BWD_F32_RTOL of its largest entry, a bf16 one
+#: within BWD_SPREAD times the bf16 plain version's own gap to the plain
+#: version run in float32
+BWD_F32_RTOL = 1e-4
+BWD_SPREAD = 2.0
+#: mamba2-130m's and zamba2-7b's head, chunk and state widths (H, G, Q, P,
+#: N) at their train steps, batch and chunks cut to 1
+BWD_WITNESS = [(24, 1, 128, 64, 128), (112, 1, 128, 64, 64)]
+#: the bf16 terms of each float32 operand on the tensor-core route
+BWD_TERMS = {"gy": 2, "gS": 2, "M": 2, "G": 2}
+#: the multiprocessors of an H100 SXM, whose grid the witness emulates
+H100_SMS = 132
+
+
+def _bwd_bf16_inputs(H, G, Q, P, N, seed=0):
+    """``_bf16_inputs`` at one batch and chunk, and float32 gy and gS."""
+    x, bm, cm, da, dt = _bf16_inputs(1, 1, H, G, Q, P, N, seed)
+    rng = np.random.default_rng(seed + 1)
+    f = np.float32
+    gy = torch.from_numpy(rng.standard_normal((1, 1, H, Q, P)).astype(f))
+    gs = torch.from_numpy(rng.standard_normal((1, 1, H, N, P)).astype(f))
+    return x, bm, cm, da, dt, gy, gs
+
+
+def _bwd_kernel_order(x, bm, cm, da, dt, gy, gs, slices, terms=BWD_TERMS):
+    """The backward's tensor-core route in plain torch: S^T = B C^T in k16
+    steps, decays as exp2 of the dA difference times log2(e), dt folded
+    into row and column scales (x exact), gy, gS, M^T and G^ as their
+    ``terms`` bf16 terms (M^T gy without the product of the two last
+    terms), G^ and gB's state term summed over each slice's heads and
+    then over the ``slices`` in order; gx, gB and gC rounded to bf16."""
+    B, Nc, H, Q, P = x.shape
+    G, N = bm.shape[2], bm.shape[-1]
+    rep = H // G
+    split = (B, Nc, G, rep)
+    xf = x.float().reshape(*split, Q, P)
+    b = bm.float()[:, :, :, None]
+    c = cm.float()[:, :, :, None]
+    d = da.reshape(*split, Q)
+    t = dt.reshape(*split, Q)
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    st = sum(torch.matmul(b[..., k:k + 16], c[..., k:k + 16].transpose(-1, -2))
+             for k in range(0, N, 16))                      # [j, i]
+    causal = torch.ones(Q, Q, dtype=torch.bool).triu()      # i >= j
+    lt = torch.where(causal, torch.exp2((d[..., None, :] - d[..., :, None])
+                                        * log2e), 0.0)
+    mt = st * lt
+    e = torch.exp2((d[..., -1:] - d) * log2e)
+    gy_t = _split3(gy.reshape(*split, Q, P))[:terms["gy"]]
+    gs_t = _split3(gs.reshape(*split, N, P))[:terms["gS"]]
+    g = sum(torch.matmul(xf, u.transpose(-1, -2)) for u in gy_t) * \
+        t[..., :, None]                                     # gM^T
+    rt = g * mt
+    m_t = _split3(mt)[:terms["M"]]
+    top = max(terms["M"], terms["gy"]) - 1
+    gu = sum(torch.matmul(m_t[a], gy_t[u]) for a in range(terms["M"])
+             for u in range(terms["gy"]) if a + u <= top)
+    bgs = sum(torch.matmul(b, u) for u in gs_t)
+    r = e * t * (xf * bgs).sum(-1)
+    gu = gu + e[..., None] * bgs
+    w = sum(torch.matmul(xf, u.transpose(-1, -2)) for u in gs_t)
+    hb = rep // slices
+
+    def over_heads(v):                 # per slice in head order, then slices
+        parts = [sum(v[:, :, :, k] for k in range(s * hb, (s + 1) * hb))
+                 for s in range(slices)]
+        return sum(parts[1:], parts[0])
+
+    ght = over_heads(g * lt)
+    sb = over_heads((e * t)[..., None] * w)
+    g_t = _split3(ght)[:terms["G"]]
+    gb = sum(torch.matmul(u, cm.float()) for u in g_t) + sb
+    gc = sum(torch.matmul(u.transpose(-1, -2), bm.float()) for u in g_t)
+    ga = rt.sum(-2) - rt.sum(-1) - r
+    ga[..., -1] += r.sum(-1)
+    return ((gu * t[..., None]).reshape(x.shape).bfloat16(), gb.bfloat16(),
+            gc.bfloat16(), ga.reshape(da.shape),
+            (gu * xf).sum(-1).reshape(dt.shape))
+
+
+def _bwd_shares(got, x, bm, cm, da, dt, gy, gs):
+    """Each gradient's largest gap as a share of its card limit."""
+    want = ssd_inner_bwd_plain(x, bm, cm, da, gy, gs, dt)
+    ref = ssd_inner_bwd_plain(x.float(), bm.float(), cm.float(), da, gy, gs,
+                              dt)
+    shares = {}
+    for name, g, w, r in zip(("gx", "gB", "gC", "gdA", "gdt"), got, want,
+                             ref):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.dtype == torch.float32:
+            shares[name] = float((g - w).abs().max()) / (
+                BWD_F32_RTOL * float(w.abs().max()))
+        else:
+            own = float((w.float() - r).abs().max())
+            shares[name] = float((g.float() - r).abs().max()) / (
+                BWD_SPREAD * own)
+    return shares
+
+
+@pytest.mark.parametrize("shape", BWD_WITNESS)
+def test_bwd_kernel_order_witness(shape):
+    """The witness behind the backward tensor-core route's terms: its
+    arithmetic, emulated with the slices of the train step's grid (4 on
+    132 SMs), is within the card's limits of the plain backward on the
+    same bf16 inputs (``-s`` prints each gradient's share of its
+    limit; gx, gB and gC round once at the end, so their share is the
+    plain bf16 run's own, 0.5)."""
+    H, G = shape[:2]
+    slices = bwd_slices(8 * 4, H, G, H100_SMS)
+    assert slices == 4
+    ins = _bwd_bf16_inputs(*shape)
+    shares = _bwd_shares(_bwd_kernel_order(*ins, slices), *ins)
+    print(f"{shape}: share of each limit {shares}")
+    assert all(v <= 1.0 for v in shares.values()), shares
+
+
+@pytest.mark.parametrize("operand", sorted(BWD_TERMS))
+@pytest.mark.parametrize("shape", BWD_WITNESS)
+def test_bwd_fewer_terms_exceed_or_approach_the_limit(shape, operand):
+    """What the second term buys: gy, gS or M^T as one bf16 term puts gdA
+    or gdt (float32 gradients) past its limit; G^ as one term moves gB
+    and gC from the plain bf16 run's own share (0.5, the rounding) to
+    most of their limit."""
+    H, G = shape[:2]
+    slices = bwd_slices(8 * 4, H, G, H100_SMS)
+    ins = _bwd_bf16_inputs(*shape)
+    full = _bwd_shares(_bwd_kernel_order(*ins, slices), *ins)
+    cut = _bwd_shares(_bwd_kernel_order(*ins, slices,
+                                        dict(BWD_TERMS, **{operand: 1})),
+                      *ins)
+    if operand == "G":
+        assert max(cut["gB"], cut["gC"]) > 0.65, cut
+        assert max(full["gB"], full["gC"]) <= 0.51, full
+    else:
+        assert max(cut["gdA"], cut["gdt"]) > 1.0, cut
