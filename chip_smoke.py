@@ -61,7 +61,13 @@ Drives the port's main paths on the card at full width:
 * the hybrid training path: zamba2-7b at its published width and 14 of
   its 81 layers (at 81 its float32 masters, gradients and AdamW moments
   exceed the card), 3 steps of 8 x 512 tokens: B2's, B3's and B4's
-  backward kernels on every step.
+  backward kernels on every step;
+* the VLM training path: paligemma-3b at its published width and depth
+  through ``train_loop``, 8 steps of 8 x (256 stub patches + 512
+  tokens), the prefix-LM mask over the patches: B2's backward at head
+  dim 256 (its hd-256 tensor-core build) and B4's on every step.
+
+No earlier phase's depth is cut to fit the time limit.
 
 Phases:
 
@@ -239,7 +245,27 @@ Phases:
     timed as in phases 23 and 26;
 30. as phase 25 for zamba2-7b at full width and 3 layers with the
     shared block between each two, so that its gradient sums over two
-    applications.
+    applications;
+31. B2's backward on the inputs of a bf16 paligemma-3b train step's
+    first backward call (q, o, dO ``[8,8,768,256]``, k, v
+    ``[8,1,768,256]``, the prefix at 256, the forward's LSE), in bf16
+    (the tensor-core route of the hd-256 build, asserted, its kernels'
+    ``HGMMA`` count in the SASS above 0) and cast to float32 (the SIMT
+    route), and on seeded cases in both dtypes (ragged rows with a
+    prefix, causal without one, non-causal with Sq != Skv, head dim
+    192), held as phase 23 holds them, the same bits in two runs, timed
+    beside the plain version and SDPA's autograd backward with the
+    prefix as a boolean mask (its backend printed), with its bound (the
+    bf16 call must reach a tenth of it); B4's backward at
+    ``[6144,2048]`` (its register route) likewise;
+32. the VLM training path: ``train_loop`` on paligemma-3b for 8 steps,
+    18 B2 and 18 B2-backward calls (every one on the tensor-core route)
+    and 37 B4 and 37 B4-backward calls a step asserted,
+    ``train_step_s``, tokens/s (text tokens, positions beside), peak
+    memory, one more step profiled (each backward call's kernels once
+    each); every loss finite and the last below step 0's;
+33. as phase 25 for paligemma-3b at full width and 2 layers over 2 x
+    (256 patches + 64 tokens).
 
 Prints the kernel summary as one JSON line, then the ``ok`` line last.
 Any failed check exits non-zero; so does a machine without CUDA, and a
@@ -1302,6 +1328,22 @@ def sdpa_backend(q, k, v, mask, is_causal: bool) -> str:
     return names.get(int(choice), str(choice))
 
 
+def visible_pairs(sq: int, skv: int, causal: bool, prefix: int) -> int:
+    """(q, k) pairs one head sees: row i sees ``min(Skv, max(i, prefix -
+    1) + 1)`` keys under the causal mask, every key otherwise."""
+    if not causal:
+        return sq * skv
+    limit = np.maximum(np.arange(sq), prefix - 1)
+    return int(np.minimum(skv, limit + 1).sum())
+
+
+def prefix_mask(sq: int, skv: int, prefix: int, device) -> torch.Tensor:
+    """The prefix-LM mask as SDPA's boolean ``attn_mask``: key j is seen
+    by row i where ``j <= max(i, prefix - 1)``."""
+    rows = torch.arange(sq, device=device).clamp(min=prefix - 1)
+    return torch.arange(skv, device=device)[None, :] <= rows[:, None]
+
+
 def flash_times(a, b, c, causal: bool = True, prefix_len: int = 0) -> dict:
     """B2's time on q, k, v = ``a``, ``b``, ``c`` by graph replay, the
     plain version's and SDPA's (the prefix-LM mask as a boolean
@@ -1312,21 +1354,15 @@ def flash_times(a, b, c, causal: bool = True, prefix_len: int = 0) -> dict:
 
     bsz, heads, seq, hd = a.shape
     skv = b.shape[2]
-    if causal:
-        limit = np.maximum(np.arange(seq), prefix_len - 1)
-        pairs = int(np.minimum(skv, limit + 1).sum())
-    else:
-        pairs = seq * skv
-    flops = 4 * hd * bsz * heads * pairs
+    flops = 4 * hd * bsz * heads * visible_pairs(seq, skv, causal,
+                                                 prefix_len)
     nbytes = (2 * a.numel() + b.numel() + c.numel()) * a.element_size()
     ms = graph_ms(lambda: flash_attention(a, b, c, causal=causal,
                                           prefix_len=prefix_len), 20)
     plain_ms = cuda_ms(lambda: flash_attention_plain(
         a, b, c, causal=causal, prefix_len=prefix_len), 10)
-    mask = None
-    if prefix_len:
-        rows = torch.arange(seq, device=a.device).clamp(min=prefix_len - 1)
-        mask = torch.arange(skv, device=a.device)[None, :] <= rows[:, None]
+    mask = prefix_mask(seq, skv, prefix_len, a.device) if prefix_len \
+        else None
 
     def sdpa():
         if mask is None:
@@ -2636,24 +2672,31 @@ def backward_inputs():
 
 def capture_train_inputs(cfg, cuda) -> dict:
     """One bf16 train step of ``cfg`` on the card (its first forward and
-    backward, no update), recording the first call of each backward
-    wrapper (:func:`backward_inputs`), by key: B2's q, k, v, o and dO,
-    B3's x, B, C, dA, gy, gS and dt, B4's x, gamma and dy."""
+    backward, no update; the launcher's batch, with the VLM's patches),
+    recording the first call of each backward wrapper
+    at each shape (:func:`backward_inputs`), by (key, shape): B2's q, k,
+    v, o and dO, B3's x, B, C, dA, gy, gS and dt, B4's x, gamma and
+    dy."""
+    from repro_torch.launch.train import make_batch_np
     from repro_torch.train.train_step import TrainConfig, value_and_grad
 
     with backward_inputs() as seen:
         model = model_registry.init_params(cfg, SEED, cuda)
-        batch = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ).batch(
-            seed=SEED, step=0, shard=0, n_shards=1, batch_size=TRAIN_BATCH)
+        batch = make_batch_np(cfg, SyntheticLM(vocab=cfg.vocab,
+                                               seq_len=TRAIN_SEQ),
+                              step=0, batch=TRAIN_BATCH, seed=SEED)
         batch = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
         value_and_grad(model, batch, cfg, TrainConfig())
         torch.cuda.synchronize()
     del model
     torch.cuda.empty_cache()
-    first: dict = {}
-    for (key, _), call in seen.items():
-        first.setdefault(key, call)
-    return first
+    return seen
+
+
+def first_call(seen: dict, key: str) -> tuple:
+    """The first call that :func:`capture_train_inputs` recorded of the
+    backward wrapper ``key``, at whatever shape."""
+    return next(call for (k, _), call in seen.items() if k == key)
 
 
 def hold_grads(label: str, got, plain_fn, inputs) -> float:
@@ -2727,96 +2770,132 @@ def kernels_named(label: str, names) -> dict:
     return found
 
 
-def flash_bwd_row(args, lse, full: bool = True) -> dict:
-    """Phase 23, B2's backward at a train step's shape: held in bf16
-    (the tensor-core route, with the forward's LSE) and in float32 (the
-    inputs cast; the SIMT route), timed by graph replay beside the plain
-    backward and SDPA's autograd backward, with its bound; with
-    ``full``, also its kernels' HGMMA counts (phase 24's profiled step
-    times them) and seeded causal, non-causal and prefix cases."""
+#: phase 23's seeded cases of B2's backward: (causal, prefix, q, k shapes)
+FLASH_BWD_CASES = ((True, 0, (2, 6, 130, 128), (2, 2, 130, 128)),
+                   (False, 0, (1, 3, 65, 64), (1, 1, 130, 64)),
+                   (True, 70, (1, 6, 150, 72), (1, 1, 150, 72)))
+
+
+def flash_bwd_row(args, lse, full: bool = True, *, prefix: int = 0,
+                  cases=FLASH_BWD_CASES, build: int = 0,
+                  min_share: float = 0.0) -> dict:
+    """B2's backward at a train step's shape (causal, with the prefix-LM
+    mask over ``prefix`` rows): held in bf16 (the tensor-core route,
+    with the forward's LSE) and in float32 (the inputs cast; the SIMT
+    route), the same bits in two runs of each, timed by graph replay
+    beside the plain backward and SDPA's autograd backward (the prefix
+    as a boolean mask), with its bound; the bf16 call must reach
+    ``min_share`` of its bound.  With ``full``, also its kernels' HGMMA
+    counts (only the hd-``build`` build's where ``build`` is given;
+    phase 24's profiled step times them) and the seeded ``cases``."""
     import torch.nn.functional as F
 
     q, k, v, o, do = args
     bsz, heads, seq, hd = q.shape
+    skv = k.shape[2]
     route = flash_ops.bwd_route(q, k, v, o, do)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     parts = flash_ops.dkdv_parts(bsz, k.shape[1], k.shape[2],
                                  heads // k.shape[1], sms)
     print(f"  flash_attention_bwd on the train step's inputs: q, o, dO "
-          f"{tuple(q.shape)}, k, v {tuple(k.shape)}, the forward's LSE "
+          f"{tuple(q.shape)}, k, v {tuple(k.shape)}"
+          f"{f', prefix {prefix}' if prefix else ''}, the forward's LSE "
           f"{tuple(lse.shape)}; route {route}, G split into {parts} parts")
     check(route == "wgmma" and lse is not None,
           f"the train step's bf16 backward takes the {route} route")
-    hgmma = {n: sum(c for f, c in hgmma_by_function(FLASH_LIB).items()
-                    if n in f) for n in FLASH_BWD_WG} if full else None
+    hgmma = None
     if full:
-        print(f"  HGMMA instructions in the SASS: {hgmma}")
+        tag = f"ILi{build}E" if build else ""
+        hgmma = {n: sum(c for f, c in hgmma_by_function(FLASH_LIB).items()
+                        if n in f and tag in f) for n in FLASH_BWD_WG}
+        print(f"  HGMMA instructions in the SASS"
+              f"{f' of the hd-{build} build' if build else ''}: {hgmma}")
         check(hgmma["flash_bwd_dkdv_wg"] > 0 and hgmma["flash_bwd_dq_wg"]
               > 0, f"the tensor-core backward's SASS holds no HGMMA: "
               f"{hgmma}")
-    err = hold_grads("bf16", flash_attention_bwd(q, k, v, o, do, lse=lse),
-                     lambda *t: flash_attention_bwd_plain(*t), args)
+
+    def plain(*t, c_=True, p_=prefix):
+        return flash_attention_bwd_plain(*t, causal=c_, prefix_len=p_)
+
+    def held(label, ins, ll, c_=True, p_=0):
+        first = flash_attention_bwd(*ins, causal=c_, prefix_len=p_, lse=ll)
+        again = flash_attention_bwd(*ins, causal=c_, prefix_len=p_, lse=ll)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(first, again)),
+              f"flash_attention_bwd {label}: two runs differ")
+        return hold_grads(label, first, lambda *t: plain(*t, c_=c_, p_=p_),
+                          ins)
+
     f32 = [t.float() for t in args]
-    err = max(err, hold_grads("float32", flash_attention_bwd(*f32),
-                              lambda *t: flash_attention_bwd_plain(*t), f32))
+    err = max(held("bf16", args, lse, p_=prefix),
+              held("float32", f32, None, p_=prefix))
+    print("  dq, dk and dv the same bits in two runs, bf16 and float32")
     rng = torch.Generator(device=q.device).manual_seed(SEED)
-    for causal, prefix, qs, ks in ((True, 0, (2, 6, 130, 128),
-                                    (2, 2, 130, 128)),
-                                   (False, 0, (1, 3, 65, 64),
-                                    (1, 1, 130, 64)),
-                                   (True, 70, (1, 6, 150, 72),
-                                    (1, 1, 150, 72))) if full else ():
+    for causal, pre, qs, ks in cases if full else ():
         for dt in (torch.bfloat16, torch.float32):
             a, b, c = (torch.randn(s, device=q.device, generator=rng).to(dt)
                        for s in (qs, ks, ks))
             with torch.no_grad():
                 out, ll = (flash_attention_fwd(a, b, c, causal=causal,
-                                               prefix_len=prefix)
+                                               prefix_len=pre)
                            if dt == torch.bfloat16 else
                            (flash_attention(a, b, c, causal=causal,
-                                            prefix_len=prefix), None))
+                                            prefix_len=pre), None))
             dout = torch.randn(qs, device=q.device, generator=rng).to(dt)
-            err = max(err, hold_grads(
+            want = "wgmma" if dt == torch.bfloat16 else "simt"
+            check(flash_ops.bwd_route(a, b, c, out, dout) == want,
+                  f"flash_attention_bwd {qs} {dt} off the {want} route")
+            err = max(err, held(
                 f"{str(dt)[6:]} {qs}{'' if causal else ' non-causal'}"
-                f"{f' prefix {prefix}' if prefix else ''}",
-                flash_attention_bwd(a, b, c, out, dout, causal=causal,
-                                    prefix_len=prefix, lse=ll),
-                lambda *t, c_=causal, p_=prefix: flash_attention_bwd_plain(
-                    *t, causal=c_, prefix_len=p_), (a, b, c, out, dout)))
-    pairs = bsz * heads * seq * (seq + 1) // 2
-    flops = 5 * 2 * hd * pairs
+                f"{f' prefix {pre}' if pre else ''}",
+                (a, b, c, out, dout), ll, causal, pre))
+    flops = 5 * 2 * hd * bsz * heads * visible_pairs(seq, skv, True, prefix)
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
+    mask = prefix_mask(seq, skv, prefix, q.device) if prefix else None
+
+    def sdpa(a, b, c):
+        if mask is None:
+            return F.scaled_dot_product_attention(a, b, c, is_causal=True,
+                                                  enable_gqa=True)
+        return F.scaled_dot_product_attention(a, b, c, attn_mask=mask,
+                                              enable_gqa=True)
+
     times = {}
     for label, ins, ll in (("bf16", args, lse), ("float32", f32, None)):
-        ms = graph_ms(lambda: flash_attention_bwd(*ins, lse=ll), 10)
-        plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(*ins), 5)
-        library_ms = library_bwd_ms(
-            lambda a, b, c: F.scaled_dot_product_attention(
-                a, b, c, is_causal=True, enable_gqa=True), ins[:3])
-        backend = sdpa_backend(*ins[:3], None, True)
+        ms = graph_ms(lambda: flash_attention_bwd(
+            *ins, prefix_len=prefix, lse=ll), 10)
+        plain_ms = cuda_ms(lambda: plain(*ins), 5)
+        library_ms = library_bwd_ms(sdpa, ins[:3])
+        backend = sdpa_backend(*ins[:3], mask, mask is None)
         peak = BF16_FLOP_PER_S if label == "bf16" else F32_FLOP_PER_S
         bytes_ms = nbytes * ins[0].element_size() / q.element_size() \
             / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / peak * 1e3
+        bound = max(bytes_ms, ops_ms)
         times[label] = {"ms": ms, "plain_ms": plain_ms,
                         "library_ms": library_ms, "sdpa_backend": backend,
-                        "bound_ms": max(bytes_ms, ops_ms),
+                        "bound_ms": bound,
                         "bound_by": "bytes" if bytes_ms >= ops_ms
                         else "operations"}
         print(f"  flash_attention_bwd {label}: {ms * 1e3:.2f} us/call "
               f"({'4 tensor-core' if label == 'bf16' else '3 SIMT'} "
               f"kernels, graph replay), plain {plain_ms * 1e3:.2f} us, "
-              f"SDPA ({backend}) autograd backward (forward subtracted) "
+              f"SDPA ({backend}{', boolean mask' if prefix else ''}) "
+              f"autograd backward (forward subtracted) "
               f"{library_ms * 1e3:.2f} us, bound "
-              f"{max(bytes_ms, ops_ms) * 1e3:.2f} us ({flops} flop at "
+              f"{bound * 1e3:.2f} us ({flops} flop at "
               f"{peak:.3g} flop/s: {ops_ms * 1e3:.2f} us; bytes "
               f"{bytes_ms * 1e3:.2f} us), {flops / (ms * 1e-3) / 1e12:.2f} "
-              f"TFLOP/s, {max(bytes_ms, ops_ms) / ms:.1%} of the bound")
+              f"TFLOP/s, {bound / ms:.1%} of the bound")
+    share = times["bf16"]["bound_ms"] / times["bf16"]["ms"]
+    check(share >= min_share, f"flash_attention_bwd bf16 at {share:.1%} of "
+          f"its bound, below {min_share:.0%}")
     return dict({"name": "flash_attention_bwd", "route": "cuda",
                  "source": FLASH_BWD_SOURCE, "replaces": FLASH_TPU,
                  "launches": 0, "max_abs_err": err,
                  "shape": [list(q.shape), list(k.shape)],
-                 "kernel_route": route, "parts": parts, "hgmma": hgmma,
+                 "prefix_len": prefix, "kernel_route": route,
+                 "parts": parts, "hgmma": hgmma,
                  "float32": times["float32"]}, **times["bf16"])
 
 
@@ -2880,7 +2959,8 @@ def backward_kernel_checks(cuda) -> list:
     print(f"phase 23: the backward kernels on a {QWEN2.name} train step's "
           f"inputs ({TRAIN_BATCH} x {TRAIN_SEQ} tokens, bf16)")
     seen = capture_train_inputs(QWEN2, cuda)
-    (fa, fkw), (ra, rkw) = seen["flash"], seen["rms"]
+    (fa, fkw), (ra, rkw) = (first_call(seen, key)
+                            for key in ("flash", "rms"))
     check(not fkw.get("prefix_len") and fkw.get("causal", True),
           f"the train step's B2 backward ran with {fkw}")
     rows = [flash_bwd_row(fa, fkw.get("lse")),
@@ -3012,11 +3092,13 @@ def train_path(cuda) -> dict:
 
 
 def train_cpu_compare(cuda, base=QWEN2, phase: int = 25, **cut) -> dict:
-    """Phase 25 (28 for mamba2-130m, 30 for zamba2-7b): one float32 step
-    of ``base`` at full width and STEP_CPU_LAYERS layers (or the fields
-    ``cut`` gives) on the card and on the CPU, from the same weights and
-    batch: loss, gradient norm, every gradient, and the updated
-    parameters under the sign rule."""
+    """Phase 25 (28 for mamba2-130m, 30 for zamba2-7b, 33 for
+    paligemma-3b): one float32 step of ``base`` at full width and
+    STEP_CPU_LAYERS layers (or the fields ``cut`` gives) on the card and
+    on the CPU, from the same weights and batch (the launcher's, with
+    the VLM's patches): loss, gradient norm, every gradient, and the
+    updated parameters under the sign rule."""
+    from repro_torch.launch.train import make_batch_np
     from repro_torch.train.optimizer import AdamWConfig, adamw_init, \
         adamw_update
     from repro_torch.train.train_step import TrainConfig, value_and_grad
@@ -3027,12 +3109,15 @@ def train_cpu_compare(cuda, base=QWEN2, phase: int = 25, **cut) -> dict:
     cfg = base.scaled(dtype=torch.float32, **cut)
     print(f"phase {phase}: card vs CPU, one float32 train step of {cfg.name} "
           f"at full width, {', '.join(f'{k} {v}' for k, v in cut.items())}, "
-          f"{STEP_CPU_BATCH} x {STEP_CPU_SEQ} tokens (TF32 off for matmul "
-          f"and cuDNN)")
+          f"{STEP_CPU_BATCH} x "
+          f"{f'({cfg.img_tokens} patches + ' if cfg.img_tokens else ''}"
+          f"{STEP_CPU_SEQ}{' tokens)' if cfg.img_tokens else ' tokens'} "
+          f"(TF32 off for matmul and cuDNN)")
     t0 = time.perf_counter()
     host = model_registry.init_params(cfg, SEED, "cpu")
-    batch = SyntheticLM(vocab=cfg.vocab, seq_len=STEP_CPU_SEQ).batch(
-        seed=SEED, step=0, shard=0, n_shards=1, batch_size=STEP_CPU_BATCH)
+    batch = make_batch_np(cfg, SyntheticLM(vocab=cfg.vocab,
+                                           seq_len=STEP_CPU_SEQ),
+                          step=0, batch=STEP_CPU_BATCH, seed=SEED)
     tcfg = TrainConfig(optimizer=AdamWConfig(**STEP_OPT))
     out = {}
     for label, dev in (("card", cuda), ("cpu", torch.device("cpu"))):
@@ -3215,7 +3300,7 @@ def ssm_backward_checks(cuda) -> dict:
     print(f"phase 26: B3's backward on a {MAMBA2.name} train step's inputs "
           f"({TRAIN_BATCH} x {TRAIN_SEQ} tokens, bf16)")
     seen = capture_train_inputs(MAMBA2, cuda)
-    args, kw = seen["ssd"]
+    args, kw = first_call(seen, "ssd")
     check(not kw, f"the train step's B3 backward ran with {kw}")
     row = ssd_bwd_row(args, MAMBA2.name)
     del seen, args
@@ -3328,6 +3413,116 @@ def hybrid_train_path(cuda) -> tuple:
     torch.cuda.empty_cache()
     print(f"phase 29: {time.perf_counter() - t0:.1f} s wall")
     return stats, rows
+
+
+# --------------------------------------------------------- phases 31-33
+#: phase 31's seeded cases of B2's backward at head dims 129-256 (G = 8 as
+#: paligemma's, but for the non-causal and the hd-192 cases): (causal,
+#: prefix, q, k shapes)
+VLM_BWD_CASES = ((True, 100, (1, 8, 200, 256), (1, 1, 200, 256)),
+                 (True, 0, (2, 8, 130, 256), (2, 1, 130, 256)),
+                 (False, 0, (1, 2, 65, 256), (1, 1, 130, 256)),
+                 (True, 0, (1, 4, 150, 192), (1, 2, 150, 192)))
+#: the least share of its bound the bf16 backward call at paligemma's
+#: train shape must reach (54.3 us: at most 543 us)
+VLM_BWD_MIN_SHARE = 0.10
+#: paligemma-3b's parameters (tied embedding over the padded vocab)
+PALIGEMMA_PARAMS = 2_508_793_856
+
+
+@contextlib.contextmanager
+def flash_bwd_routes():
+    """Counts the route (``flash_ops.bwd_route``) of each call of B2's
+    backward wrapper while the block runs, through the wrappers'
+    observers: ``{route: calls}``.  Launches nothing."""
+    routes: dict = {}
+
+    def count(name, args, _kw):
+        if name == "flash_attention_bwd":
+            r = flash_ops.bwd_route(*args[:5])
+            routes[r] = routes.get(r, 0) + 1
+
+    _route.OBSERVERS.append(count)
+    try:
+        yield routes
+    finally:
+        _route.OBSERVERS.remove(count)
+
+
+def vlm_backward_checks(cuda) -> dict:
+    """Phase 31: B2's backward at head dim 256 under the prefix-LM mask
+    and B4's at ``[6144,2048]``, on inputs captured from one bf16
+    paligemma-3b train step, against their plain versions (phase 23's
+    rules), timed; B2's also at the seeded VLM_BWD_CASES."""
+    t0 = time.perf_counter()
+    cfg = PALIGEMMA
+    positions = cfg.img_tokens + TRAIN_SEQ
+    print(f"phase 31: the backward kernels on a {cfg.name} train step's "
+          f"inputs ({TRAIN_BATCH} x ({cfg.img_tokens} patches + "
+          f"{TRAIN_SEQ} tokens), bf16)")
+    seen = capture_train_inputs(cfg, cuda)
+    want = {("flash", (TRAIN_BATCH, cfg.n_heads, positions, cfg.hd)),
+            ("rms", (TRAIN_BATCH, positions, cfg.d_model)),
+            ("rms", (TRAIN_BATCH, TRAIN_SEQ, cfg.d_model))}
+    check(set(seen) == want, f"backward calls seen {sorted(seen)}")
+    fa, fkw = seen["flash", (TRAIN_BATCH, cfg.n_heads, positions, cfg.hd)]
+    check(fkw.get("prefix_len") == cfg.img_tokens and
+          fkw.get("causal", True), f"the train step's B2 backward ran with "
+          f"{ {k: v for k, v in fkw.items() if k != 'lse'} }")
+    ra, rkw = seen["rms", (TRAIN_BATCH, positions, cfg.d_model)]
+    rows = {"flash": flash_bwd_row(fa, fkw.get("lse"),
+                                   prefix=cfg.img_tokens,
+                                   cases=VLM_BWD_CASES, build=256,
+                                   min_share=VLM_BWD_MIN_SHARE),
+            "rms": rms_bwd_row(ra + tuple(rkw.values()))}
+    del seen, fa, ra
+    torch.cuda.empty_cache()
+    print(f"phase 31: {time.perf_counter() - t0:.1f} s wall")
+    return rows
+
+
+def vlm_train_path(cuda) -> dict:
+    """Phase 32: ``train_loop`` on paligemma-3b at full width and depth,
+    bf16 compute, TRAIN_STEPS steps of TRAIN_BATCH x (256 patches +
+    TRAIN_SEQ tokens); per step 18 B2 and 18 B2-backward calls (every
+    one on the tensor-core route), 37 B4 and 37 B4-backward calls
+    asserted; one more step profiled; every loss finite and the last
+    below step 0's."""
+    cfg = PALIGEMMA
+    positions = TRAIN_BATCH * (cfg.img_tokens + TRAIN_SEQ)
+    print(f"phase 32: train {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} of "
+          f"{cfg.hd}, prefix-LM over {cfg.img_tokens} patches, vocab "
+          f"{cfg.vocab}), bf16 compute, {TRAIN_BATCH} x ({cfg.img_tokens} "
+          f"patches + {TRAIN_SEQ} tokens) = {positions} positions a step, "
+          f"{TRAIN_STEPS} AdamW steps, lr {TRAIN_LR}")
+    per_step = (cfg.n_layers, cfg.n_layers, 2 * cfg.n_layers + 1,
+                2 * cfg.n_layers + 1)
+    with flash_bwd_routes() as routes:
+        model, opt, stats, _ = train_run(cfg, cuda, TRAINED, per_step)
+    losses = stats["losses"]
+    check(stats["n_params"] == PALIGEMMA_PARAMS, f"{stats['n_params']} "
+          f"parameters")
+    check(routes == {"wgmma": TRAIN_STEPS * per_step[1]},
+          f"B2's backward routes {routes}")
+    print(f"  every B2 backward call ({routes['wgmma']}) on the tensor-core "
+          f"route; {positions} positions a step, "
+          f"{positions / stats['train_step_s']:.1f} positions/s beside "
+          f"tokens_per_s {stats['tokens_per_s']:.1f} (text tokens)")
+    check(losses[-1] < losses[0], f"loss at step {TRAIN_STEPS - 1} "
+          f"{losses[-1]} is not below step 0's {losses[0]}")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    parts = flash_ops.dkdv_parts(TRAIN_BATCH, cfg.n_kv_heads,
+                                 cfg.img_tokens + TRAIN_SEQ,
+                                 cfg.n_heads // cfg.n_kv_heads, sms)
+    want_k = {n: per_step[1] * int(n != "flash_bwd_kv_sum" or parts > 1)
+              for n in FLASH_BWD_WG}
+    want_k.update({n: per_step[3] for n in RMS_BWD_REGS})
+    profile_train_step(cfg, model, opt, cuda, "vlm train step", want_k)
+    del model, opt
+    torch.cuda.empty_cache()
+    return dict(stats, idle=PROFILES.get("vlm train step"),
+                positions_per_step=positions, flash_bwd_routes=routes)
 
 
 def main() -> int:
@@ -3729,13 +3924,31 @@ def main() -> int:
     # the shared block applied twice
     trains[ZAMBA2.name]["card_vs_cpu"] = train_cpu_compare(
         cuda, ZAMBA2, 30, **ZAMBA2_CPU_CUT)
+
+    # phase 31: B2's backward at head dim 256 and B4's at [6144,2048] on a
+    # paligemma-3b train step's inputs
+    vrows = vlm_backward_checks(cuda)
+
+    # phase 32: the VLM training path; launch counts from here on are its
+    # own
+    t0 = time.perf_counter()
+    trains[PALIGEMMA.name] = vlm_train_path(cuda)
+    print(f"phase 32: {time.perf_counter() - t0:.1f} s wall")
+
+    # phase 33: card vs CPU, one float32 paligemma-3b step at 2 layers
+    trains[PALIGEMMA.name]["card_vs_cpu"] = train_cpu_compare(
+        cuda, PALIGEMMA, 33)
     rows = {r["name"]: r for r in kernels}
-    for name, entries in (("flash_attention_bwd", [zrows["flash"]]),
+    for name, entries in (("flash_attention_bwd", [zrows["flash"],
+                                                   vrows["flash"]]),
                           ("ssd_inner_bwd", [zrows["ssd"]]),
-                          ("rmsnorm_bwd", zrows["rms"])):
+                          ("rmsnorm_bwd", zrows["rms"] + [vrows["rms"]])):
         rows[name].setdefault("by_shape", []).extend(
             {k: e[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
-                               "bound_ms", "bound_by", "library_ms")}
+                               "bound_ms", "bound_by", "library_ms")
+             if k in e} | ({"prefix_len": e["prefix_len"],
+                            "float32": e["float32"]}
+                           if e.get("prefix_len") else {})
             for e in entries)
         rows[name]["max_abs_err"] = max([rows[name]["max_abs_err"]] +
                                         [e["max_abs_err"] for e in entries])

@@ -33,12 +33,16 @@
 //               tensor-core peak of 989 TFLOP/s, 240 us at the float32 FMA peak
 //               of 67 TFLOP/s.
 // So bf16 is bound by bytes (17.5 us) and float32 by operations (240 us).
+// At the paligemma-3b train step (q, o, dO [8, 8, 768, 256], k, v [8, 1,
+// 768, 256], the prefix-LM mask over 256 image rows: 327,936 visible pairs a
+// head) the same count gives 53.7 GFLOP, 54.3 us in bf16 and 802 us in
+// float32, above the 113.5 MB of bf16 bytes (33.9 us): bound by operations.
 //
 // Two routes.  bf16 inputs that TMA can describe (hd a multiple of 8, q, k,
 // v, o and dO 16-byte aligned), given the forward's LSE, take the tensor-core
 // route; float32 inputs, and bf16 ones TMA cannot describe, the SIMT route.
 //
-// Tensor-core route (bf16; builds for hd 64 and 128), four launches:
+// Tensor-core route (bf16; builds for hd 64, 128 and 256), four launches:
 //   flash_bwd_rows     per q row, (LSE log2(e), D) into a float32 scratch
 //                      [B H, Sq padded to 128]; padded rows (+inf, 0), so that
 //                      their P is exactly 0.  The LSE is the one the forward
@@ -62,6 +66,22 @@
 //                      fold their dK and dV through shared memory (one
 //                      float32 addition each, so the bits do not depend on
 //                      timing).
+//                      The hd-256 build cannot hold a 64 x 256 dK and dV
+//                      in one warpgroup (256 float32 registers a thread,
+//                      above the 240 setmaxnreg gives), nor a four-stage
+//                      ring and the fold buffer (384 KB): there the two
+//                      warpgroups split the columns instead of the pairs.
+//                      Each takes every pair, issues the whole S^T and dP^T
+//                      (over all 256 columns, so those two products are
+//                      made twice a pair: the work of 7 products of 64 x
+//                      64 x 256 a pair against 5), and sums dK and dV for
+//                      its 128 columns (m64n128k16 from its half of Q and
+//                      dO): 128 registers, as the hd-128 build's.  The columns
+//                      are disjoint, so nothing is folded; K, V and a
+//                      two-stage Q/dO ring take 193 KB.  Handing P^T and
+//                      dS^T from one warpgroup to the other through shared
+//                      memory would save the repeated products at the cost
+//                      of a hand-off a pair; the simpler split came first.
 //   flash_bwd_kv_sum   where the G heads were split into parts: the float32
 //                      partials summed over the parts in order, cast.
 //   flash_bwd_dq_wg    dQ: an item is a 128-row q tile of one (batch, head),
@@ -69,6 +89,11 @@
 //                      three-stage ring; each warpgroup owns 64 rows and per
 //                      kv tile issues S = Q K^T and dP = dO V^T (K-major),
 //                      forms dS and issues dQ += (hi + lo) K (K MN-major).
+//                      At hd 256 a consumer's dQ is 64 x 256 float32 (128
+//                      registers) and Q and dO take 128 KB, so the K/V ring
+//                      has one stage of 64 KB (192 KB in all): the producer
+//                      loads the next tile once both warpgroups are done
+//                      with this one, and the load is not hidden.
 //   Rounding.  P is rounded to bf16 for dV, as the forward rounds it and as
 //   the plain version does.  dS rounded once to bf16 left the kernel's dQ
 //   and dK up to 2.12 times as far from the float32 plain version as the
@@ -122,8 +147,13 @@
 //                   the block's dQ rows, held in registers.
 //   Tiles are float32 in shared memory, rows of Q, K, V and dO padded to hd + 4
 //   floats so that 16-byte loads fall on distinct banks: 170 KB for dK/dV and
-//   153 KB for dQ at hd 128, one block an SM.  Builds for hd 64 and 128; a
-//   smaller hd runs in the next larger build with zero columns.  It keeps
+//   153 KB for dQ at hd 128, one block an SM.  At hd 256 four 64-row tiles
+//   would take 266 KB, so the q tiles of flash_bwd_dkdv and flash_bwd_dq
+//   have 32 rows (kQRowsOf: each thread 2 x 4 entries of S and dP), 212 KB
+//   and 204 KB; a thread's dK and dV are then 4 rows by 16 columns each
+//   (128 registers).  Builds for hd 64, 128 and 256; a smaller hd runs in
+//   the next larger build with zero columns (hd 129-255 in the 256 build,
+//   on both routes).  It keeps
 //   the float32 gradient float32 (phase 25's card-vs-CPU step); it is far
 //   from the float32 bound (240 us) by design.
 //
@@ -187,40 +217,44 @@ struct Ld {
   static constexpr int kTile = kB * kRow;      // one such tile (floats)
 };
 
-// rows [r0, r0 + 64) of a [rows, hd] matrix into a [64][HD + 4] float tile,
+// q rows of the dK/dV and dQ kernels' tiles: 64, or 32 at hd 256, where
+// four 64-row float32 tiles (66.5 KB each) would not fit in shared memory
+template <int HD> constexpr int kQRowsOf = HD > 128 ? 32 : 64;
+
+// rows [r0, r0 + R) of a [rows, hd] matrix into an [R][HD + 4] float tile,
 // zero past the rows and past hd
-template <typename T, int HD>
+template <typename T, int HD, int R = kB>
 __device__ __forceinline__ void stage(float* dst, const T* src, int r0,
                                       int rows, int hd) {
-  for (int i = threadIdx.x; i < kB * HD; i += kThreads) {
+  for (int i = threadIdx.x; i < R * HD; i += kThreads) {
     const int r = i / HD, d = i % HD, row = r0 + r;
     dst[r * Ld<HD>::kRow + d] =
         (row < rows && d < hd) ? to_f32(src[(long long)row * hd + d]) : 0.0f;
   }
 }
 
-// acc[i][j] = sum_d a[ty + 16 i][d] * b[tx + 16 j][d] over two [64][HD + 4]
-// tiles
-template <int HD>
-__device__ __forceinline__ void dot_tile(float (&acc)[4][4], const float* a,
+// acc[i][j] = sum_d a[ty + 16 i][d] * b[tx + 16 j][d] over an [16 MI][HD +
+// 4] tile a and a [64][HD + 4] tile b
+template <int HD, int MI = 4>
+__device__ __forceinline__ void dot_tile(float (&acc)[MI][4], const float* a,
                                          const float* b, int tx, int ty) {
   constexpr int kL = Ld<HD>::kRow;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 #pragma unroll 4
   for (int d = 0; d < HD; d += 4) {
-    float4 av[4];
+    float4 av[MI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
       av[i] = *reinterpret_cast<const float4*>(&a[(ty + 16 * i) * kL + d]);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float4 bv =
           *reinterpret_cast<const float4*>(&b[(tx + 16 * j) * kL + d]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < MI; ++i) {
         acc[i][j] = fmaf(av[i].x, bv.x, acc[i][j]);
         acc[i][j] = fmaf(av[i].y, bv.y, acc[i][j]);
         acc[i][j] = fmaf(av[i].z, bv.z, acc[i][j]);
@@ -230,11 +264,12 @@ __device__ __forceinline__ void dot_tile(float (&acc)[4][4], const float* a,
   }
 }
 
-// The kv tiles a 64-row q tile from q0 sees.
+// The kv tiles an R-row q tile from q0 sees.
+template <int R = kB>
 __device__ __forceinline__ int kv_tiles(int q0, int sq, int skv, bool causal,
                                         int prefix) {
   int n = (skv + kB - 1) / kB;
-  if (causal) n = min(n, causal_limit(min(q0 + kB, sq) - 1, prefix) / kB + 1);
+  if (causal) n = min(n, causal_limit(min(q0 + R, sq) - 1, prefix) / kB + 1);
   return n;
 }
 
@@ -316,8 +351,8 @@ flash_bwd_prep(const T* __restrict__ q, const T* __restrict__ k,
 // P and dS of one (q tile, kv tile) pair, from the staged Q, K, dO, V and
 // the rows' LSE and D: p[i][j], ds[i][j] for q rows ty + 16 i and kv rows
 // tx + 16 j.
-template <int HD>
-__device__ __forceinline__ void p_and_ds(float (&p)[4][4], float (&ds)[4][4],
+template <int HD, int MI>
+__device__ __forceinline__ void p_and_ds(float (&p)[MI][4], float (&ds)[MI][4],
                                          const float* qs, const float* ks,
                                          const float* dos, const float* vs,
                                          const float* lse_s,
@@ -325,10 +360,10 @@ __device__ __forceinline__ void p_and_ds(float (&p)[4][4], float (&ds)[4][4],
                                          int sq, int skv, bool causal,
                                          int prefix, float scale, int tx,
                                          int ty) {
-  dot_tile<HD>(p, qs, ks, tx, ty);
-  dot_tile<HD>(ds, dos, vs, tx, ty);           // dP
+  dot_tile<HD, MI>(p, qs, ks, tx, ty);
+  dot_tile<HD, MI>(ds, dos, vs, tx, ty);       // dP
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < MI; ++i) {
     const int r = ty + 16 * i;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -352,15 +387,17 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
                float scale) {
   constexpr int kNc = HD / 16;      // accumulator columns per thread
   constexpr int kL = Ld<HD>::kRow;
+  constexpr int kQr = kQRowsOf<HD>;  // q rows per tile
+  constexpr int kMi = kQr / 16;      // of them a thread's in S and dP
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);
   float* vs = ks + Ld<HD>::kTile;
-  float* qs = vs + Ld<HD>::kTile;
-  float* dos = qs + Ld<HD>::kTile;
-  float* ps = dos + Ld<HD>::kTile;     // [64 q rows][kLdP]
-  float* dss = ps + kB * kLdP;         // [64 q rows][kLdP]
-  float* lse_s = dss + kB * kLdP;      // [64]
-  float* delta_s = lse_s + kB;         // [64]
+  float* qs = vs + Ld<HD>::kTile;      // [kQr][HD + 4]
+  float* dos = qs + kQr * kL;          // [kQr][HD + 4]
+  float* ps = dos + kQr * kL;          // [kQr q rows][kLdP]
+  float* dss = ps + kQr * kLdP;        // [kQr q rows][kLdP]
+  float* lse_s = dss + kQr * kLdP;     // [kQr]
+  float* delta_s = lse_s + kQr;        // [kQr]
 
   const int k0 = blockIdx.x * kB;
   const int hk = blockIdx.y, b = blockIdx.z;
@@ -379,28 +416,28 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
 
   // the first q tile that sees this kv tile: its diagonal, or 0 where the
   // prefix reaches the tile
-  const int qt0 = (causal && prefix - 1 < k0) ? k0 / kB : 0;
-  const int n_qt = (sq + kB - 1) / kB;
+  const int qt0 = (causal && prefix - 1 < k0) ? k0 / kQr : 0;
+  const int n_qt = (sq + kQr - 1) / kQr;
   for (int g = 0; g < group; ++g) {
     const long long bh = (long long)b * heads + hk * group + g;
     const long long q_base = bh * sq * hd;
     for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * kB;
+      const int q0 = qt * kQr;
       __syncthreads();                 // the previous tile's Q, dO, P, dS used
-      stage<T, HD>(qs, q + q_base, q0, sq, hd);
-      stage<T, HD>(dos, dout + q_base, q0, sq, hd);
-      if (t < kB) {
+      stage<T, HD, kQr>(qs, q + q_base, q0, sq, hd);
+      stage<T, HD, kQr>(dos, dout + q_base, q0, sq, hd);
+      if (t < kQr) {
         const int row = q0 + t;
         lse_s[t] = row < sq ? lse[bh * sq + row] : 0.0f;
         delta_s[t] = row < sq ? delta[bh * sq + row] : 0.0f;
       }
       __syncthreads();
 
-      float p[4][4], ds[4][4];
-      p_and_ds<HD>(p, ds, qs, ks, dos, vs, lse_s, delta_s, q0, k0, sq, skv,
-                   causal, prefix, scale, tx, ty);
+      float p[kMi][4], ds[kMi][4];
+      p_and_ds<HD, kMi>(p, ds, qs, ks, dos, vs, lse_s, delta_s, q0, k0, sq,
+                        skv, causal, prefix, scale, tx, ty);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kMi; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           ps[(ty + 16 * i) * kLdP + tx + 16 * j] = round_p<T>(p[i][j]);
@@ -410,7 +447,7 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
 
       // dV[kv row][d] += P[j][kv row] dO[j][d]; dK likewise from dS and Q
 #pragma unroll 2
-      for (int j = 0; j < kB; ++j) {
+      for (int j = 0; j < kQr; ++j) {
         float pj[4], dsj[4], dov[kNc], qv[kNc];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -459,16 +496,18 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
              bool causal, int prefix, float scale) {
   constexpr int kNc = HD / 16;
   constexpr int kL = Ld<HD>::kRow;
+  constexpr int kQr = kQRowsOf<HD>;  // q rows per tile
+  constexpr int kMi = kQr / 16;      // of them a thread's
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* dos = qs + Ld<HD>::kTile;
-  float* ks = dos + Ld<HD>::kTile;
+  float* qs = reinterpret_cast<float*>(smem4);     // [kQr][HD + 4]
+  float* dos = qs + kQr * kL;                      // [kQr][HD + 4]
+  float* ks = dos + kQr * kL;
   float* vs = ks + Ld<HD>::kTile;
-  float* dss = vs + Ld<HD>::kTile;     // [64 q rows][kLdP]
-  float* lse_s = dss + kB * kLdP;
-  float* delta_s = lse_s + kB;
+  float* dss = vs + Ld<HD>::kTile;     // [kQr q rows][kLdP]
+  float* lse_s = dss + kQr * kLdP;
+  float* delta_s = lse_s + kQr;
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;   // longest tiles first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kQr;  // longest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const long long bh = (long long)b * heads + h;
   const long long q_base = bh * sq * hd;
@@ -476,21 +515,21 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
       ((long long)b * (heads / group) + h / group) * skv * hd;
   const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
 
-  stage<T, HD>(qs, q + q_base, q0, sq, hd);
-  stage<T, HD>(dos, dout + q_base, q0, sq, hd);
-  if (t < kB) {
+  stage<T, HD, kQr>(qs, q + q_base, q0, sq, hd);
+  stage<T, HD, kQr>(dos, dout + q_base, q0, sq, hd);
+  if (t < kQr) {
     const int row = q0 + t;
     lse_s[t] = row < sq ? lse[bh * sq + row] : 0.0f;
     delta_s[t] = row < sq ? delta[bh * sq + row] : 0.0f;
   }
 
-  float dqa[4][kNc];
+  float dqa[kMi][kNc];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kMi; ++i)
 #pragma unroll
     for (int c = 0; c < kNc; ++c) dqa[i][c] = 0.0f;
 
-  const int n_tiles = kv_tiles(q0, sq, skv, causal, prefix);
+  const int n_tiles = kv_tiles<kQr>(q0, sq, skv, causal, prefix);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kB;
     __syncthreads();                   // the previous K, V and dS are used
@@ -498,11 +537,11 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     stage<T, HD>(vs, v + kv_base, k0, skv, hd);
     __syncthreads();
 
-    float p[4][4], ds[4][4];
-    p_and_ds<HD>(p, ds, qs, ks, dos, vs, lse_s, delta_s, q0, k0, sq, skv,
-                 causal, prefix, scale, tx, ty);
+    float p[kMi][4], ds[kMi][4];
+    p_and_ds<HD, kMi>(p, ds, qs, ks, dos, vs, lse_s, delta_s, q0, k0, sq,
+                      skv, causal, prefix, scale, tx, ty);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kMi; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         dss[(ty + 16 * i) * kLdP + tx + 16 * j] = ds[i][j];
@@ -511,20 +550,20 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     // dQ[q row][d] += dS[q row][j] K[j][d]
 #pragma unroll 2
     for (int j = 0; j < kB; ++j) {
-      float dsj[4], kv[kNc];
+      float dsj[kMi], kv[kNc];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsj[i] = dss[(ty + 16 * i) * kLdP + j];
+      for (int i = 0; i < kMi; ++i) dsj[i] = dss[(ty + 16 * i) * kLdP + j];
 #pragma unroll
       for (int c = 0; c < kNc; ++c) kv[c] = ks[j * kL + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kMi; ++i)
 #pragma unroll
         for (int c = 0; c < kNc; ++c) dqa[i][c] = fmaf(dsj[i], kv[c], dqa[i][c]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kMi; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= sq) continue;
 #pragma unroll
@@ -550,12 +589,14 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            float* delta, int batch, int heads, int kv_heads, int sq, int skv,
            int hd, bool causal, int prefix, float scale,
            cudaStream_t stream) {
-  constexpr size_t tile = sizeof(float) * Ld<HD>::kTile;
-  constexpr size_t pds = sizeof(float) * kB * kLdP;
-  constexpr size_t rows = sizeof(float) * 2 * kB;
+  constexpr int kQr = kQRowsOf<HD>;
+  constexpr size_t tile = sizeof(float) * Ld<HD>::kTile;      // 64 rows
+  constexpr size_t qtile = sizeof(float) * kQr * Ld<HD>::kRow;
+  constexpr size_t pds = sizeof(float) * kQr * kLdP;
+  constexpr size_t rows = sizeof(float) * 2 * kQr;
   constexpr size_t prep_bytes = 2 * tile;
-  constexpr size_t dkdv_bytes = 4 * tile + 2 * pds + rows;
-  constexpr size_t dq_bytes = 4 * tile + pds + rows;
+  constexpr size_t dkdv_bytes = 2 * tile + 2 * qtile + 2 * pds + rows;
+  constexpr size_t dq_bytes = 2 * tile + 2 * qtile + pds + rows;
   static bool ready[64] = {};       // per device, per build
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -576,6 +617,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const T* dot_ = static_cast<const T*>(dout);
   const dim3 q_grid((unsigned)((sq + kB - 1) / kB), (unsigned)heads,
                     (unsigned)batch);
+  const dim3 dq_grid((unsigned)((sq + kQr - 1) / kQr), (unsigned)heads,
+                     (unsigned)batch);
   flash_bwd_prep<T, HD><<<q_grid, kThreads, prep_bytes, stream>>>(
       qt, kt, ot, dot_, lse, delta, heads, group, sq, skv, hd, causal, prefix,
       scale);
@@ -586,7 +629,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       qt, kt, vt, dot_, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
       heads, group, sq, skv, hd, causal, prefix, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  flash_bwd_dq<T, HD><<<q_grid, kThreads, dq_bytes, stream>>>(
+  flash_bwd_dq<T, HD><<<dq_grid, kThreads, dq_bytes, stream>>>(
       qt, kt, vt, dot_, lse, delta, static_cast<T*>(dq), heads, group, sq, skv,
       hd, causal, prefix, scale);
   return (int)cudaGetLastError();
@@ -602,7 +645,11 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
     return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, lse, delta, batch,
                          heads, kv_heads, sq, skv, hd, causal, prefix, scale,
                          stream);
-  return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, lse, delta, batch, heads,
+  if (hd <= 128)
+    return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, lse, delta, batch,
+                          heads, kv_heads, sq, skv, hd, causal, prefix, scale,
+                          stream);
+  return launch<T, 256>(q, k, v, o, dout, dq, dk, dv, lse, delta, batch, heads,
                         kv_heads, sq, skv, hd, causal, prefix, scale, stream);
 }
 
@@ -615,8 +662,6 @@ constexpr int kBn = 64;                // kv rows per tile
 constexpr int kBq = 64;                // q rows per dK/dV pair
 constexpr int kBm = 128;               // q rows per dQ item (64 a consumer)
 constexpr int kPad = kBm;              // the rows scratch pads Sq to this
-constexpr int kPairStages = 4;         // dK/dV: ring of Q, dO, LSE/D
-constexpr int kKvStages = 3;           // dQ: ring of K, V
 constexpr int kConsumers = 256;        // warpgroups 0 and 1
 constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
 // as the forward's flash_wgmma: one block of 384 threads an SM starts at 168
@@ -633,36 +678,48 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // shared memory of flash_bwd_dkdv_wg (byte offsets; tiles 1024-aligned): K
 // and V of the item's kv tile, the Q and dO ring, the warpgroups' fold
-// buffer (64 x HD float32), the ring's LSE/D rows (64 float2 a stage), then
-// mbarriers: kv_full, kv_empty, then per stage full and empty
+// buffer (64 x HD float32; none where they split the columns), the ring's
+// LSE/D rows (64 float2 a stage), then mbarriers: kv_full, kv_empty, then
+// per stage full and empty.  Up to hd 128 the warpgroups take the pairs in
+// turn through a four-stage ring; at hd 256 (kSplit) each takes every pair
+// and half of the columns, through a two-stage ring (193 KB; three stages
+// would need 257 KB).
 template <int HD>
 struct KvSmem {
+  static constexpr bool kSplit = HD > 128;
+  static constexpr int kStages = kSplit ? 2 : 4;
   static constexpr int kTile = kBn * HD * 2;
   static constexpr int kK = 0, kV = kTile;
   static constexpr int kQ = 2 * kTile;
-  static constexpr int kDo = kQ + kPairStages * kTile;
-  static constexpr int kRed = kDo + kPairStages * kTile;
-  static constexpr int kRows = kRed + kBn * HD * 4;
-  static constexpr int kBars = kRows + kPairStages * kBq * 8;
-  static constexpr size_t kBytes = kBars + 8 * (2 + 2 * kPairStages) + 1024;
+  static constexpr int kDo = kQ + kStages * kTile;
+  static constexpr int kRed = kDo + kStages * kTile;
+  static constexpr int kRows = kRed + (kSplit ? 0 : kBn * HD * 4);
+  static constexpr int kBars = kRows + kStages * kBq * 8;
+  static constexpr size_t kBytes = kBars + 8 * (2 + 2 * kStages) + 1024;
+  static constexpr int kFull = 2, kEmpty = 2 + kStages;
+  // the warps whose arrivals free a stage: the consuming warpgroup's, or
+  // both warpgroups' where each takes every pair
+  static constexpr int kEmptyArrivals = kSplit ? kConsumers / 32 : 4;
 };
-constexpr int kKvFull = 0, kKvEmpty = 1, kFull = 2, kEmpty = 2 + kPairStages;
+constexpr int kKvFull = 0, kKvEmpty = 1;
 
 // shared memory of flash_bwd_dq_wg: the item's Q and dO (128 rows each),
 // then the K and V ring; mbarriers q_full, q_empty, then per stage full and
-// empty
+// empty.  Three stages up to hd 128; one at 256, where Q and dO take 128 KB
+// and a stage 64 KB (two would need 257 KB).
 template <int HD>
 struct QSmem {
+  static constexpr int kStages = HD > 128 ? 1 : 3;
   static constexpr int kQTile = kBm * HD * 2;
   static constexpr int kTile = kBn * HD * 2;
   static constexpr int kQ = 0, kDo = kQTile;
   static constexpr int kK = 2 * kQTile;
-  static constexpr int kV = kK + kKvStages * kTile;
-  static constexpr int kBars = kV + kKvStages * kTile;
-  static constexpr size_t kBytes = kBars + 8 * (2 + 2 * kKvStages) + 1024;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBars = kV + kStages * kTile;
+  static constexpr size_t kBytes = kBars + 8 * (2 + 2 * kStages) + 1024;
+  static constexpr int kRingFull = 2, kRingEmpty = 2 + kStages;
 };
-constexpr int kQFull = 0, kQEmpty = 1, kRingFull = 2,
-              kRingEmpty = 2 + kKvStages;
+constexpr int kQFull = 0, kQEmpty = 1;
 
 // byte offset of k16 step kk (16 of hd's columns) in a K-major tile of
 // `rows` rows: 64-column blocks of rows x 128 bytes
@@ -684,18 +741,19 @@ __device__ __forceinline__ void issue_dot(float (&d)[32], uint64_t a,
              kk == 0 ? overwrite : accumulate);
 }
 
-// D[64 x HD] += A B over 64 rows of B: four wgmma m64n{HD}k16, A's bf16
+// D[64 x N] += A B over 64 rows of B: four wgmma m64n{N}k16, A's bf16
 // fragments from registers, B MN-major (a tile of 64 rows, its 64-column
 // blocks 64 x 128 bytes apart) through its base descriptor; issued, not
 // awaited
-template <int HD>
-__device__ __forceinline__ void issue_acc(float (&d)[HD / 2],
+template <int N>
+__device__ __forceinline__ void issue_acc(float (&d)[N / 2],
                                           const uint32_t (&a)[4][4],
                                           uint64_t b, int accumulate) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t bk = b + ((kk * 16 * 128) >> 4);
-    if constexpr (HD == 128) wgmma_rs_n128(d, a[kk], bk, accumulate);
+    if constexpr (N == 256) wgmma_rs_n256(d, a[kk], bk, accumulate);
+    else if constexpr (N == 128) wgmma_rs_n128(d, a[kk], bk, accumulate);
     else wgmma_rs_n64(d, a[kk], bk, accumulate);
   }
 }
@@ -739,8 +797,8 @@ __device__ __forceinline__ int item_of(int n) {
 // ------------------------------------------------------------------ rows
 // Per q row of the [B * H, sq_pad] scratch: (LSE log2(e), D = rowsum(dO * O))
 // for rows < sq, (+inf, 0) past them, so that a padded row's P is exactly 0.
-// A half warp per row, one 16-byte vector of O and of dO a lane (hd <= 128,
-// a multiple of 8, aligned rows).
+// A half warp per row, 16-byte vectors of O and of dO, a lane's at columns
+// 8 l, 8 l + 128 (hd a multiple of 8, aligned rows).
 __global__ void __launch_bounds__(256)
 flash_bwd_rows(const bf16* __restrict__ o, const bf16* __restrict__ dout,
                const float* __restrict__ lse, float2* __restrict__ rows,
@@ -750,16 +808,17 @@ flash_bwd_rows(const bf16* __restrict__ o, const bf16* __restrict__ dout,
   const long long bh = row / sq_pad;
   const int qpos = (int)(row % sq_pad);
   float d = 0.0f;
-  if (qpos < sq && 8 * l < hd) {
-    const long long at = (bh * sq + qpos) * hd + 8 * l;
-    const uint4 a = *reinterpret_cast<const uint4*>(o + at);
-    const uint4 b = *reinterpret_cast<const uint4*>(dout + at);
-    const bf16* x = reinterpret_cast<const bf16*>(&a);
-    const bf16* y = reinterpret_cast<const bf16*>(&b);
+  if (qpos < sq)
+    for (int c = 8 * l; c < hd; c += 128) {
+      const long long at = (bh * sq + qpos) * hd + c;
+      const uint4 a = *reinterpret_cast<const uint4*>(o + at);
+      const uint4 b = *reinterpret_cast<const uint4*>(dout + at);
+      const bf16* x = reinterpret_cast<const bf16*>(&a);
+      const bf16* y = reinterpret_cast<const bf16*>(&b);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      d = fmaf(__bfloat162float(x[i]), __bfloat162float(y[i]), d);
-  }
+      for (int i = 0; i < 8; ++i)
+        d = fmaf(__bfloat162float(x[i]), __bfloat162float(y[i]), d);
+    }
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1)
     d += __shfl_xor_sync(0xffffffffu, d, off);
@@ -820,8 +879,11 @@ __device__ __forceinline__ void store_kv(const float (&a)[HD / 2],
 
 // dK and dV.  Persistent: a block per SM walks its items (item_of), each
 // item's K and V staying in shared memory while the producer streams the
-// pairs' Q, dO and LSE/D through a ring; the two consumer warpgroups take
-// the item's pairs in turn (even, odd) and fold their sums at the end.
+// pairs' Q, dO and LSE/D through a ring.  Up to hd 128 the two consumer
+// warpgroups take the item's pairs in turn (even, odd) and fold their sums
+// at the end; at hd 256 each takes every pair, forms the whole S^T and
+// dP^T, and sums dK and dV for its half of the columns (128 registers a
+// thread, as the hd-128 build's whole ones), so there is nothing to fold.
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap tq,
@@ -845,12 +907,13 @@ flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap tq,
   const int n_items = (skv + kBn - 1) / kBn * bkv_parts;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
+  constexpr int kStages = L::kStages, kFull = L::kFull, kEmpty = L::kEmpty;
   if (threadIdx.x == 0) {
     mbar_init(BAR(kKvFull), 1);
     mbar_init(BAR(kKvEmpty), kConsumers / 32);
-    for (int s = 0; s < kPairStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(BAR(kFull + s), 1);
-      mbar_init(BAR(kEmpty + s), 4);     // the consuming warpgroup's warps
+      mbar_init(BAR(kEmpty + s), L::kEmptyArrivals);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -877,9 +940,9 @@ flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap tq,
       for (int g = 0; g < it.ng; ++g) {
         const int bh = it.bkvh * group + it.g0 + g;
         for (int qt = it.qt0; qt < it.qt0 + it.nq; ++qt, ++t) {
-          const int s = t % kPairStages;
-          if (t >= kPairStages)   // its warpgroup is done with pair t - S
-            mbar_wait(BAR(kEmpty + s), ((t / kPairStages) & 1) ^ 1);
+          const int s = t % kStages;
+          if (t >= kStages)   // its consumers are done with pair t - S
+            mbar_wait(BAR(kEmpty + s), ((t / kStages) & 1) ^ 1);
           mbar_expect_tx(BAR(kFull + s), 2 * L::kTile + kBq * 8);
 #pragma unroll
           for (int c = 0; c < HD / 64; ++c) {
@@ -903,8 +966,10 @@ flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap tq,
   const int wgi = __shfl_sync(0xffffffffu, warp >> 2, 0);
   const int cq = 2 * (lane & 3);      // its column in each 8-column group
   const int rw = 16 * (warp & 3) + (lane >> 2);  // its kv rows rw, rw + 8
-  const int tid = threadIdx.x & 127;
-  float* red = reinterpret_cast<float*>(smem + L::kRed);
+  // the columns of its dK and dV: all, or its half where the warpgroups
+  // split them (c0 = 0 or 128)
+  constexpr int kN = L::kSplit ? HD / 2 : HD;
+  const int c0 = L::kSplit ? wgi * kN : 0;
   const uint64_t kd = descriptor(base + L::kK, 16, 1024);
   const uint64_t vd = descriptor(base + L::kV, 16, 1024);
   auto release = [&](uint32_t bar) {   // this warp is done with a buffer
@@ -917,19 +982,20 @@ flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap tq,
     const KvItem it = kv_item(w, parts, bkv_parts, group, sq, causal,
                               prefix);
     const int np = it.ng * it.nq;
-    float dka[HD / 2], dva[HD / 2];
+    float dka[kN / 2], dva[kN / 2];
     zero(dka);
     zero(dva);
     mbar_wait(BAR(kKvFull), n & 1);
-    for (int p = wgi; p < np; p += 2) {
-      const int pt = t + p, s = pt % kPairStages;
+    for (int p = L::kSplit ? 0 : wgi; p < np; p += L::kSplit ? 1 : 2) {
+      const int pt = t + p, s = pt % kStages;
       const int q0 = (it.qt0 + p % it.nq) * kBq;
-      mbar_wait(BAR(kFull + s), (pt / kPairStages) & 1);
+      mbar_wait(BAR(kFull + s), (pt / kStages) & 1);
       const uint32_t qb = base + L::kQ + s * L::kTile;
       const uint32_t db = base + L::kDo + s * L::kTile;
       uint64_t qd = descriptor(qb, 16, 1024), dd = descriptor(db, 16, 1024);
-      uint64_t qm = descriptor(qb, kBq * 128, 1024);
-      uint64_t dm = descriptor(db, kBq * 128, 1024);
+      // Q's and dO's 64-column blocks from column c0, MN-major
+      uint64_t qm = descriptor(qb + c0 / 64 * kBq * 128, kBq * 128, 1024);
+      uint64_t dm = descriptor(db + c0 / 64 * kBq * 128, kBq * 128, 1024);
       int overwrite = 0, accumulate = 1;
       asm volatile("" : "+l"(qd), "+l"(dd), "+l"(qm), "+l"(dm),
                    "+r"(overwrite), "+r"(accumulate));
@@ -979,9 +1045,9 @@ flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap tq,
       pin(da);
       pin(dl);
       wgmma_fence();
-      issue_acc<HD>(dva, pa, dm, accumulate);
-      issue_acc<HD>(dka, da, qm, accumulate);
-      issue_acc<HD>(dka, dl, qm, accumulate);
+      issue_acc<kN>(dva, pa, dm, accumulate);
+      issue_acc<kN>(dka, da, qm, accumulate);
+      issue_acc<kN>(dka, dl, qm, accumulate);
       wgmma_commit();
       wgmma_wait<0>();
       pin(dva);
@@ -994,39 +1060,49 @@ flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap tq,
     t += np;
     release(BAR(kKvEmpty));            // its products with K and V are done
 
-    // fold: dV = dV_0 + dV_1 in warpgroup 0, dK = dK_1 + dK_0 in warpgroup
-    // 1 (each a single float32 addition, so the bits do not depend on
-    // which warpgroup finished first), through red, thread by thread
-    if (wgi == 1) {
-#pragma unroll
-      for (int i = 0; i < HD / 2; ++i) red[i * 128 + tid] = dva[i];
-    }
-    named_sync(1, kConsumers);
-    if (wgi == 0) {
-#pragma unroll
-      for (int i = 0; i < HD / 2; ++i) {
-        dva[i] += red[i * 128 + tid];
-      }
-    }
-    named_sync(1, kConsumers);
-    if (wgi == 0) {
-#pragma unroll
-      for (int i = 0; i < HD / 2; ++i) red[i * 128 + tid] = dka[i];
-    }
-    named_sync(1, kConsumers);
     const long long head = (long long)it.bkvh * skv * hd;
     const long long pstride = (long long)bkv_heads * skv * hd;
     const int pi = it.g0 / it.ng;            // this item's part
-    if (wgi == 0) {
-      store_kv<HD>(dva, dv + head,
-                   parts > 1 ? part + (parts + pi) * pstride + head : nullptr,
-                   it.k0 + rw, cq, skv, hd, 1.0f);
+    float* dv_part = parts > 1 ? part + (parts + pi) * pstride + head
+                               : nullptr;
+    float* dk_part = parts > 1 ? part + pi * pstride + head : nullptr;
+    if constexpr (L::kSplit) {
+      // its own columns of both: nothing to fold
+      store_kv<kN>(dva, dv + head, dv_part, it.k0 + rw, c0 + cq, skv, hd,
+                   1.0f);
+      store_kv<kN>(dka, dk + head, dk_part, it.k0 + rw, c0 + cq, skv, hd,
+                   scale);
     } else {
+      // fold: dV = dV_0 + dV_1 in warpgroup 0, dK = dK_1 + dK_0 in
+      // warpgroup 1 (each a single float32 addition, so the bits do not
+      // depend on which warpgroup finished first), through red, thread by
+      // thread
+      const int tid = threadIdx.x & 127;
+      float* red = reinterpret_cast<float*>(smem + L::kRed);
+      if (wgi == 1) {
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) dka[i] += red[i * 128 + tid];
-      store_kv<HD>(dka, dk + head,
-                   parts > 1 ? part + pi * pstride + head : nullptr,
-                   it.k0 + rw, cq, skv, hd, scale);
+        for (int i = 0; i < HD / 2; ++i) red[i * 128 + tid] = dva[i];
+      }
+      named_sync(1, kConsumers);
+      if (wgi == 0) {
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) {
+          dva[i] += red[i * 128 + tid];
+        }
+      }
+      named_sync(1, kConsumers);
+      if (wgi == 0) {
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) red[i * 128 + tid] = dka[i];
+      }
+      named_sync(1, kConsumers);
+      if (wgi == 0) {
+        store_kv<HD>(dva, dv + head, dv_part, it.k0 + rw, cq, skv, hd, 1.0f);
+      } else {
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) dka[i] += red[i * 128 + tid];
+        store_kv<HD>(dka, dk + head, dk_part, it.k0 + rw, cq, skv, hd, scale);
+      }
     }
   }
 #undef BAR
@@ -1099,10 +1175,12 @@ flash_bwd_dq_wg(const __grid_constant__ CUtensorMap tq,
   const int n_items = n_qt * batch_heads;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
+  constexpr int kStages = L::kStages, kRingFull = L::kRingFull,
+                kRingEmpty = L::kRingEmpty;
   if (threadIdx.x == 0) {
     mbar_init(BAR(kQFull), 1);
     mbar_init(BAR(kQEmpty), kConsumers / 32);
-    for (int s = 0; s < kKvStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(BAR(kRingFull + s), 1);
       mbar_init(BAR(kRingEmpty + s), kConsumers / 32);
     }
@@ -1129,9 +1207,9 @@ flash_bwd_dq_wg(const __grid_constant__ CUtensorMap tq,
                  it.q0, it.qh);
       }
       for (int i = 0; i < it.n_tiles; ++i, ++t) {
-        const int s = t % kKvStages;
-        if (t >= kKvStages)  // both warpgroups are done with tile t - S
-          mbar_wait(BAR(kRingEmpty + s), ((t / kKvStages) & 1) ^ 1);
+        const int s = t % kStages;
+        if (t >= kStages)  // both warpgroups are done with tile t - S
+          mbar_wait(BAR(kRingEmpty + s), ((t / kStages) & 1) ^ 1);
         mbar_expect_tx(BAR(kRingFull + s), 2 * L::kTile);
 #pragma unroll
         for (int c = 0; c < HD / 64; ++c) {
@@ -1174,8 +1252,8 @@ flash_bwd_dq_wg(const __grid_constant__ CUtensorMap tq,
     zero(dqa);
     mbar_wait(BAR(kQFull), n & 1);
     for (int i = 0; i < n_mine; ++i) {
-      const int k0 = i * kBn, tt = t + i, s = tt % kKvStages;
-      mbar_wait(BAR(kRingFull + s), (tt / kKvStages) & 1);
+      const int k0 = i * kBn, tt = t + i, s = tt % kStages;
+      mbar_wait(BAR(kRingFull + s), (tt / kStages) & 1);
       const uint32_t kb = base + L::kK + s * L::kTile;
       uint64_t kd = descriptor(kb, 16, 1024);
       uint64_t vd = descriptor(base + L::kV + s * L::kTile, 16, 1024);
@@ -1230,8 +1308,8 @@ flash_bwd_dq_wg(const __grid_constant__ CUtensorMap tq,
     }
     release(BAR(kQEmpty));             // its products with Q and dO are done
     for (int i = n_mine; i < it.n_tiles; ++i) {  // tiles it does not compute
-      const int tt = t + i, s = tt % kKvStages;
-      mbar_wait(BAR(kRingFull + s), (tt / kKvStages) & 1);
+      const int tt = t + i, s = tt % kStages;
+      mbar_wait(BAR(kRingFull + s), (tt / kStages) & 1);
       release(BAR(kRingEmpty + s));
     }
     t += it.n_tiles;
@@ -1340,7 +1418,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // q, o, dout, dq [batch, heads, sq, hd]; k, v, dk, dv [batch, kv_heads, skv,
-// hd]; all float32 (bf16 = 0) or all bf16 (bf16 = 1), contiguous; hd <= 128;
+// hd]; all float32 (bf16 = 0) or all bf16 (bf16 = 1), contiguous; hd <= 256;
 // prefix as the forward's (0 <= prefix <= skv, only with causal).
 //   lse NULL: the SIMT route; scratch float32 [2, batch * heads * sq] (the
 //     recomputed LSE, then D); part and parts unused.
@@ -1361,7 +1439,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   if (batch == 0 || sq == 0) return 0;
   if (batch < 0 || batch > 65535 || heads < 1 || heads > 65535 ||
       kv_heads < 1 || heads % kv_heads != 0 || sq < 0 || skv < 1 || hd < 1 ||
-      hd > 128 || prefix < 0 || prefix > skv || (prefix > 0 && !causal))
+      hd > 256 || prefix < 0 || prefix > skv || (prefix > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   float* s = static_cast<float*>(scratch);
   if (lse != nullptr) {
@@ -1377,7 +1455,11 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
       return wg::launch<64>(q, k, v, o, dout, dq, dk, dv, l, rows, pp, batch,
                             heads, kv_heads, sq, skv, hd, causal != 0, prefix,
                             parts, scale, stream);
-    return wg::launch<128>(q, k, v, o, dout, dq, dk, dv, l, rows, pp, batch,
+    if (hd <= 128)
+      return wg::launch<128>(q, k, v, o, dout, dq, dk, dv, l, rows, pp, batch,
+                             heads, kv_heads, sq, skv, hd, causal != 0,
+                             prefix, parts, scale, stream);
+    return wg::launch<256>(q, k, v, o, dout, dq, dk, dv, l, rows, pp, batch,
                            heads, kv_heads, sq, skv, hd, causal != 0, prefix,
                            parts, scale, stream);
   }

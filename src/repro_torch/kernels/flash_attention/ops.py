@@ -30,20 +30,20 @@ head dim up to :data:`MAX_HEAD_DIM`.
 :func:`flash_attention` returns through :class:`FlashAttentionFunction`,
 whose forward runs a kernel of ``csrc/flash_attention.cu`` and whose
 backward runs :func:`flash_attention_bwd`, the kernels of
-``csrc/flash_attention_bwd.cu`` (head dims up to
-:data:`MAX_BWD_HEAD_DIM`).  Where a bfloat16 call needs a gradient the
+``csrc/flash_attention_bwd.cu`` (every head dim the forward takes,
+builds of 64, 128 and 256).  Where a bfloat16 call needs a gradient the
 forward kernel also writes each row's logsumexp (:func:`flash_lse_plain`
 is its plain version), which the Function saves and hands to the
 backward; under ``no_grad`` (every serve) it asks for none, and the
 output is the same bits either way.  The backward takes one of two
 routes (:func:`bwd_route`): bfloat16 inputs that TMA can describe go to
-the tensor-core (``wgmma``) kernels, which read that LSE, round P to
-bf16 for dV as the plain version does, carry dS into dQ and dK as two
-bf16 terms (hi + lo), and split the G q heads of each kv head into
-:func:`dkdv_parts` parts whose float32 partials a second pass sums;
-float32 inputs (and bfloat16 ones TMA cannot describe) go to the SIMT
-kernels, which recompute the LSE.  Each
-wrapper runs its plain version only for tensors on the CPU (which only
+the tensor-core (``wgmma``) kernels at every head dim from 8 to 256
+(a multiple of 8), which read that LSE, round P to bf16 for dV as the
+plain version does, carry dS into dQ and dK as two bf16 terms (hi +
+lo), and split the G q heads of each kv head into :func:`dkdv_parts`
+parts whose float32 partials a second pass sums; float32 inputs (and
+bfloat16 ones TMA cannot describe) go to the SIMT kernels, which
+recompute the LSE.  Each wrapper runs its plain version only for tensors on the CPU (which only
 the tests pass); for CUDA tensors it launches its kernels on the
 current stream or raises, and any other device raises.  No path on a
 CUDA tensor reaches a plain version.  The forward's dtype picks its
@@ -59,7 +59,6 @@ import math
 
 import torch
 
-from repro_torch.kernels import _route
 from repro_torch.kernels._route import launches_kernel, observed
 from repro_torch.kernels.flash_attention.build import LIB
 
@@ -68,9 +67,10 @@ DTYPES = (torch.float32, torch.bfloat16)
 #: 32, 64, 128 and 256, bf16 builds of 64, 128 and 256; a smaller head
 #: dim runs in the next larger build)
 MAX_HEAD_DIM = 256
-#: the largest head dim the backward kernels are built for (builds of 64
-#: and 128); above it a gradient on the card waits for ROADMAP A.5
-MAX_BWD_HEAD_DIM = 128
+#: the largest head dim the backward kernels are built for (builds of 64,
+#: 128 and 256 on both routes; a smaller head dim runs in the next larger
+#: build): every head dim the forward takes
+MAX_BWD_HEAD_DIM = MAX_HEAD_DIM
 #: the TPU kernel's mask value
 NEG_INF = -1e30
 #: rows of the tensor-core backward's kv tiles (its dK/dV items)
@@ -180,23 +180,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q ``[B,H,Sq,hd]``; k, v ``[B,Hkv,Skv,hd]``, contiguous, one dtype
     and device.  ``prefix_len`` (``0 <= prefix_len <= Skv``, only with
     ``causal``): the prefix-LM boundary.  Returns a new ``[B,H,Sq,hd]``
-    tensor in q's dtype, differentiable in q, k and v (on the card up
-    to head dim :data:`MAX_BWD_HEAD_DIM`)."""
+    tensor in q's dtype, differentiable in q, k and v at every head dim
+    it takes."""
     prefix_len = _check(q, k, v, causal, prefix_len)
     needs_grad = torch.is_grad_enabled() and any(t.requires_grad
                                                  for t in (q, k, v))
-    if (_route.device_type(q) == "cuda" and q.shape[3] > MAX_BWD_HEAD_DIM
-            and needs_grad):
-        raise ValueError(_NO_BWD.format(q.shape[3]))
     # the bf16 backward reads the forward's LSE; float32's recomputes it
     want_lse = needs_grad and q.dtype == torch.bfloat16
     return FlashAttentionFunction.apply(q, k, v, causal, prefix_len,
                                         want_lse)
-
-
-_NO_BWD = ("flash_attention: head dim {}; the backward kernels are built up "
-           "to " + str(MAX_BWD_HEAD_DIM) + ", and a larger head dim waits "
-           "for ROADMAP A.5")
 
 
 def _check(q, k, v, causal: bool, prefix_len: int) -> int:
@@ -303,7 +295,9 @@ def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               o: torch.Tensor, do: torch.Tensor) -> str:
     """The backward's route for these inputs: ``"wgmma"`` for bfloat16
     that TMA can describe (head dim a multiple of 8, every tensor 16-byte
-    aligned), else ``"simt"``."""
+    aligned: the builds of 64, 128 and 256 take head dims up to 64, 65 to
+    128 and 129 to 256), else ``"simt"`` (float32, and bfloat16 that TMA
+    cannot describe, in builds of the same head dims)."""
     aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, o, do))
     return ("wgmma" if q.dtype == torch.bfloat16 and q.shape[3] % 8 == 0
             and aligned else "simt")
@@ -317,8 +311,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``(dq, dk, dv)`` of :func:`flash_attention` at q, k, v for the
     output ``o`` and its gradient ``do`` (both q's shape and dtype,
     contiguous): the kernels of ``csrc/flash_attention_bwd.cu`` on the
-    card (head dim up to :data:`MAX_BWD_HEAD_DIM`, else ``ValueError``),
-    the plain version on the CPU.  ``lse``: the forward's float32
+    card (the route :func:`bwd_route` names), the plain version on the
+    CPU.  ``lse``: the forward's float32
     ``[B,H,Sq]`` LSE (:func:`flash_attention_fwd`), which the tensor-core
     route reads; where it is None that route runs the forward kernel
     once more to get it.  The SIMT route and the plain version compute
@@ -343,8 +337,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          prefix_len=prefix_len)
     bsz, heads, sq, hd = q.shape
     kv_heads, skv = k.shape[1], k.shape[2]
-    if hd > MAX_BWD_HEAD_DIM:
-        raise ValueError(_NO_BWD.format(hd))
     lib = LIB.load()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:

@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention.ops import MAX_BWD_HEAD_DIM
 from repro_torch.models import encdec as _encdec
 from repro_torch.models import hybrid as _hybrid
 from repro_torch.models import ssm_lm as _ssm
@@ -68,33 +67,29 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
 
 
 def trainable(cfg: ModelConfig) -> None:
-    """Raises ``ValueError`` unless every kernel of ``cfg``'s forward has
-    a backward kernel: the dense family up to head dim
-    ``MAX_BWD_HEAD_DIM`` (B2's backward builds; B4's backward takes
-    every width), the SSM family (B3's and B4's backward) and the hybrid
-    family (B2's, B3's and B4's).  The VLM's head dim 256 waits for B2's
-    backward there, and the MoE and enc-dec families for their training
-    on the card (ROADMAP A.5)."""
-    if cfg.family not in (Family.DENSE, Family.SSM, Family.HYBRID):
-        missing = {Family.VLM: f"B2's backward at head dim {cfg.hd}"}.get(
-            cfg.family, f"the {cfg.family.value} family's training path")
-        raise ValueError(f"{cfg.name}: the port trains the dense, SSM and "
-                         f"hybrid families; the {cfg.family.value} family "
-                         f"waits for {missing} (ROADMAP A.5)")
-    if cfg.family != Family.SSM and cfg.hd > MAX_BWD_HEAD_DIM:
-        raise ValueError(f"{cfg.name}: head dim {cfg.hd}; B2's backward is "
-                         f"built up to {MAX_BWD_HEAD_DIM}, a larger head "
-                         f"dim waits for ROADMAP A.5")
+    """Raises ``ValueError`` unless ``cfg``'s family trains on the card:
+    the dense family (B2's and B4's backward), the SSM family (B3's and
+    B4's), the hybrid family (B2's, B3's and B4's) and the VLM family
+    (B2's at head dim 256 under the prefix-LM mask, and B4's).  B2's
+    backward takes every head dim its forward takes, which refuses a
+    larger one.  The MoE and enc-dec families wait for their training on
+    the card (ROADMAP A.5)."""
+    if cfg.family not in (Family.DENSE, Family.SSM, Family.HYBRID,
+                          Family.VLM):
+        raise ValueError(f"{cfg.name}: the port trains the dense, SSM, "
+                         f"hybrid and VLM families; the {cfg.family.value} "
+                         f"family waits for its training path (ROADMAP "
+                         f"A.5)")
 
 
 def train_forward(model, batch: dict, cfg: ModelConfig):
     """-> (logits [B,S,Vp] over the *token* part, aux_loss), under the
-    caller's grad mode.  The dense, SSM and hybrid families are
+    caller's grad mode.  The dense, SSM, hybrid and VLM families are
     differentiable: their compute dicts are cast anew from the masters
-    with gradients on every call.  A model of another family (or a
-    larger head dim, :func:`trainable`) whose parameters require a
-    gradient raises ``ValueError``; with frozen parameters every family
-    runs its forward, without gradients."""
+    with gradients on every call.  A model of another family
+    (:func:`trainable`) whose parameters require a gradient raises
+    ``ValueError``; with frozen parameters every family runs its
+    forward, without gradients."""
     mod, tokens = _module(cfg), batch["tokens"]
     if torch.is_grad_enabled() and any(p.requires_grad
                                        for p in model.parameters()):
@@ -104,8 +99,7 @@ def train_forward(model, batch: dict, cfg: ModelConfig):
     if mod is _tf:
         return _tf.lm_apply(model, tokens, cfg)
     if mod is _vlm:
-        logits, aux = _vlm.vlm_apply(model, batch["patches"], tokens, cfg)
-        return logits[:, cfg.img_tokens:], aux   # the text positions
+        return _vlm.vlm_train_apply(model, batch["patches"], tokens, cfg)
     if mod is _hybrid:
         return _hybrid.hybrid_train_apply(model, tokens, cfg)
     if mod is _encdec:

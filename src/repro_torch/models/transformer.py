@@ -263,9 +263,10 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 
 def _forward(w: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
              extra_embeds: Optional[torch.Tensor] = None,
-             prefix_len: int = 0, mesh=None):
+             prefix_len: int = 0, mesh=None, logits_from: int = 0):
     """The whole-sequence forward over the compute dict ``w``, under the
-    caller's grad mode."""
+    caller's grad mode; logits at the positions from ``logits_from``
+    on (each row's the same function as over the whole sequence)."""
     x = _embed(w, tokens, extra_embeds)
     positions = _positions(x)
     aux = torch.zeros((), device=x.device)
@@ -273,6 +274,8 @@ def _forward(w: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         x, (_, _, a) = block_forward(wb, x, cfg, positions,
                                      prefix_len=prefix_len, mesh=mesh)
         aux = aux + a
+    if logits_from:
+        x = x[:, logits_from:].contiguous()
     return _logits(w, x, cfg), aux
 
 

@@ -1,8 +1,8 @@
 """Loss and train step.
 
 Counterpart of ``repro/train/train_step.py``.  The reference takes
-``jax.value_and_grad`` of a plain model; the port's dense, SSM and
-hybrid models run B2, B3 and B4 on the card, whose autograd Functions
+``jax.value_and_grad`` of a plain model; the port's dense, SSM, hybrid
+and VLM models run B2, B3 and B4 on the card, whose autograd Functions
 run their backward kernels, so ``torch.autograd.grad`` through
 :func:`repro_torch.models.registry.train_forward` gives the gradient of
 every float32 master.  The step

@@ -721,6 +721,10 @@ BWD_SHAPES = [
     ((2, 4, 200, 64), (2, 4, 200, 64), True, 100),    # prefix-LM, G = 1
     ((1, 6, 150, 72), (1, 1, 150, 72), True, 70),     # head dim 72, G = 6
     ((1, 4, 90, 20), (1, 2, 90, 20), True, 0),        # head dim 20: no TMA
+    ((2, 8, 768, 256), (2, 1, 768, 256), True, 256),  # paligemma-3b, B = 2
+    ((1, 8, 200, 256), (1, 1, 200, 256), True, 100),  # ragged, prefix, G = 8
+    ((1, 4, 150, 192), (1, 2, 150, 192), True, 0),    # head dim 192: 256 build
+    ((1, 2, 65, 256), (1, 1, 130, 256), False, 0),    # Sq != Skv at 256
 ]
 
 
@@ -730,9 +734,10 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, q_shape, kv_shape,
                                                   causal, prefix_len, dtype):
     """bf16 takes the tensor-core route with the forward's LSE (but at
     head dim 20, which TMA cannot describe: the SIMT route), float32 the
-    SIMT route; both held against the plain version, and the same bits
-    in a second call without the LSE (the wrapper then runs the forward
-    kernel for it)."""
+    SIMT route, at head dims 129-256 in the 256 builds too; both held
+    against the plain version, and the same bits in a second call
+    without the LSE (the wrapper then runs the forward kernel for
+    it)."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     q, k, v = (torch.randn(s, device=cuda, generator=gen).to(dtype)
                for s in (q_shape, kv_shape, kv_shape))
@@ -876,9 +881,20 @@ def test_backward_runs_the_kernels_through_the_functions(cuda):
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) <= BWD_F32_RTOL * float(
             w.abs().max())
-    big = torch.randn(1, 1, 8, 256, device=cuda, requires_grad=True)
-    with pytest.raises(ValueError, match="ROADMAP A.5"):
-        flash_attention(big, big.detach(), big.detach())
+    # head dim 256, which the backward builds take too: a gradient through
+    # the Function, held against autograd of the plain version
+    big = [torch.randn(s, device=cuda, generator=gen).requires_grad_()
+           for s in ((1, 2, 70, 256), (1, 1, 70, 256), (1, 1, 70, 256))]
+    before = flash_attention_bwd.launches
+    got = torch.autograd.grad(
+        flash_attention(*big, causal=True, prefix_len=20).square().sum(), big)
+    assert flash_attention_bwd.launches == before + 1
+    plain = [t.detach().clone().requires_grad_() for t in big]
+    want = torch.autograd.grad(flash_attention_plain(
+        *plain, causal=True, prefix_len=20).square().sum(), plain)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= BWD_F32_RTOL * float(
+            w.abs().max())
 
 
 SSD_BWD_SHAPES = [

@@ -216,16 +216,28 @@ def test_other_devices_are_refused():
         rmsnorm_fused(x, torch.ones(4, device="meta"))
 
 
-def test_cuda_gradient_above_the_backward_builds_is_refused(card_branch):
-    """B2's backward kernels are built up to head dim 128: a call on the
-    card that needs a gradient at 256 raises before the forward runs."""
+def test_cuda_gradient_at_head_dim_256_reaches_the_kernels(card_branch):
+    """B2's backward kernels are built for every head dim the forward
+    takes (up to 256): a call on the card that needs a gradient at 256
+    is no longer refused but reaches the forward kernel inside the
+    Function (grad mode off), as one under ``no_grad`` does, and the
+    backward wrapper reaches its library at paligemma-3b's geometry (G
+    = 8, the prefix-LM mask), bf16 with the forward's LSE and float32."""
     rng = np.random.default_rng(0)
-    with pytest.raises(ValueError, match=r"ROADMAP A\.5"):
+    assert flash_ops.MAX_BWD_HEAD_DIM == flash_ops.MAX_HEAD_DIM == 256
+    with pytest.raises(LibraryReached) as reached:
         flash_attention(_t(rng, 1, 1, 4, 256), _t(rng, 1, 1, 4, 256),
                         _t(rng, 1, 1, 4, 256))
+    assert reached.value.grad_mode is False
     with torch.no_grad(), pytest.raises(LibraryReached):
         flash_attention(_t(rng, 1, 1, 4, 256), _t(rng, 1, 1, 4, 256),
                         _t(rng, 1, 1, 4, 256))
+    for dtype, lse in ((torch.bfloat16, torch.zeros(1, 8, 6)),
+                       (torch.float32, None)):
+        q = _t(rng, 1, 8, 6, 256, grad=False).to(dtype)
+        k = _t(rng, 1, 1, 6, 256, grad=False).to(dtype)
+        with pytest.raises(LibraryReached):
+            flash_attention_bwd(q, k, k, q, q, prefix_len=3, lse=lse)
 
 
 def _bf16(rng, *shape, grad=True):

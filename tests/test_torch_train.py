@@ -45,6 +45,7 @@ from repro_torch.collectives.selector import ICICostModel, MeshSpec
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels.flash_attention import (flash_attention_bwd_plain,
                                                  flash_attention_plain)
+from repro_torch.kernels.flash_attention.ops import MAX_HEAD_DIM
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd_plain, rmsnorm_plain
 from repro_torch.launch import train as launch
 from repro_torch.models import registry
@@ -55,6 +56,7 @@ from repro_torch.models.convert import (dense_lm_from_reference,
                                         ssm_lm_from_reference,
                                         ssm_state_dict)
 from repro_torch.models.transformer import DenseLM
+from repro_torch.models.vlm import vlm_apply
 from repro_torch.train import grad_comm
 from repro_torch.train import optimizer as opt
 
@@ -109,8 +111,9 @@ def _host_params(jc, seed=0):
         return host
     blocks = host["blocks"]
     for name in ("bq", "bk", "bv"):
-        blocks["attn"][name] = rng.normal(
-            0, 0.1, blocks["attn"][name].shape).astype(np.float32)
+        if name in blocks["attn"]:       # the configs with QKV biases
+            blocks["attn"][name] = rng.normal(
+                0, 0.1, blocks["attn"][name].shape).astype(np.float32)
     for name in ("ln1", "ln2"):
         blocks[name] = (1 + 0.1 * rng.standard_normal(blocks[name].shape)) \
             .astype(np.float32)
@@ -122,7 +125,8 @@ def _host_params(jc, seed=0):
 #: each family's state dict of a reference tree, and its port model
 CONVERT = {"qwen2-1.5b": (dense_state_dict, dense_lm_from_reference),
            "mamba2-130m": (ssm_state_dict, ssm_lm_from_reference),
-           "zamba2-7b": (hybrid_state_dict, hybrid_from_reference)}
+           "zamba2-7b": (hybrid_state_dict, hybrid_from_reference),
+           "paligemma-3b": (dense_state_dict, dense_lm_from_reference)}
 
 
 def _state_dict(tree, tc) -> dict:
@@ -145,6 +149,9 @@ def _setup(dtype="float32", seed=0, batch=2, seq=16, arch="qwen2-1.5b"):
     rng = np.random.default_rng(seed + 7)
     toks = rng.integers(0, jc.vocab, (batch, seq + 1)).astype(np.int32)
     batch_np = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if jc.img_tokens:       # the VLM's stub patch embeddings
+        batch_np["patches"] = rng.standard_normal(
+            (batch, jc.img_tokens, jc.d_model)).astype(np.float32)
     return jc, tc, host, batch_np
 
 
@@ -246,14 +253,17 @@ def test_adamw_matches_reference_over_five_steps():
 
 
 # ------------------------------------------------------- plain backwards
-@pytest.mark.parametrize("group", [1, 3, 6])
+@pytest.mark.parametrize("group,hd", [(1, 16), (3, 16), (6, 16), (8, 256)])
 @pytest.mark.parametrize("causal,prefix_len", [(True, 0), (False, 0),
                                                (True, 7)])
-def test_flash_bwd_plain_matches_autograd(causal, prefix_len, group):
+def test_flash_bwd_plain_matches_autograd(causal, prefix_len, group, hd):
+    """Head dim 256 with G = 8 over one kv head: paligemma-3b's
+    geometry at a short sequence."""
     rng = np.random.default_rng(group)
-    q = torch.from_numpy(rng.standard_normal((2, 2 * group, 19, 16))
+    kv_heads = 1 if hd == 256 else 2
+    q = torch.from_numpy(rng.standard_normal((2, kv_heads * group, 19, hd))
                          .astype(np.float32)).requires_grad_()
-    k, v = (torch.from_numpy(rng.standard_normal((2, 2, 19, 16))
+    k, v = (torch.from_numpy(rng.standard_normal((2, kv_heads, 19, hd))
                              .astype(np.float32)).requires_grad_()
             for _ in range(2))
     o = flash_attention_plain(q, k, v, causal=causal, prefix_len=prefix_len)
@@ -305,7 +315,7 @@ def _hold_updated(model, grads_ref: dict, before: dict, after_ref: dict):
 
 
 #: the families that train, by the smoke config of one of each
-TRAINED_ARCHS = ["qwen2-1.5b", "mamba2-130m", "zamba2-7b"]
+TRAINED_ARCHS = ["qwen2-1.5b", "mamba2-130m", "zamba2-7b", "paligemma-3b"]
 
 
 @pytest.mark.parametrize("arch", TRAINED_ARCHS)
@@ -315,7 +325,10 @@ def test_train_step_matches_reference_value_and_grad(arch):
     included, tied to the head where the config ties them) and the
     updated parameters.  mamba2-130m's and zamba2-7b's gradients run
     through B3's backward (its plain version here) and the reference's
-    through ``jax.grad`` of its plain SSD."""
+    through ``jax.grad`` of its plain SSD; paligemma-3b's through B2
+    under the prefix-LM mask over its image positions, the head applied
+    to the text positions only (``vlm_train_apply``), where the
+    reference keeps the text positions of logits at every position."""
     jc, tc, host, batch_np = _setup(arch=arch)
     tcfg_ref = ref_ts.TrainConfig(optimizer=ref_opt.AdamWConfig(**OPT_CFG))
     tcfg = ts.TrainConfig(optimizer=opt.AdamWConfig(**OPT_CFG))
@@ -530,11 +543,10 @@ def _family_batch(cfg):
     return batch
 
 
-@pytest.mark.parametrize("arch", ["paligemma-3b", "granite-moe-3b-a800m",
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
                                   "whisper-large-v3"])
 def test_families_without_backward_kernels_refuse_to_train(arch):
     """A model whose parameters require a gradient, of a family whose
-    kernels lack a backward (B2 at head dim 256 for the VLM) or whose
     training waits (MoE, enc-dec), raises naming ROADMAP A.5; frozen,
     the same model still runs its forward."""
     cfg = get_smoke_config(arch)
@@ -551,13 +563,16 @@ def test_families_without_backward_kernels_refuse_to_train(arch):
                           ckpt_dir=None, ckpt_every=0, lr=1e-3, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b",
+                                  "paligemma-3b"])
 def test_ssm_and_hybrid_families_train(arch):
-    """The SSM and hybrid families, whose every kernel (B3, B4 and, in
-    the hybrid's shared block, B2) has a backward: frozen, the forward
-    runs without gradients; with parameters that require a gradient
-    ``train_forward`` gives differentiable logits (the serving cache's
-    logits, the same values), and the launcher trains two steps."""
+    """The SSM, hybrid and VLM families, whose every kernel (B3, B4 and,
+    in the hybrid's shared block and the VLM, B2) has a backward:
+    frozen, the forward runs without gradients (the VLM's the serving
+    forward's logits at the text positions, the same values); with
+    parameters that require a gradient ``train_forward`` gives
+    differentiable logits, the same values, and the launcher trains two
+    steps (the VLM's batches with their patches)."""
     cfg = get_smoke_config(arch)
     registry.trainable(cfg)
     registry.trainable(get_config(arch))
@@ -565,6 +580,10 @@ def test_ssm_and_hybrid_families_train(arch):
     batch = _family_batch(cfg)
     frozen, _ = registry.train_forward(model, batch, cfg)
     assert not frozen.requires_grad
+    if "patches" in batch:   # the serving forward's text positions
+        served, _ = vlm_apply(model, batch["patches"], batch["tokens"], cfg)
+        torch.testing.assert_close(frozen, served[:, cfg.img_tokens:],
+                                   rtol=0, atol=0)
     for p in model.parameters():
         p.requires_grad_(True)
     logits, _ = registry.train_forward(model, batch, cfg)
@@ -577,12 +596,19 @@ def test_ssm_and_hybrid_families_train(arch):
 
 
 def test_paligemma_head_dim_is_named():
-    cfg = get_config("paligemma-3b")
-    with pytest.raises(ValueError, match="head dim 256"):
-        registry.trainable(cfg)
-    registry.trainable(get_config("qwen2-1.5b"))
-    with pytest.raises(ValueError, match="head dim 256"):
-        registry.trainable(get_config("qwen2-1.5b").scaled(head_dim=256))
+    """paligemma-3b, head dim 256, trains, as a dense model at head dim
+    256 does: B2's backward takes every head dim its forward takes.  A
+    head dim above MAX_HEAD_DIM is refused by the forward's own check,
+    naming it."""
+    registry.trainable(get_config("paligemma-3b"))
+    registry.trainable(get_config("qwen2-1.5b").scaled(head_dim=256))
+    cfg = get_smoke_config("qwen2-1.5b").scaled(head_dim=MAX_HEAD_DIM + 8)
+    registry.trainable(cfg)
+    model = registry.init_params(cfg, 0, "cpu")
+    for p in model.parameters():
+        p.requires_grad_(True)
+    with pytest.raises(ValueError, match=f"head dim {MAX_HEAD_DIM + 8}"):
+        registry.train_forward(model, _family_batch(cfg), cfg)
 
 
 # -------------------------------------------------------------- grad comm
