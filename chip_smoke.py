@@ -65,9 +65,23 @@ Drives the port's main paths on the card at full width:
 * the VLM training path: paligemma-3b at its published width and depth
   through ``train_loop``, 8 steps of 8 x (256 stub patches + 512
   tokens), the prefix-LM mask over the patches: B2's backward at head
-  dim 256 (its hd-256 tensor-core build) and B4's on every step.
+  dim 256 (its hd-256 tensor-core build) and B4's on every step;
+* the MoE training path: granite-moe-3b-a800m at its published width
+  and the deepest depth whose reckoned peak stays under 76 GB (26 of its
+  32 layers; at 32 its float32 masters and moments, bf16 copies and
+  saved one-hot dispatch tensors exceed the card), 8 steps of 8 x 512
+  tokens with ``comm_policy="app_aware"``: the router's gradient
+  through the dispatch and the load-balancing loss, B2's and B4's
+  backward kernels on every step;
+* the enc-dec training path: whisper-large-v3 at its published width and
+  depth through ``train_loop``, 8 steps of 8 x (1504 stub frames + 448
+  tokens, its ``max_target_positions``): B2's backward non-causal over
+  the frames, causal over the tokens and across to the frames, and
+  B4's, on every step.
 
-No earlier phase's depth is cut to fit the time limit.
+To fit the training phases 34-38 in the time limit, phase 15 compares
+granite-moe-3b-a800m card vs CPU at 8 of its 32 layers, and phase 20
+whisper-large-v3 at 8 + 8 of its 32 + 32.
 
 Phases:
 
@@ -154,7 +168,7 @@ Phases:
     ``torch.profiler``; one MoE layer in its parts (router and dispatch,
     the dispatch einsum, the experts, the combine einsum) and their
     share of the prefill;
-15. granite card vs CPU at 32 and 2 layers, and qwen2-moe-a2.7b at full
+15. granite card vs CPU at 8 and 2 layers, and qwen2-moe-a2.7b at full
     width and 2 layers, in float32 and bf16, each card run anchored to
     the CPU's expert choices, its routing flips counted per layer and
     held to the tie rule (``moe_cpu_compare``), then the logits as in
@@ -179,7 +193,7 @@ Phases:
     with ``encode_s`` inside ``prefill_s``, profiled;
 20. card vs CPU prefill logits for zamba2-7b at 14 layers (2
     super-blocks, 1 shared-block application, 2 trailing layers) and
-    whisper-large-v3 at 32 + 32 layers, float32 at ``LOGITS_F32_TOL``
+    whisper-large-v3 at 8 + 8 layers, float32 at ``LOGITS_F32_TOL``
     times the largest logit (the form that tests/test_torch_hybrid.py::
     test_float32_drift_grows_with_width sets against a float64 oracle),
     bf16 by the accuracy rule of phases 8 and 11;
@@ -265,7 +279,33 @@ Phases:
     memory, one more step profiled (each backward call's kernels once
     each); every loss finite and the last below step 0's;
 33. as phase 25 for paligemma-3b at full width and 2 layers over 2 x
-    (256 patches + 64 tokens).
+    (256 patches + 64 tokens);
+34. the MoE training path: the depth reckoned (printed with each term
+    of the reckoning), then ``train_loop`` on granite-moe-3b-a800m at
+    that depth L for 8 steps with ``comm_policy="app_aware"``, L B2 and
+    L B2-backward calls (every one on the tensor-core route) and 2L + 1
+    B4 and B4-backward calls a step asserted, ``train_step_s``,
+    tokens/s, the measured peak beside the reckoned, one more step
+    profiled; every loss finite and step 7's below step 0's;
+35. as phase 25 for granite-moe-3b-a800m at full width and 2 layers,
+    the card's routing anchored to the CPU's expert choices and each
+    flip held to the tie rule, as phase 15 holds them; the aux loss at
+    the loss's limit;
+36. the enc-dec training path: ``train_loop`` on whisper-large-v3 for 8
+    steps of 8 x (1504 frames + 448 tokens), 96 B2 and 96 B2-backward
+    calls (every one on the tensor-core route) and 162 B4 and 162
+    B4-backward calls a step asserted, ``train_step_s``, tokens/s and
+    positions/s, peak memory, one more step profiled; every loss finite
+    and step 7's below step 0's;
+37. as phase 25 for whisper-large-v3 at full width and 2 + 2 layers over
+    2 x (1504 frames + 64 tokens);
+38. on the inputs of the first steps of phases 34 and 36: B2's backward
+    at granite's causal q ``[8,24,512,64]`` over k, v ``[8,8,512,64]``,
+    whisper's non-causal encoder ``[8,20,1504,64]`` (a ragged last kv
+    tile), its non-causal cross-attention of 448 queries over 1504 keys
+    and its causal decoder ``[8,20,448,64]``; B4's backward at
+    ``[12032,1280]`` and ``[3584,1280]``; each as phase 23 holds and
+    times them.
 
 Prints the kernel summary as one JSON line, then the ``ok`` line last.
 Any failed check exits non-zero; so does a machine without CUDA, and a
@@ -2093,14 +2133,13 @@ def published_interference(cuda) -> dict:
 
 
 # ----------------------------------------------------------- phases 14-16
-#: card vs CPU depths of phase 15: granite-moe-3b-a800m at full depth and
-#: at 2 layers; qwen2-moe-a2.7b at full width and 2 layers (its 24 layers
-#: need 57.3 GB of float32 masters and a 28.6 GB bf16 copy, more than the
-#: card holds)
-MOE_CPU_LAYERS = {GRANITE.name: (GRANITE.n_layers, 2), QWEN2_MOE.name: (2,)}
-#: the CPU's float32 prefill at full depth should take at most this many
-#: seconds; a slower run is reported (ROADMAP: then compare at 8 layers)
-MOE_CPU_S = 120.0
+#: card vs CPU depths of phase 15: granite-moe-3b-a800m at 8 of its 32
+#: layers (cut to fit the training phases 34-38 in the time limit: its
+#: CPU prefills at 32 layers took 24 s, beside a 13 GB copy of the model
+#: to the host) and at 2; qwen2-moe-a2.7b at full width and 2 layers (its
+#: 24 layers need 57.3 GB of float32 masters and a 28.6 GB bf16 copy, more
+#: than the card holds)
+MOE_CPU_LAYERS = {GRANITE.name: (8, 2), QWEN2_MOE.name: (2,)}
 
 
 def recast(model, cfg) -> None:
@@ -2187,7 +2226,7 @@ def granite_flash_check(seen: dict) -> dict:
     return entry
 
 
-def moe_cpu_compare(cfg, cuda, card=None) -> dict:
+def moe_cpu_compare(cfg, cuda) -> dict:
     """Phase 15: the same seeded model on the card and on the CPU,
     last-token prefill logits of ``CPU_BATCH`` x ``CPU_PROMPT`` tokens
     at each depth of ``MOE_CPU_LAYERS`` in float32 and bf16.
@@ -2202,27 +2241,21 @@ def moe_cpu_compare(cfg, cuda, card=None) -> dict:
     are then held: float32 at ``LOGITS_F32_TOL``; bf16 as phases 8 and 11
     hold it at full depth, no farther from the CPU's float32 logits than
     ``BF16_ACCURACY_RATIO`` times the CPU's bf16 ones (largest and mean
-    difference), with the same argmax at full depth.  At these widths the
-    bf16 model's own error against float32 exceeds the tests' 4e-2
-    already at 2 layers (granite 9.1e-2, qwen2-moe 7.1e-2), so two bf16
-    runs that round in other places are not held to 4e-2 of each other
-    (qwen2-moe-a2.7b's read 4.9e-2); the gap is printed.  ``card``: the
-    model of that config already on the card (its masters are copied to
-    the CPU)."""
+    difference), with the same argmax at full depth (no depth of
+    MOE_CPU_LAYERS is one since PR 27: the argmax is printed).  At these
+    widths the bf16 model's own error against float32 exceeds the tests'
+    4e-2 already at 2 layers (granite 9.1e-2, qwen2-moe 7.1e-2), so two
+    bf16 runs that round in other places are not held to 4e-2 of each
+    other (qwen2-moe-a2.7b's read 4.9e-2); the gap is printed."""
     toks = torch.from_numpy(np.array(
         prompts(cfg.vocab, CPU_BATCH, CPU_PROMPT, 1)))
     report = {}
     for n_layers in MOE_CPU_LAYERS[cfg.name]:
         c = cfg.scaled(n_layers=n_layers)
         t0 = time.perf_counter()
-        if card is not None and n_layers == cfg.n_layers:
-            on_card = card
-            host = model_tf.DenseLM(c, device="cpu")
-            host.load_state_dict(card.state_dict())
-        else:
-            host = model_registry.init_params(c, SEED, "cpu")
-            on_card = model_tf.DenseLM(c, device=cuda)
-            on_card.load_state_dict(host.state_dict())
+        host = model_registry.init_params(c, SEED, "cpu")
+        on_card = model_tf.DenseLM(c, device=cuda)
+        on_card.load_state_dict(host.state_dict())
         print(f"  {cfg.name}, {n_layers} layers: the model on both "
               f"devices in {time.perf_counter() - t0:.2f} s")
         logits = {}
@@ -2257,11 +2290,6 @@ def moe_cpu_compare(cfg, cuda, card=None) -> dict:
                   f"its tie bound {'ok' if fl['share'] <= 1 else 'BEYOND'}")
             check(fl["share"] <= 1.0, f"{cfg.name} {name} {n_layers} layers:"
                   f" a routing flip beyond the tie rule ({fl})")
-            if dtype == torch.float32 and n_layers == cfg.n_layers:
-                print(f"  CPU float32 prefill at {n_layers} layers: "
-                      f"{cpu_s:.2f} s: "
-                      f"{'within' if cpu_s <= MOE_CPU_S else 'OVER'} "
-                      f"{MOE_CPU_S} s")
             logits[dtype] = (card_lg, host_lg)
             report[f"{n_layers}_{name}"] = {
                 "flips": fl["n"], "flips_per_layer": fl["per_layer"],
@@ -2371,9 +2399,11 @@ def collectives_on_card(cuda, w: dict, h: torch.Tensor, cfg) -> dict:
 # ----------------------------------------------------------- phases 17-20
 #: card vs CPU depths of phase 20: zamba2-7b at 14 layers (2 super-blocks,
 #: 1 shared-block application, 2 trailing layers); whisper-large-v3 at
-#: this many encoder and decoder layers (full depth)
+#: this many encoder and decoder layers (cut from its 32 + 32 to fit the
+#: training phases 34-38 in the time limit: the CPU's prefills at full
+#: depth took 79 s)
 ZAMBA2_CPU_LAYERS = 14
-WHISPER_CPU_LAYERS = 32
+WHISPER_CPU_LAYERS = 8
 #: the CPU's float32 prefill in phase 20 should take at most this many
 #: seconds: reported, not enforced (a miss cuts the depth next time)
 FAMILY_CPU_S = 60.0
@@ -2650,16 +2680,22 @@ BACKWARDS = {"flash_attention_bwd": "flash", "rmsnorm_bwd": "rms",
 
 
 @contextlib.contextmanager
-def backward_inputs():
+def backward_inputs(distinct: bool = False):
     """Records the first call of each backward wrapper of BACKWARDS at
     each shape of its first input while the block runs, through the
     wrappers' observers (``kernels._route.OBSERVERS``): ``{(key, shape):
-    (args, kwargs)}``, tensors detached.  Launches nothing, and leaves
-    the wrappers and their counts as they are."""
+    (args, kwargs)}``, tensors detached.  With ``distinct`` a call is
+    told apart also by its second input's shape and its mask (whisper's
+    cross- and decoder self-attention share q's shape): keys ``(key,
+    shape, second shape, causal)``.  Launches nothing, and leaves the
+    wrappers and their counts as they are."""
     seen: dict = {}
 
     def keep(name, args, kw):
-        seen.setdefault((BACKWARDS[name], tuple(args[0].shape)), (tuple(
+        key = (BACKWARDS[name], tuple(args[0].shape))
+        if distinct:
+            key += (tuple(args[1].shape), kw.get("causal", True))
+        seen.setdefault(key, (tuple(
             a.detach() if isinstance(a, torch.Tensor) else a
             for a in args), kw))
 
@@ -2778,9 +2814,11 @@ FLASH_BWD_CASES = ((True, 0, (2, 6, 130, 128), (2, 2, 130, 128)),
 
 def flash_bwd_row(args, lse, full: bool = True, *, prefix: int = 0,
                   cases=FLASH_BWD_CASES, build: int = 0,
-                  min_share: float = 0.0) -> dict:
-    """B2's backward at a train step's shape (causal, with the prefix-LM
-    mask over ``prefix`` rows): held in bf16 (the tensor-core route,
+                  min_share: float = 0.0, causal: bool = True) -> dict:
+    """B2's backward at a train step's shape (``causal``, with the
+    prefix-LM mask over ``prefix`` rows; else every query sees every
+    key, as whisper's encoder and cross-attention): held in bf16 (the
+    tensor-core route,
     with the forward's LSE) and in float32 (the inputs cast; the SIMT
     route), the same bits in two runs of each, timed by graph replay
     beside the plain backward and SDPA's autograd backward (the prefix
@@ -2799,6 +2837,7 @@ def flash_bwd_row(args, lse, full: bool = True, *, prefix: int = 0,
                                  heads // k.shape[1], sms)
     print(f"  flash_attention_bwd on the train step's inputs: q, o, dO "
           f"{tuple(q.shape)}, k, v {tuple(k.shape)}"
+          f"{'' if causal else ', non-causal'}"
           f"{f', prefix {prefix}' if prefix else ''}, the forward's LSE "
           f"{tuple(lse.shape)}; route {route}, G split into {parts} parts")
     check(route == "wgmma" and lse is not None,
@@ -2814,10 +2853,10 @@ def flash_bwd_row(args, lse, full: bool = True, *, prefix: int = 0,
               > 0, f"the tensor-core backward's SASS holds no HGMMA: "
               f"{hgmma}")
 
-    def plain(*t, c_=True, p_=prefix):
+    def plain(*t, c_=causal, p_=prefix):
         return flash_attention_bwd_plain(*t, causal=c_, prefix_len=p_)
 
-    def held(label, ins, ll, c_=True, p_=0):
+    def held(label, ins, ll, c_=causal, p_=0):
         first = flash_attention_bwd(*ins, causal=c_, prefix_len=p_, lse=ll)
         again = flash_attention_bwd(*ins, causal=c_, prefix_len=p_, lse=ll)
         torch.cuda.synchronize()
@@ -2849,13 +2888,14 @@ def flash_bwd_row(args, lse, full: bool = True, *, prefix: int = 0,
                 f"{str(dt)[6:]} {qs}{'' if causal else ' non-causal'}"
                 f"{f' prefix {pre}' if pre else ''}",
                 (a, b, c, out, dout), ll, causal, pre))
-    flops = 5 * 2 * hd * bsz * heads * visible_pairs(seq, skv, True, prefix)
+    flops = 5 * 2 * hd * bsz * heads * visible_pairs(seq, skv, causal,
+                                                     prefix)
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
     mask = prefix_mask(seq, skv, prefix, q.device) if prefix else None
 
     def sdpa(a, b, c):
         if mask is None:
-            return F.scaled_dot_product_attention(a, b, c, is_causal=True,
+            return F.scaled_dot_product_attention(a, b, c, is_causal=causal,
                                                   enable_gqa=True)
         return F.scaled_dot_product_attention(a, b, c, attn_mask=mask,
                                               enable_gqa=True)
@@ -2863,10 +2903,10 @@ def flash_bwd_row(args, lse, full: bool = True, *, prefix: int = 0,
     times = {}
     for label, ins, ll in (("bf16", args, lse), ("float32", f32, None)):
         ms = graph_ms(lambda: flash_attention_bwd(
-            *ins, prefix_len=prefix, lse=ll), 10)
+            *ins, causal=causal, prefix_len=prefix, lse=ll), 10)
         plain_ms = cuda_ms(lambda: plain(*ins), 5)
         library_ms = library_bwd_ms(sdpa, ins[:3])
-        backend = sdpa_backend(*ins[:3], mask, mask is None)
+        backend = sdpa_backend(*ins[:3], mask, causal and mask is None)
         peak = BF16_FLOP_PER_S if label == "bf16" else F32_FLOP_PER_S
         bytes_ms = nbytes * ins[0].element_size() / q.element_size() \
             / HBM_BYTES_PER_S * 1e3
@@ -2893,7 +2933,7 @@ def flash_bwd_row(args, lse, full: bool = True, *, prefix: int = 0,
     return dict({"name": "flash_attention_bwd", "route": "cuda",
                  "source": FLASH_BWD_SOURCE, "replaces": FLASH_TPU,
                  "launches": 0, "max_abs_err": err,
-                 "shape": [list(q.shape), list(k.shape)],
+                 "shape": [list(q.shape), list(k.shape)], "causal": causal,
                  "prefix_len": prefix, "kernel_route": route,
                  "parts": parts, "hgmma": hgmma,
                  "float32": times["float32"]}, **times["bf16"])
@@ -2976,23 +3016,25 @@ TRAINED = (flash_attention, flash_attention_bwd, rmsnorm_fused, rmsnorm_bwd)
 
 def train_run(cfg, cuda, trained: tuple, per_step: tuple,
               steps: int = TRAIN_STEPS, lr: float = TRAIN_LR,
-              **loop) -> tuple:
-    """``train_loop`` on ``cfg`` (bf16 compute, TRAIN_BATCH x TRAIN_SEQ
-    tokens, ``steps`` AdamW steps at peak ``lr``; ``loop``: more of its
+              seq: int | None = None, **loop) -> tuple:
+    """``train_loop`` on ``cfg`` (bf16 compute, TRAIN_BATCH x ``seq``
+    tokens (default TRAIN_SEQ), ``steps`` AdamW steps at peak ``lr``; ``loop``: more of its
     arguments) with the counts of ``trained`` set to 0 just before and
     read just after: ``per_step`` launches of each a step asserted, every
-    loss finite.  Prints each step, ``train_step_s`` (the mean of steps
-    TRAIN_TIMED of 8, else of every step after the first), tokens/s and
-    peak memory; returns (model, opt, stats, history)."""
+    loss finite, the peak memory under the card's 80 GB.  Prints each
+    step, ``train_step_s`` (the mean of steps TRAIN_TIMED of 8, else of
+    every step after the first), tokens/s and peak memory; returns
+    (model, opt, stats, history)."""
     from repro_torch.launch.train import train_loop
 
+    seq = seq or TRAIN_SEQ
     for k in trained:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     history: list = []
     t0 = time.perf_counter()
     model, opt, losses = train_loop(
-        cfg, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=SEED,
+        cfg, steps=steps, batch=TRAIN_BATCH, seq=seq, seed=SEED,
         ckpt_dir=None, ckpt_every=0, lr=lr, log_every=1, device=cuda,
         history=history, **loop)
     wall = time.perf_counter() - t0
@@ -3004,13 +3046,14 @@ def train_run(cfg, cuda, trained: tuple, per_step: tuple,
     n_params = sum(p.numel() for p in model.parameters())
     check(all(np.isfinite(losses)) and len(losses) == steps,
           f"losses {losses}")
+    check(peak < 80e9, f"peak memory {peak / 1e9:.3f} GB")
     for h in history:
         print(f"  step {h['step']}: loss {h['loss']:.6f} lr {h['lr']:.6e} "
               f"grad_norm {h['grad_norm']:.6f} step_s {h['step_s']:.6f} "
               f"modes {dict((m, h['modes'].count(m)) for m in set(h['modes']))}")
     timed = history[TRAIN_TIMED] if steps == TRAIN_STEPS else history[1:]
     step_s = float(np.mean([h["step_s"] for h in timed]))
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = TRAIN_BATCH * seq
     mfu = 6 * n_params * tokens / step_s / BF16_FLOP_PER_S
     print(f"  train_step_s {step_s:.6f} (mean of steps {timed[0]['step']}-"
           f"{timed[-1]['step']}, host wall, synchronised), tokens_per_s "
@@ -3027,14 +3070,17 @@ def train_run(cfg, cuda, trained: tuple, per_step: tuple,
 
 
 def profile_train_step(cfg, model, opt, cuda, label: str,
-                       want: dict) -> None:
-    """One more train step under ``torch.profiler``; where the trace has
-    device events, the launches of the kernels named in ``want`` (a
-    name: count) must be those counts."""
+                       want: dict, seq: int | None = None) -> None:
+    """One more train step (TRAIN_BATCH x ``seq`` tokens, default
+    TRAIN_SEQ) under
+    ``torch.profiler``; where the trace has device events, the launches
+    of the kernels named in ``want`` (a name: count) must be those
+    counts."""
     from repro_torch.launch.train import make_batch_np
     from repro_torch.train.train_step import TrainConfig, train_step
 
-    b = make_batch_np(cfg, SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ),
+    b = make_batch_np(cfg, SyntheticLM(vocab=cfg.vocab,
+                                       seq_len=seq or TRAIN_SEQ),
                       step=TRAIN_STEPS, batch=TRAIN_BATCH, seed=SEED)
     b = {k: torch.from_numpy(v).to(cuda) for k, v in b.items()}
     device_profile(lambda: train_step(model, opt, b, cfg=cfg,
@@ -3046,6 +3092,22 @@ def profile_train_step(cfg, model, opt, cuda, label: str,
         check({n: c for n, (c, _) in got.items()} == want,
               f"backward kernel launches in the profiled step {got}, "
               f"want {want}")
+
+
+def bwd_kernel_counts(cfg, shapes: list, per_step: tuple) -> dict:
+    """The launches of each tensor-core backward kernel of B2 and each
+    register-route kernel of B4's in one train step: ``per_step`` (B2's
+    backward calls, B4's) and, for the G-split sum, the calls at each
+    ``(count, skv)`` of ``shapes`` whose heads split into parts."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split = sum(n for n, skv in shapes
+                if flash_ops.dkdv_parts(TRAIN_BATCH, cfg.n_kv_heads, skv,
+                                        cfg.n_heads // cfg.n_kv_heads,
+                                        sms) > 1)
+    want = {n: per_step[0] for n in FLASH_BWD_WG}
+    want["flash_bwd_kv_sum"] = split
+    want.update({n: per_step[1] for n in RMS_BWD_REGS})
+    return want
 
 
 def train_path(cuda) -> dict:
@@ -3076,13 +3138,9 @@ def train_path(cuda) -> dict:
           f"decisions per step {[h['modes'] for h in history[:1]]} ... "
           f"{sum(m == 'HIERARCHICAL' for h in history for m in h['modes'])}"
           f" HIERARCHICAL of {sum(len(h['modes']) for h in history)}")
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    parts = flash_ops.dkdv_parts(TRAIN_BATCH, cfg.n_kv_heads, TRAIN_SEQ,
-                                 cfg.n_heads // cfg.n_kv_heads, sms)
-    want_k = {n: per_step[1] * int(n != "flash_bwd_kv_sum" or parts > 1)
-              for n in FLASH_BWD_WG}
-    want_k.update({n: per_step[3] for n in RMS_BWD_REGS})
-    profile_train_step(cfg, model, opt, cuda, "train step", want_k)
+    profile_train_step(cfg, model, opt, cuda, "train step",
+                       bwd_kernel_counts(cfg, [(per_step[1], TRAIN_SEQ)],
+                                         per_step[1::2]))
     del model, opt
     torch.cuda.empty_cache()
     return dict(stats, idle=PROFILES.get("train step"), buckets=len(buckets),
@@ -3091,13 +3149,27 @@ def train_path(cuda) -> dict:
                      for m in h["modes"]])))
 
 
+def step_positions(cfg, seq: int) -> str:
+    """A train row's positions in words: ``seq`` tokens, after the VLM's
+    patches or beside the enc-dec family's frames."""
+    if cfg.family == Family.VLM:
+        return f"({cfg.img_tokens} patches + {seq} tokens)"
+    if cfg.family == Family.ENCDEC:
+        return f"({cfg.encoder_frames} frames + {seq} tokens)"
+    return f"{seq} tokens"
+
+
 def train_cpu_compare(cuda, base=QWEN2, phase: int = 25, **cut) -> dict:
     """Phase 25 (28 for mamba2-130m, 30 for zamba2-7b, 33 for
-    paligemma-3b): one float32 step of ``base`` at full width and
-    STEP_CPU_LAYERS layers (or the fields ``cut`` gives) on the card and
-    on the CPU, from the same weights and batch (the launcher's, with
-    the VLM's patches): loss, gradient norm, every gradient, and the
-    updated parameters under the sign rule."""
+    paligemma-3b, 35 for granite-moe-3b-a800m, 37 for whisper-large-v3):
+    one float32 step of ``base`` at full width and STEP_CPU_LAYERS layers
+    (or the fields ``cut`` gives) on the card and on the CPU, from the
+    same weights and batch (the launcher's, with the VLM's patches or
+    the enc-dec family's frames): loss, gradient norm, every gradient,
+    and the updated parameters under the sign rule.  An MoE model's card
+    run is anchored to the CPU run's expert choices
+    (``moe_parity.anchored``, as phase 15 anchors its prefills), and each
+    choice of the card's own that differs is held to the tie rule."""
     from repro_torch.launch.train import make_batch_np
     from repro_torch.train.optimizer import AdamWConfig, adamw_init, \
         adamw_update
@@ -3109,9 +3181,7 @@ def train_cpu_compare(cuda, base=QWEN2, phase: int = 25, **cut) -> dict:
     cfg = base.scaled(dtype=torch.float32, **cut)
     print(f"phase {phase}: card vs CPU, one float32 train step of {cfg.name} "
           f"at full width, {', '.join(f'{k} {v}' for k, v in cut.items())}, "
-          f"{STEP_CPU_BATCH} x "
-          f"{f'({cfg.img_tokens} patches + ' if cfg.img_tokens else ''}"
-          f"{STEP_CPU_SEQ}{' tokens)' if cfg.img_tokens else ' tokens'} "
+          f"{STEP_CPU_BATCH} x {step_positions(cfg, STEP_CPU_SEQ)} "
           f"(TF32 off for matmul and cuDNN)")
     t0 = time.perf_counter()
     host = model_registry.init_params(cfg, SEED, "cpu")
@@ -3119,14 +3189,27 @@ def train_cpu_compare(cuda, base=QWEN2, phase: int = 25, **cut) -> dict:
                                            seq_len=STEP_CPU_SEQ),
                           step=0, batch=STEP_CPU_BATCH, seed=SEED)
     tcfg = TrainConfig(optimizer=AdamWConfig(**STEP_OPT))
-    out = {}
-    for label, dev in (("card", cuda), ("cpu", torch.device("cpu"))):
-        model = host           # the CPU run updates the host's model last
-        if label == "card":
-            model = copy.deepcopy(host).to(dev)
+    moe = cfg.family == Family.MOE
+    on_card = copy.deepcopy(host).to(cuda)
+    anchor = moe_parity.RouterTrace()
+    out, aux, routing = {}, {}, None
+    # the CPU first where the card's routing is anchored to it
+    for label in (("cpu", "card") if moe else ("card", "cpu")):
+        model, dev = ((on_card, cuda) if label == "card"
+                      else (host, torch.device("cpu")))
         b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         t1 = time.perf_counter()
-        loss, _, grads = value_and_grad(model, b, cfg, tcfg)
+        if not moe:
+            hook = contextlib.nullcontext()
+        elif label == "cpu":
+            hook = moe_parity.recording(anchor)
+        else:
+            hook = moe_parity.anchored(anchor, moe_parity.RouterTrace())
+        with hook as own:
+            loss, metrics, grads = value_and_grad(model, b, cfg, tcfg)
+        aux[label] = float(metrics["aux"])
+        if moe and label == "card":
+            routing = moe_parity.flips(own, anchor, cfg.n_layers)
         g_host = {k: g.detach().cpu().clone() for k, g in grads.items()}
         params = dict(model.named_parameters())
         _, _, m = adamw_update(tcfg.optimizer, params, grads,
@@ -3135,9 +3218,23 @@ def train_cpu_compare(cuda, base=QWEN2, phase: int = 25, **cut) -> dict:
         out[label] = (float(loss), float(m["grad_norm"]), g_host,
                       {k: p.detach().cpu().clone() for k, p in params.items()})
         print(f"  {label}: loss {float(loss):.7f}, grad_norm "
-              f"{float(m['grad_norm']):.7f}, step {time.perf_counter() - t1:.2f}"
-              f" s")
+              f"{float(m['grad_norm']):.7f}"
+              + (f", aux {aux[label]:.7f}" if moe else "")
+              + f", step {time.perf_counter() - t1:.2f} s")
         del model, grads, params
+    del on_card
+    if routing is not None:
+        routing["aux_rel"] = abs(aux["card"] - aux["cpu"]) / aux["cpu"]
+        print(f"  routing flips card vs CPU {routing['n']} in "
+              f"{routing['calls']} router calls of "
+              f"{STEP_CPU_BATCH * STEP_CPU_SEQ} tokens, per layer "
+              f"{routing['per_layer']}; largest margin {routing['share']:.4f}"
+              f" of its tie bound; aux rel diff {routing['aux_rel']:.3e} "
+              f"(limit {STEP_LOSS_RTOL})")
+        check(routing["calls"] == cfg.n_layers and routing["share"] <= 1.0,
+              f"{cfg.name}: a routing flip beyond the tie rule ({routing})")
+        check(routing["aux_rel"] <= STEP_LOSS_RTOL,
+              f"{cfg.name}: aux {aux['card']} vs {aux['cpu']}")
     (lc, nc, gc, pc), (lh, nh, gh, ph) = out["card"], out["cpu"]
     loss_rel = abs(lc - lh) / abs(lh)
     gnorm_rel = abs(nc - nh) / abs(nh)
@@ -3177,10 +3274,11 @@ def train_cpu_compare(cuda, base=QWEN2, phase: int = 25, **cut) -> dict:
     check(grad_gap <= STEP_GRAD_TOL, f"gradient gap {grad_gap}")
     check(worst[0] <= 1.0, f"updated parameter gap {worst[2]} at {worst[1]}, "
           f"{worst[0]} of its limit")
-    return {"loss_rel": loss_rel, "grad_norm_rel": gnorm_rel,
-            "grad_gap": grad_gap, "param_gap": param_gap,
-            "compared_share": compared / total,
-            "param_limit_share": worst[0]}
+    return dict({"loss_rel": loss_rel, "grad_norm_rel": gnorm_rel,
+                 "grad_gap": grad_gap, "param_gap": param_gap,
+                 "compared_share": compared / total,
+                 "param_limit_share": worst[0]},
+                **({"routing": routing} if routing else {}))
 
 
 # --------------------------------------------------------- phases 26-30
@@ -3511,18 +3609,259 @@ def vlm_train_path(cuda) -> dict:
           f"tokens_per_s {stats['tokens_per_s']:.1f} (text tokens)")
     check(losses[-1] < losses[0], f"loss at step {TRAIN_STEPS - 1} "
           f"{losses[-1]} is not below step 0's {losses[0]}")
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    parts = flash_ops.dkdv_parts(TRAIN_BATCH, cfg.n_kv_heads,
-                                 cfg.img_tokens + TRAIN_SEQ,
-                                 cfg.n_heads // cfg.n_kv_heads, sms)
-    want_k = {n: per_step[1] * int(n != "flash_bwd_kv_sum" or parts > 1)
-              for n in FLASH_BWD_WG}
-    want_k.update({n: per_step[3] for n in RMS_BWD_REGS})
-    profile_train_step(cfg, model, opt, cuda, "vlm train step", want_k)
+    profile_train_step(cfg, model, opt, cuda, "vlm train step",
+                       bwd_kernel_counts(cfg, [(per_step[1], cfg.img_tokens
+                                                + TRAIN_SEQ)],
+                                         per_step[1::2]))
     del model, opt
     torch.cuda.empty_cache()
     return dict(stats, idle=PROFILES.get("vlm train step"),
                 positions_per_step=positions, flash_bwd_routes=routes)
+
+
+# --------------------------------------------------------- phases 34-38
+#: whisper-large-v3's parameters (32 + 32 layers, untied head)
+WHISPER_PARAMS = 1_603_176_960
+#: whisper's decoder tokens a train row: its published
+#: max_target_positions (openai/whisper-large-v3, config.json); the
+#: encoder takes the config's 1504 stub frames a row
+WHISPER_TRAIN_SEQ = 448
+#: the reckoned peak (GB) that granite's training depth stays under, below
+#: the card's 80 GB (paligemma-3b's run peaked at 75.3 GB)
+GRANITE_BUDGET_GB = 76.0
+#: bytes a parameter live at the end of a train step's forward: the
+#: float32 master and two AdamW moments, and the bf16 compute copy (the
+#: gradients come as the backward frees the activations)
+FWD_BYTES_PER_PARAM = 14
+#: bytes a parameter live in the AdamW update: the master, its gradient,
+#: the two moments and the update's two float32 temporaries
+UPDATE_BYTES_PER_PARAM = 24
+#: phase 37's cut of whisper-large-v3: 2 encoder and 2 decoder layers
+WHISPER_CPU_CUT = dict(n_layers=2, n_encoder_layers=2)
+
+
+def granite_reckoning(n_layers: int) -> dict:
+    """The reckoned peak of one granite-moe-3b-a800m train step at
+    ``n_layers`` layers and full width (TRAIN_BATCH x TRAIN_SEQ tokens,
+    bf16 compute), in bytes: the larger of the update's
+    UPDATE_BYTES_PER_PARAM a parameter and the forward's end, where
+    FWD_BYTES_PER_PARAM a parameter live beside, per layer, what
+    autograd keeps of the forward (``moe_einsum``'s top_k float32
+    one-hot slot tensors ``[G,S,E,C]`` that ``sel * topv`` saves, the
+    bf16 dispatch and combine, ``xe`` and ``ye`` ``[E,G,C,D]``, the
+    experts' joined in/gate product and their activation, the router's
+    float32 input, and the attention block's bf16 tensors), the loss
+    (bf16 logits ``[B,S,Vp]`` and three float32 tensors of that shape:
+    the logits read in float32, their exponentials, the gradient) and
+    the tied head's first gradient (float32 and bf16 ``[Vp,D]``)."""
+    cfg = GRANITE.scaled(n_layers=n_layers)
+    params = sum(p.numel() for p in model_tf.DenseLM(
+        cfg, device="meta").parameters())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    groups = max(1, tokens // model_moe.MOE_GROUP)
+    per_group = tokens // groups
+    cap = max(cfg.top_k, int(np.ceil(per_group * cfg.top_k * 1.25
+                                     / cfg.n_experts)))
+    slots = groups * per_group * cfg.n_experts * cap
+    expert_rows = cfg.n_experts * groups * cap
+    qkv = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd
+    layer = {"one_hot_slots": cfg.top_k * slots * 4,
+             "dispatch_combine": 2 * slots * 2,
+             "xe_ye": 2 * expert_rows * cfg.d_model * 2,
+             "experts_hidden": 4 * expert_rows * cfg.d_ff_expert * 2,
+             "router_input": tokens * cfg.d_model * 4,
+             "attention": tokens * (4 * cfg.d_model + 2 * qkv
+                                    + 2 * cfg.n_heads * cfg.hd) * 2}
+    loss = tokens * cfg.vocab_padded * (2 + 3 * 4) \
+        + cfg.vocab_padded * cfg.d_model * (4 + 2)
+    fwd = FWD_BYTES_PER_PARAM * params + n_layers * sum(layer.values()) \
+        + loss
+    update = UPDATE_BYTES_PER_PARAM * params
+    return {"n_layers": n_layers, "params": params,
+            "bytes": max(fwd, update), "update_bytes": update,
+            "state_bytes": FWD_BYTES_PER_PARAM * params,
+            "layer_bytes": layer, "loss_bytes": loss, "capacity": cap,
+            "groups": groups}
+
+
+def granite_depth() -> dict:
+    """The deepest granite training depth whose reckoned peak
+    (:func:`granite_reckoning`) stays under GRANITE_BUDGET_GB, printed
+    beside the full depth's."""
+    best = None
+    for n in range(1, GRANITE.n_layers + 1):
+        r = granite_reckoning(n)
+        if r["bytes"] <= GRANITE_BUDGET_GB * 1e9:
+            best = r
+    full = granite_reckoning(GRANITE.n_layers)
+    check(best is not None, "no granite depth fits the budget")
+    for r in (full, best):
+        print(f"  reckoned peak at {r['n_layers']} layers: "
+              f"{r['bytes'] / 1e9:.2f} GB: at the forward's end "
+              f"{r['params']} parameters x {FWD_BYTES_PER_PARAM} B "
+              f"{r['state_bytes'] / 1e9:.2f} GB + {r['n_layers']} x "
+              f"{sum(r['layer_bytes'].values()) / 1e9:.3f} GB of saved "
+              f"activations + the loss and the head's gradient "
+              f"{r['loss_bytes'] / 1e9:.2f} GB; in the update "
+              f"{UPDATE_BYTES_PER_PARAM} B a parameter, "
+              f"{r['update_bytes'] / 1e9:.2f} GB")
+    print("  per layer: " + ", ".join(
+        f"{k} {v / 1e9:.3f} GB" for k, v in best["layer_bytes"].items())
+          + f" ({best['groups']} groups, capacity {best['capacity']})")
+    print(f"  the deepest depth under {GRANITE_BUDGET_GB} GB: "
+          f"{best['n_layers']} of {GRANITE.n_layers} layers")
+    return best
+
+
+def moe_train_path(cuda) -> tuple:
+    """Phase 34: ``train_loop`` on granite-moe-3b-a800m at full width and
+    the depth :func:`granite_depth` reckons, bf16 compute, TRAIN_STEPS
+    steps of TRAIN_BATCH x TRAIN_SEQ tokens, ``comm_policy="app_aware"``;
+    per step L B2 and L B2-backward calls (every one on the tensor-core
+    route) and 2L + 1 B4 and B4-backward calls asserted; the measured
+    peak beside the reckoned; one more step profiled; every loss finite
+    and step 7's below step 0's.  Returns (stats, the first step's
+    backward inputs)."""
+    print(f"phase 34: train {GRANITE.name} at full width (d_model "
+          f"{GRANITE.d_model}, {GRANITE.n_heads} heads over "
+          f"{GRANITE.n_kv_heads} of {GRANITE.hd}, {GRANITE.n_experts} "
+          f"experts top-{GRANITE.top_k} of d_ff {GRANITE.d_ff_expert}, vocab "
+          f"{GRANITE.vocab}), bf16 compute, {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens, {TRAIN_STEPS} AdamW steps, lr {TRAIN_LR}, comm_policy "
+          f"app_aware")
+    reckon = granite_depth()
+    cfg = GRANITE.scaled(n_layers=reckon["n_layers"])
+    n = cfg.n_layers
+    per_step = (n, n, 2 * n + 1, 2 * n + 1)
+    with backward_inputs() as seen, flash_bwd_routes() as routes:
+        model, opt, stats, history = train_run(cfg, cuda, TRAINED, per_step,
+                                               comm_policy="app_aware")
+    losses = stats["losses"]
+    check(stats["n_params"] == reckon["params"], f"{stats['n_params']} "
+          f"parameters, reckoned {reckon['params']}")
+    check(routes == {"wgmma": TRAIN_STEPS * n}, f"B2's backward routes "
+          f"{routes}")
+    print(f"  every B2 backward call ({routes['wgmma']}) on the tensor-core "
+          f"route; peak memory {stats['peak_memory_gb']:.3f} GB measured, "
+          f"{reckon['bytes'] / 1e9:.3f} GB reckoned "
+          f"({stats['peak_memory_gb'] / (reckon['bytes'] / 1e9):.3f} of it)")
+    aux = [h["aux"] for h in history]
+    print(f"  aux (the {n} layers' load-balancing losses, summed) per step "
+          f"{[round(a, 4) for a in aux]}, {cfg.router_aux_coef} x it in the "
+          f"loss")
+    check(all(np.isfinite(aux)) and min(aux) > 0, f"aux {aux}")
+    check(losses[7] < losses[0], f"loss at step 7 {losses[7]} is not below "
+          f"step 0's {losses[0]}")
+    profile_train_step(cfg, model, opt, cuda, "moe train step",
+                       bwd_kernel_counts(cfg, [(n, TRAIN_SEQ)],
+                                         per_step[1::2]))
+    del model, opt
+    torch.cuda.empty_cache()
+    return dict(stats, idle=PROFILES.get("moe train step"),
+                n_layers=n, reckoned_peak_gb=reckon["bytes"] / 1e9,
+                flash_bwd_routes=routes, aux=aux), seen
+
+
+def encdec_train_path(cuda) -> tuple:
+    """Phase 36: ``train_loop`` on whisper-large-v3 at full width and
+    depth, bf16 compute, TRAIN_STEPS steps of TRAIN_BATCH x (1504 stub
+    frames + WHISPER_TRAIN_SEQ tokens); per step 96 B2 and 96
+    B2-backward calls (32 encoder non-causal, 32 decoder causal, 32
+    cross non-causal; every backward on the tensor-core route) and 162
+    B4 and 162 B4-backward calls asserted; one more step profiled; every
+    loss finite and step 7's below step 0's.  Returns (stats, the first
+    step's backward inputs, each attention told apart)."""
+    cfg = WHISPER
+    print(f"phase 36: train {cfg.name} ({cfg.n_encoder_layers} + "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads of {cfg.hd}, vocab {cfg.vocab}), bf16 compute, "
+          f"{TRAIN_BATCH} x {step_positions(cfg, WHISPER_TRAIN_SEQ)}, "
+          f"{TRAIN_STEPS} AdamW steps, lr {TRAIN_LR}")
+    attn = cfg.n_encoder_layers + 2 * cfg.n_layers
+    norms = 2 * cfg.n_encoder_layers + 1 + 3 * cfg.n_layers + 1
+    per_step = (attn, attn, norms, norms)
+    with backward_inputs(distinct=True) as seen, \
+            flash_bwd_routes() as routes:
+        model, opt, stats, _ = train_run(cfg, cuda, TRAINED, per_step,
+                                         seq=WHISPER_TRAIN_SEQ)
+    losses = stats["losses"]
+    check(stats["n_params"] == WHISPER_PARAMS, f"{stats['n_params']} "
+          f"parameters")
+    check(routes == {"wgmma": TRAIN_STEPS * attn}, f"B2's backward routes "
+          f"{routes}")
+    positions = TRAIN_BATCH * (cfg.encoder_frames + WHISPER_TRAIN_SEQ)
+    print(f"  every B2 backward call ({routes['wgmma']}) on the tensor-core "
+          f"route; {positions} positions a step (frames and tokens), "
+          f"{positions / stats['train_step_s']:.1f} positions/s beside "
+          f"tokens_per_s {stats['tokens_per_s']:.1f} (decoder tokens)")
+    check(losses[7] < losses[0], f"loss at step 7 {losses[7]} is not below "
+          f"step 0's {losses[0]}")
+    from repro_torch.launch.train import make_batch_np
+    gen = SyntheticLM(vocab=cfg.vocab, seq_len=WHISPER_TRAIN_SEQ)
+    t0 = time.perf_counter()
+    make_batch_np(cfg, gen, step=0, batch=TRAIN_BATCH, seed=SEED)
+    draw_s = time.perf_counter() - t0
+    print(f"  the launcher's host draw of one step's batch (the stub frames "
+          f"[{TRAIN_BATCH},{cfg.encoder_frames},{cfg.d_model}] in NumPy, "
+          f"inside step_s): {draw_s:.6f} s")
+    shapes = [(cfg.n_encoder_layers, cfg.encoder_frames),
+              (cfg.n_layers, cfg.encoder_frames),
+              (cfg.n_layers, WHISPER_TRAIN_SEQ)]
+    profile_train_step(cfg, model, opt, cuda, "encdec train step",
+                       bwd_kernel_counts(cfg, shapes, per_step[1::2]),
+                       seq=WHISPER_TRAIN_SEQ)
+    del model, opt
+    torch.cuda.empty_cache()
+    return dict(stats, idle=PROFILES.get("encdec train step"),
+                positions_per_step=positions, flash_bwd_routes=routes,
+                batch_draw_s=draw_s), seen
+
+
+def new_shape_backward_checks(granite: dict, whisper: dict) -> dict:
+    """Phase 38: B2's backward at granite's causal q ``[8,24,512,64]``
+    over k, v ``[8,8,512,64]`` (G = 3) and at whisper's three shapes
+    (the encoder's non-causal 1504 x 1504, whose last kv tile is ragged;
+    the cross-attention's non-causal 448 queries over 1504 keys; the
+    decoder's causal 448 x 448), and B4's at ``[12032,1280]`` and
+    ``[3584,1280]`` (its register route, 5 vectors a lane), each on the
+    inputs of the first step of phases 34 and 36, under phase 23's
+    rules, the same bits in two runs, timed beside the plain version
+    and the library's autograd backward, with its bound."""
+    t0 = time.perf_counter()
+    print("phase 38: the backward kernels at the MoE and enc-dec training "
+          "shapes, on the inputs of phases 34 and 36's first steps")
+    b, d = TRAIN_BATCH, WHISPER.d_model
+    n_frames, seq = WHISPER.encoder_frames, WHISPER_TRAIN_SEQ
+    enc = (b, WHISPER.n_heads, n_frames, WHISPER.hd)
+    dec = (b, WHISPER.n_heads, seq, WHISPER.hd)
+    want_w = {("flash", enc, enc, False), ("flash", dec, enc, False),
+              ("flash", dec, dec, True),
+              ("rms", (b, n_frames, d), (d,), True),
+              ("rms", (b, seq, d), (d,), True)}
+    check(set(whisper) == want_w, f"{WHISPER.name}'s backward calls seen "
+          f"{sorted(whisper)}")
+    gq = (b, GRANITE.n_heads, TRAIN_SEQ, GRANITE.hd)
+    check(set(granite) == {("flash", gq), ("rms", (b, TRAIN_SEQ,
+                                                   GRANITE.d_model))},
+          f"{GRANITE.name}'s backward calls seen {sorted(granite)}")
+    flash = []
+    for model, label, (args, kw) in (
+            (GRANITE.name, "self", granite["flash", gq]),
+            (WHISPER.name, "encoder", whisper["flash", enc, enc, False]),
+            (WHISPER.name, "cross", whisper["flash", dec, enc, False]),
+            (WHISPER.name, "decoder self", whisper["flash", dec, dec, True])):
+        print(f"  {model} {label}:")
+        row = flash_bwd_row(args, kw.get("lse"), full=False,
+                            causal=kw.get("causal", True))
+        flash.append(dict(row, model=model, attention=label))
+    rms = []
+    for key in (("rms", (b, n_frames, d), (d,), True),
+                ("rms", (b, seq, d), (d,), True)):
+        ra, rkw = whisper[key]
+        rms.append(dict(rms_bwd_row(ra + tuple(rkw.values())),
+                        model=WHISPER.name))
+    print(f"phase 38: {time.perf_counter() - t0:.1f} s wall")
+    return {"flash": flash, "rms": rms}
 
 
 def main() -> int:
@@ -3768,9 +4107,9 @@ def main() -> int:
     t0 = time.perf_counter()
     print(f"phase 15: card vs CPU, {GRANITE.name} and {QWEN2_MOE.name} "
           f"prefill of {CPU_BATCH} x {CPU_PROMPT} tokens")
-    moe_cpu = {GRANITE.name: moe_cpu_compare(GRANITE, cuda, card=model)}
     del model
     torch.cuda.empty_cache()
+    moe_cpu = {GRANITE.name: moe_cpu_compare(GRANITE, cuda)}
     moe_cpu[QWEN2_MOE.name] = moe_cpu_compare(QWEN2_MOE, cuda)
     print(f"phase 15: {time.perf_counter() - t0:.1f} s wall")
 
@@ -3938,18 +4277,45 @@ def main() -> int:
     # phase 33: card vs CPU, one float32 paligemma-3b step at 2 layers
     trains[PALIGEMMA.name]["card_vs_cpu"] = train_cpu_compare(
         cuda, PALIGEMMA, 33)
+
+    # phase 34: the MoE training path at the reckoned depth; launch counts
+    # from here on are its own, its first step's backward inputs kept
+    t0 = time.perf_counter()
+    trains[GRANITE.name], granite_seen = moe_train_path(cuda)
+    print(f"phase 34: {time.perf_counter() - t0:.1f} s wall")
+
+    # phase 35: card vs CPU, one float32 granite step at 2 layers, the
+    # card's routing anchored to the CPU's
+    trains[GRANITE.name]["card_vs_cpu"] = train_cpu_compare(cuda, GRANITE,
+                                                            35)
+
+    # phase 36: the enc-dec training path at full depth; launch counts
+    # from here on are its own, its first step's backward inputs kept
+    t0 = time.perf_counter()
+    trains[WHISPER.name], whisper_seen = encdec_train_path(cuda)
+    print(f"phase 36: {time.perf_counter() - t0:.1f} s wall")
+
+    # phase 37: card vs CPU, one float32 whisper step at 2 + 2 layers
+    trains[WHISPER.name]["card_vs_cpu"] = train_cpu_compare(
+        cuda, WHISPER, 37, **WHISPER_CPU_CUT)
+
+    # phase 38: B2's and B4's backward at the new families' shapes
+    nrows = new_shape_backward_checks(granite_seen, whisper_seen)
+    del granite_seen, whisper_seen
+    torch.cuda.empty_cache()
     rows = {r["name"]: r for r in kernels}
     for name, entries in (("flash_attention_bwd", [zrows["flash"],
-                                                   vrows["flash"]]),
+                                                   vrows["flash"]]
+                           + nrows["flash"]),
                           ("ssd_inner_bwd", [zrows["ssd"]]),
-                          ("rmsnorm_bwd", zrows["rms"] + [vrows["rms"]])):
+                          ("rmsnorm_bwd", zrows["rms"] + [vrows["rms"]]
+                           + nrows["rms"])):
         rows[name].setdefault("by_shape", []).extend(
-            {k: e[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
-                               "bound_ms", "bound_by", "library_ms")
-             if k in e} | ({"prefix_len": e["prefix_len"],
-                            "float32": e["float32"]}
-                           if e.get("prefix_len") else {})
-            for e in entries)
+            {k: e[k] for k in ("model", "attention", "shape", "causal",
+                               "prefix_len", "max_abs_err", "ms", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms",
+                               "float32")
+             if k in e} for e in entries)
         rows[name]["max_abs_err"] = max([rows[name]["max_abs_err"]] +
                                         [e["max_abs_err"] for e in entries])
 

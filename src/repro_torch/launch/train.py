@@ -1,13 +1,12 @@
-"""Training launcher: AdamW steps of the dense, SSM, hybrid and VLM
-families with checkpoint and restart, a straggler watch and Algorithm 1
-over the gradient buckets.
+"""Training launcher: AdamW steps of every family with checkpoint and
+restart, a straggler watch and Algorithm 1 over the gradient buckets.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
         --batch 8 --seq 512 --steps 8                      # on the card
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
         --batch 8 --seq 512 --steps 8                      # on the card
-    PYTHONPATH=src python -m repro_torch.launch.train --arch paligemma-3b \
-        --batch 8 --seq 512 --steps 8                      # on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-large-v3 \
+        --batch 8 --seq 448 --steps 8                      # on the card
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
         --smoke --steps 6 --batch 2 --seq 32 --device cpu \
         --comm-policy app_aware                            # on the CPU
@@ -16,19 +15,22 @@ Counterpart of ``repro/launch/train.py``, with its flags plus
 ``--device`` (default: the CUDA card; without one the launcher raises).
 The weights are random, drawn from ``--seed`` by the port's own
 initialiser; the batches are the reference's ``SyntheticLM`` stream,
-bit for bit, and a VLM batch carries the reference's stub patch
-embeddings, drawn from the seed and the step as it draws them.  The
-port trains the dense family (qwen2-1.5b, stablelm-1.6b, llama3-8b,
-codeqwen1.5-7b), the SSM family (mamba2-130m), the hybrid family
-(zamba2-7b; at full depth its float32 masters, gradients and AdamW
-moments exceed one card) and the VLM family (paligemma-3b: B2 at head
-dim 256 under the prefix-LM mask; 75.3 GB at its peak on an H100 at 8
-x (256 patches + 512 tokens)): every kernel of their forwards, B2, B3
-and B4, has a backward kernel; the MoE and enc-dec families raise
-(``models.registry.trainable``, ROADMAP A.5).  ``--comm-policy`` runs Algorithm 1 over
-the gradient buckets each step, on the cost model's self-fed telemetry,
-as the reference does on one host; the decisions parameterise no reduce
-on one card.
+bit for bit, and an enc-dec or VLM batch carries the reference's stub
+frame or patch embeddings, drawn from the seed and the step as it draws
+them.  Every family trains, and every kernel of their forwards, B2, B3
+and B4, has a backward kernel: the dense family (qwen2-1.5b,
+stablelm-1.6b, llama3-8b, codeqwen1.5-7b), the SSM family
+(mamba2-130m), the MoE family (granite-moe-3b-a800m, qwen2-moe-a2.7b;
+the loss adds ``router_aux_coef`` times the layers' summed
+load-balancing loss), the hybrid family (zamba2-7b), the enc-dec family
+(whisper-large-v3: B2 non-causal over the 1504 frames, causal over the
+tokens and across to the frames) and the VLM family (paligemma-3b: B2
+at head dim 256 under the prefix-LM mask).  On one H100 80 GB, the
+float32 masters, gradients and AdamW moments of zamba2-7b and of
+granite-moe-3b-a800m at full depth, with a step's activations, exceed
+the card.  ``--comm-policy`` runs Algorithm 1 over the gradient buckets
+each step, on the cost model's self-fed telemetry, as the reference
+does on one host; the decisions parameterise no reduce on one card.
 """
 
 from __future__ import annotations
@@ -84,6 +86,10 @@ def decide_grad_schedule(engine, cost_model, bucket_bytes: list):
 
 
 def make_batch_np(cfg, gen, *, step: int, batch: int, seed: int):
+    """Step ``step``'s batch of ``SyntheticLM`` tokens and labels, plus
+    the enc-dec family's stub frames ``[B, encoder_frames, D]`` or the
+    VLM's stub patches ``[B, img_tokens, D]``, N(0, 0.02^2) from the seed
+    and the step, as the reference's launcher draws them."""
     b = gen.batch(seed=seed, step=step, shard=0, n_shards=1,
                   batch_size=batch)
     rng = np.random.default_rng([seed, step, 99])
@@ -116,10 +122,10 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, seed: int,
                history: list | None = None):
     """Trains ``cfg`` from ``seed`` for ``steps`` steps of ``batch`` x
     ``seq`` tokens on ``device`` -> (model, opt_state, losses).  Given a
-    list, ``history`` gets one dict a step: ``loss``, ``lr``,
-    ``grad_norm``, ``step_s`` (host wall, synchronised) and the bucket
-    ``modes`` Algorithm 1 chose."""
-    model_registry.trainable(cfg)
+    list, ``history`` gets one dict a step: ``loss``, ``aux`` (the MoE
+    family's summed load-balancing loss, else 0), ``lr``, ``grad_norm``,
+    ``step_s`` (host wall, synchronised, the batch's draw included) and
+    the bucket ``modes`` Algorithm 1 chose."""
     dev = resolve_device(device)
     gen = SyntheticLM(vocab=cfg.vocab, seq_len=seq)
     tcfg = TrainConfig(optimizer=AdamWConfig(lr=lr, warmup_steps=max(
@@ -162,6 +168,7 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int, seed: int,
         losses.append(loss)
         if history is not None:
             history.append({"step": step, "loss": loss,
+                            "aux": float(metrics["aux"]),
                             "lr": float(metrics["lr"]), "grad_norm": gnorm,
                             "step_s": dt, "modes": [m.name for m in modes]})
         if step % log_every == 0 or step == steps - 1:

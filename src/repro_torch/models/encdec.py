@@ -24,6 +24,11 @@ Every norm runs on B4.  The cross-attention's compute weights keep the q
 projection apart from the joined k/v projections, so the prefill
 projects the decoder tokens and the encoder frames only for what each
 is used for.  Prefill and decode write the self cache in place.
+
+Training (:func:`encdec_train_apply`) runs the same forward over a
+compute dict cast anew from the masters, with gradients: B2's and B4's
+autograd Functions run their backward kernels.  The serving functions
+read the no-grad cache (``weights()``).
 """
 
 from __future__ import annotations
@@ -124,12 +129,9 @@ class EncDecLM(CastCache):
 
 
 # ------------------------------------------------------------------ encoder
-@torch.no_grad()
-def encode(model: EncDecLM, frames: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
-    """frames ``[B, F, D]`` (the stub conv output) -> encoder states
-    ``[B, F, D]`` in ``cfg.dtype``."""
-    w = model.weights()
+def _encode(w: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The encoder over the compute dict ``w``, under the caller's grad
+    mode."""
     n_frames = frames.shape[1]
     x = frames.to(cfg.dtype) + w["pos_enc"][:n_frames]
     for blk in w["enc"]:
@@ -140,6 +142,14 @@ def encode(model: EncDecLM, frames: torch.Tensor,
         h = rmsnorm(x, blk["ln2"], cfg.norm_eps)
         x = x + mlp(blk, h, cfg)
     return rmsnorm(x, w["enc_ln"], cfg.norm_eps)
+
+
+@torch.no_grad()
+def encode(model: EncDecLM, frames: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """frames ``[B, F, D]`` (the stub conv output) -> encoder states
+    ``[B, F, D]`` in ``cfg.dtype``."""
+    return _encode(model.weights(), frames, cfg)
 
 
 # ------------------------------------------------------------------ decoder
@@ -178,23 +188,38 @@ def _dec_block(w: dict, x: torch.Tensor, cfg: ModelConfig,
     return x + mlp(w, h, cfg), (k, v)
 
 
-def _logits(model: EncDecLM, x: torch.Tensor) -> torch.Tensor:
-    w = model.weights()
-    return rmsnorm(x, w["ln_f"], model.cfg.norm_eps) @ w["head"]
+def _logits(w: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return rmsnorm(x, w["ln_f"], cfg.norm_eps) @ w["head"]
 
 
-@torch.no_grad()
-def encdec_apply(model: EncDecLM, frames: torch.Tensor, tokens: torch.Tensor,
-                 cfg: ModelConfig):
-    """Teacher-forced decoder logits ``[B,S,Vp]`` and a zero aux loss."""
-    enc = encode(model, frames, cfg)
-    w = model.weights()
+def _apply(w: dict, frames: torch.Tensor, tokens: torch.Tensor,
+           cfg: ModelConfig):
+    """The encoder, every decoder block's cross K/V and the decoder over
+    the compute dict ``w``, under the caller's grad mode."""
+    enc = _encode(w, frames, cfg)
     x = w["embed"][tokens.long()]
     positions = _positions(tokens)
     for blk in w["dec"]:
         x, _ = _dec_block(blk, x, cfg, positions,
                           *_cross_kv(blk["cross"], enc, cfg))
-    return _logits(model, x), torch.zeros((), device=x.device)
+    return _logits(w, x, cfg), torch.zeros((), device=x.device)
+
+
+@torch.no_grad()
+def encdec_apply(model: EncDecLM, frames: torch.Tensor, tokens: torch.Tensor,
+                 cfg: ModelConfig):
+    """Teacher-forced decoder logits ``[B,S,Vp]`` and a zero aux loss,
+    without gradients, over the cached compute copies."""
+    return _apply(model.weights(), frames, tokens, cfg)
+
+
+def encdec_train_apply(model: EncDecLM, frames: torch.Tensor,
+                       tokens: torch.Tensor, cfg: ModelConfig):
+    """As :func:`encdec_apply` under the caller's grad mode, over a
+    compute dict cast anew from the float32 masters (``_cast``), so that
+    every master, ``pos_enc``, the encoder and ``enc_ln`` included, gets
+    its gradient."""
+    return _apply(model._cast(), frames, tokens, cfg)
 
 
 # ------------------------------------------------------------------ serving
@@ -249,7 +274,7 @@ def encdec_prefill(model: EncDecLM, tokens: torch.Tensor, cfg: ModelConfig,
     for i, blk in enumerate(w["dec"]):
         x, (k, v) = _dec_block(blk, x, cfg, positions, xk[i], xv[i])
         attn.cache_update(cache.k[i], cache.v[i], k, v, 0)
-    logits = _logits(model, x[:, -1:, :].contiguous())
+    logits = _logits(w, x[:, -1:, :].contiguous(), cfg)
     length = torch.full((bsz,), seq, dtype=torch.int32, device=x.device)
     return logits, state._replace(cache=cache._replace(length=length),
                                   pos=seq)
@@ -277,10 +302,10 @@ def encdec_decode_step(model: EncDecLM, token: torch.Tensor, cfg: ModelConfig,
         x = x + attn.attn_output(blk["cross"], o2, cfg)
         h = rmsnorm(x, blk["ln2"], cfg.norm_eps)
         x = x + mlp(blk, h, cfg)
-    return _logits(model, x), state._replace(
+    return _logits(w, x, cfg), state._replace(
         cache=cache._replace(length=cache.length + 1), pos=pos + 1)
 
 
 __all__ = ["DecBlock", "EncDecLM", "EncDecState", "encdec_apply",
            "encdec_decode_step", "encdec_make_state", "encdec_prefill",
-           "encode", "precompute_cross_kv"]
+           "encdec_train_apply", "encode", "precompute_cross_kv"]

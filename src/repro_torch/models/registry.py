@@ -4,7 +4,6 @@ Counterpart of ``repro/models/registry.py``::
 
     init_params(cfg, seed, device)                 -> model (nn.Module)
     train_forward(model, batch, cfg)               -> (logits, aux_loss)
-    trainable(cfg)                                 -> None, or ValueError
     make_decode_state(cfg, batch, max_len, device) -> state
     prefill(model, batch, cfg, state)              -> (logits, state)
     decode_step(model, token, cfg, state)          -> (logits, state)
@@ -66,44 +65,23 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     return _ssm.SSMLM(cfg).init_(gen).to(dev)
 
 
-def trainable(cfg: ModelConfig) -> None:
-    """Raises ``ValueError`` unless ``cfg``'s family trains on the card:
-    the dense family (B2's and B4's backward), the SSM family (B3's and
-    B4's), the hybrid family (B2's, B3's and B4's) and the VLM family
-    (B2's at head dim 256 under the prefix-LM mask, and B4's).  B2's
-    backward takes every head dim its forward takes, which refuses a
-    larger one.  The MoE and enc-dec families wait for their training on
-    the card (ROADMAP A.5)."""
-    if cfg.family not in (Family.DENSE, Family.SSM, Family.HYBRID,
-                          Family.VLM):
-        raise ValueError(f"{cfg.name}: the port trains the dense, SSM, "
-                         f"hybrid and VLM families; the {cfg.family.value} "
-                         f"family waits for its training path (ROADMAP "
-                         f"A.5)")
-
-
 def train_forward(model, batch: dict, cfg: ModelConfig):
     """-> (logits [B,S,Vp] over the *token* part, aux_loss), under the
-    caller's grad mode.  The dense, SSM, hybrid and VLM families are
-    differentiable: their compute dicts are cast anew from the masters
-    with gradients on every call.  A model of another family
-    (:func:`trainable`) whose parameters require a gradient raises
-    ``ValueError``; with frozen parameters every family runs its
-    forward, without gradients."""
+    caller's grad mode.  Every family is differentiable: its compute
+    dicts are cast anew from the masters on every call, with gradients
+    where the parameters require them (the MoE family's aux loss is the
+    sum of its layers' load-balancing losses); with frozen parameters
+    the same forward runs without gradients."""
     mod, tokens = _module(cfg), batch["tokens"]
-    if torch.is_grad_enabled() and any(p.requires_grad
-                                       for p in model.parameters()):
-        trainable(cfg)
-    if mod is _tf and cfg.family == Family.DENSE:
-        return _tf.lm_train_apply(model, tokens, cfg)
     if mod is _tf:
-        return _tf.lm_apply(model, tokens, cfg)
+        return _tf.lm_train_apply(model, tokens, cfg)
     if mod is _vlm:
         return _vlm.vlm_train_apply(model, batch["patches"], tokens, cfg)
     if mod is _hybrid:
         return _hybrid.hybrid_train_apply(model, tokens, cfg)
     if mod is _encdec:
-        return _encdec.encdec_apply(model, batch["frames"], tokens, cfg)
+        return _encdec.encdec_train_apply(model, batch["frames"], tokens,
+                                          cfg)
     return _ssm.ssm_lm_train_apply(model, tokens, cfg)
 
 

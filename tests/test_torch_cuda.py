@@ -725,6 +725,9 @@ BWD_SHAPES = [
     ((1, 8, 200, 256), (1, 1, 200, 256), True, 100),  # ragged, prefix, G = 8
     ((1, 4, 150, 192), (1, 2, 150, 192), True, 0),    # head dim 192: 256 build
     ((1, 2, 65, 256), (1, 1, 130, 256), False, 0),    # Sq != Skv at 256
+    ((1, 20, 1504, 64), (1, 20, 1504, 64), False, 0),  # whisper encoder
+    ((1, 20, 448, 64), (1, 20, 1504, 64), False, 0),   # whisper cross
+    ((2, 24, 512, 64), (2, 8, 512, 64), True, 0),      # granite, G = 3
 ]
 
 
@@ -812,6 +815,7 @@ def test_bf16_gradient_through_the_function_reads_the_forwards_lse(cuda):
 
 @pytest.mark.parametrize("shape,xdtype,gdtype", [
     ((4096, 1536), torch.bfloat16, torch.bfloat16),  # qwen2-1.5b train step
+    ((12032, 1280), torch.bfloat16, torch.bfloat16),  # whisper's encoder
     ((3, 5, 100), torch.bfloat16, torch.float32),
     ((7, 8191), torch.float32, torch.bfloat16),
     ((1000, 7168), torch.float32, torch.float32),    # D past 48 KB of floats

@@ -37,6 +37,7 @@ from repro.analysis.roofline import V5E
 from repro.configs import get_config as ref_config
 from repro.configs import get_smoke_config as ref_smoke
 from repro.launch import train as ref_launch
+from repro.models import moe as ref_moe
 from repro.models import registry as ref_registry
 from repro.train import grad_comm as ref_grad_comm
 from repro.train import optimizer as ref_opt
@@ -49,13 +50,17 @@ from repro_torch.kernels.flash_attention.ops import MAX_HEAD_DIM
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd_plain, rmsnorm_plain
 from repro_torch.launch import train as launch
 from repro_torch.models import registry
+from repro_torch.models import moe_parity
 from repro_torch.models.convert import (dense_lm_from_reference,
                                         dense_state_dict,
+                                        encdec_from_reference,
+                                        encdec_state_dict,
                                         hybrid_from_reference,
                                         hybrid_state_dict,
                                         ssm_lm_from_reference,
                                         ssm_state_dict)
-from repro_torch.models.transformer import DenseLM
+from repro_torch.models.encdec import encdec_apply
+from repro_torch.models.transformer import DenseLM, lm_apply
 from repro_torch.models.vlm import vlm_apply
 from repro_torch.train import grad_comm
 from repro_torch.train import optimizer as opt
@@ -126,7 +131,11 @@ def _host_params(jc, seed=0):
 CONVERT = {"qwen2-1.5b": (dense_state_dict, dense_lm_from_reference),
            "mamba2-130m": (ssm_state_dict, ssm_lm_from_reference),
            "zamba2-7b": (hybrid_state_dict, hybrid_from_reference),
-           "paligemma-3b": (dense_state_dict, dense_lm_from_reference)}
+           "paligemma-3b": (dense_state_dict, dense_lm_from_reference),
+           "granite-moe-3b-a800m": (dense_state_dict,
+                                    dense_lm_from_reference),
+           "qwen2-moe-a2.7b": (dense_state_dict, dense_lm_from_reference),
+           "whisper-large-v3": (encdec_state_dict, encdec_from_reference)}
 
 
 def _state_dict(tree, tc) -> dict:
@@ -152,6 +161,9 @@ def _setup(dtype="float32", seed=0, batch=2, seq=16, arch="qwen2-1.5b"):
     if jc.img_tokens:       # the VLM's stub patch embeddings
         batch_np["patches"] = rng.standard_normal(
             (batch, jc.img_tokens, jc.d_model)).astype(np.float32)
+    if jc.n_encoder_layers:   # the enc-dec family's stub conv output
+        batch_np["frames"] = rng.standard_normal(
+            (batch, jc.encoder_frames, jc.d_model)).astype(np.float32)
     return jc, tc, host, batch_np
 
 
@@ -315,7 +327,9 @@ def _hold_updated(model, grads_ref: dict, before: dict, after_ref: dict):
 
 
 #: the families that train, by the smoke config of one of each
-TRAINED_ARCHS = ["qwen2-1.5b", "mamba2-130m", "zamba2-7b", "paligemma-3b"]
+TRAINED_ARCHS = ["qwen2-1.5b", "mamba2-130m", "zamba2-7b", "paligemma-3b",
+                 "granite-moe-3b-a800m", "qwen2-moe-a2.7b",
+                 "whisper-large-v3"]
 
 
 @pytest.mark.parametrize("arch", TRAINED_ARCHS)
@@ -328,7 +342,12 @@ def test_train_step_matches_reference_value_and_grad(arch):
     through ``jax.grad`` of its plain SSD; paligemma-3b's through B2
     under the prefix-LM mask over its image positions, the head applied
     to the text positions only (``vlm_train_apply``), where the
-    reference keeps the text positions of logits at every position."""
+    reference keeps the text positions of logits at every position.
+    The MoE configs' loss adds ``router_aux_coef`` times the layers'
+    load-balancing loss, and their gradients run through the dispatch
+    and combine einsums to the router (qwen2-moe-a2.7b's shared experts
+    too); whisper-large-v3's through the encoder, every decoder block's
+    cross K/V and ``pos_enc`` (``encdec_train_apply``)."""
     jc, tc, host, batch_np = _setup(arch=arch)
     tcfg_ref = ref_ts.TrainConfig(optimizer=ref_opt.AdamWConfig(**OPT_CFG))
     tcfg = ts.TrainConfig(optimizer=opt.AdamWConfig(**OPT_CFG))
@@ -365,6 +384,82 @@ def test_train_step_matches_reference_value_and_grad(arch):
                                float(m_ref["grad_norm"]), rtol=1e-4)
     share = _hold_updated(model, grads_ref, before, after_ref)
     assert share > 0.5, share  # most embedding rows see only the head
+
+
+def _ref_choices(jc, host, batch_np):
+    """The reference's forward run eagerly, each router call recorded
+    with ``jax.lax.top_k``'s choices: -> (aux, RouterTrace)."""
+    trace, real = moe_parity.RouterTrace(), ref_moe.router_probs
+
+    def hook(p, x, cfg):
+        probs = real(p, x, cfg)
+        trace.add(x, p["router"], probs, jax.lax.top_k(probs, cfg.top_k)[1])
+        return probs
+
+    ref_moe.router_probs = hook
+    try:
+        with jax.disable_jit():
+            _, aux = ref_registry.train_forward(
+                jax.tree_util.tree_map(jnp.asarray, host),
+                {k: jnp.asarray(v) for k, v in batch_np.items()}, jc)
+    finally:
+        ref_moe.router_probs = real
+    return float(aux), trace
+
+
+def _ref_aux_router_grads(jc, host, batch_np) -> np.ndarray:
+    """``jax.grad`` of the reference's summed aux loss alone, for the
+    stacked router ``[L, D, E]``."""
+    params = jax.tree_util.tree_map(jnp.asarray, host)
+    batch = {k: jnp.asarray(v) for k, v in batch_np.items()}
+
+    def aux_of(router):
+        p = dict(params, blocks=dict(params["blocks"], moe=dict(
+            params["blocks"]["moe"], router=router)))
+        return ref_registry.train_forward(p, batch, jc)[1]
+
+    return np.asarray(jax.jit(jax.grad(aux_of))(
+        params["blocks"]["moe"]["router"]))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen2-moe-a2.7b"])
+def test_moe_aux_routing_and_router_gradient_match_reference(arch):
+    """The MoE step's parts that the loss tolerance could hide
+    (``router_aux_coef`` is 0.01): ``metrics["aux"]``, the sum over the
+    layers of each layer's load-balancing loss, at rtol 1e-5 against
+    the reference's (``_scan_blocks``' sum); the port's own expert
+    choices, call for call, against ``jax.lax.top_k``'s (any flip held
+    to ``moe_parity``'s tie rule); each layer's router gradient of the
+    whole step within ``GRAD_TOL``; and the gradient of the aux loss
+    alone, which reaches the router only through ``probs.mean``, within
+    ``GRAD_TOL`` of ``jax.grad`` of the reference's aux."""
+    jc, tc, host, batch_np = _setup(arch=arch)
+    aux_ref, anchor = _ref_choices(jc, host, batch_np)
+    assert len(anchor.calls) == tc.n_layers and aux_ref > 0
+    tcfg_ref = ref_ts.TrainConfig(optimizer=ref_opt.AdamWConfig(**OPT_CFG))
+    _, grads_ref = _ref_grads(jc, host, batch_np, tcfg_ref)
+    grads_ref = _state_dict(grads_ref, tc)
+    model = _port_model(host, tc)
+    with moe_parity.recording(moe_parity.RouterTrace()) as own:
+        _, metrics, grads = ts.value_and_grad(
+            model, _port_batch(batch_np), tc,
+            ts.TrainConfig(optimizer=opt.AdamWConfig(**OPT_CFG)))
+    np.testing.assert_allclose(float(metrics["aux"]), aux_ref, rtol=1e-5)
+    held = moe_parity.flips(own, anchor, tc.n_layers)
+    assert held["calls"] == tc.n_layers and held["share"] <= 1.0, held
+    routers = [f"blocks.{i}.moe.router" for i in range(tc.n_layers)]
+    for name in routers:
+        assert grads[name].dtype == torch.float32
+        assert float(grads[name].abs().max()) > 0, name
+        assert _grad_gap(grads[name], grads_ref[name]) <= GRAD_TOL, name
+
+    want = _ref_aux_router_grads(jc, host, batch_np)
+    _, aux = registry.train_forward(model, _port_batch(batch_np), tc)
+    got = torch.autograd.grad(aux, [dict(model.named_parameters())[n]
+                                    for n in routers])
+    for i, g in enumerate(got):
+        assert float(g.abs().max()) > 0
+        assert _grad_gap(g, want[i]) <= GRAD_TOL, routers[i]
 
 
 def test_reference_ssd_gradient_overflows_where_the_ports_stays_finite():
@@ -531,7 +626,7 @@ def test_train_loop_decides_the_references_bucket_modes(monkeypatch):
     assert [h["modes"] for h in history] == want
 
 
-# --------------------------------------------------------------- refusals
+# --------------------------------------------------------------- families
 def _family_batch(cfg):
     rng = np.random.default_rng(0)
     batch = {"tokens": torch.from_numpy(
@@ -543,39 +638,19 @@ def _family_batch(cfg):
     return batch
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
-                                  "whisper-large-v3"])
-def test_families_without_backward_kernels_refuse_to_train(arch):
-    """A model whose parameters require a gradient, of a family whose
-    training waits (MoE, enc-dec), raises naming ROADMAP A.5; frozen,
-    the same model still runs its forward."""
-    cfg = get_smoke_config(arch)
-    model = registry.init_params(cfg, 0, "cpu")
-    batch = _family_batch(cfg)
-    logits, _ = registry.train_forward(model, batch, cfg)
-    assert not logits.requires_grad
-    for p in model.parameters():
-        p.requires_grad_(True)
-    with pytest.raises(ValueError, match=r"ROADMAP A\.5"):
-        registry.train_forward(model, batch, cfg)
-    with pytest.raises(ValueError, match=r"ROADMAP A\.5"):
-        launch.train_loop(cfg, steps=1, batch=1, seq=8, seed=0,
-                          ckpt_dir=None, ckpt_every=0, lr=1e-3, device="cpu")
-
-
 @pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b",
-                                  "paligemma-3b"])
+                                  "paligemma-3b", "granite-moe-3b-a800m",
+                                  "whisper-large-v3"])
 def test_ssm_and_hybrid_families_train(arch):
-    """The SSM, hybrid and VLM families, whose every kernel (B3, B4 and,
-    in the hybrid's shared block and the VLM, B2) has a backward:
-    frozen, the forward runs without gradients (the VLM's the serving
-    forward's logits at the text positions, the same values); with
+    """The SSM, hybrid, VLM, MoE and enc-dec families, whose every kernel
+    (B3, B4 and, in all but the SSM family, B2) has a backward: frozen,
+    the forward runs without gradients and gives the serving forward's
+    logits (the VLM's at the text positions), the same values; with
     parameters that require a gradient ``train_forward`` gives
     differentiable logits, the same values, and the launcher trains two
-    steps (the VLM's batches with their patches)."""
+    steps (the VLM's batches with their patches, the enc-dec family's
+    with their frames; the MoE family's aux loss in its history)."""
     cfg = get_smoke_config(arch)
-    registry.trainable(cfg)
-    registry.trainable(get_config(arch))
     model = registry.init_params(cfg, 0, "cpu")
     batch = _family_batch(cfg)
     frozen, _ = registry.train_forward(model, batch, cfg)
@@ -584,26 +659,34 @@ def test_ssm_and_hybrid_families_train(arch):
         served, _ = vlm_apply(model, batch["patches"], batch["tokens"], cfg)
         torch.testing.assert_close(frozen, served[:, cfg.img_tokens:],
                                    rtol=0, atol=0)
+    elif "frames" in batch:
+        served, _ = encdec_apply(model, batch["frames"], batch["tokens"],
+                                 cfg)
+        torch.testing.assert_close(frozen, served, rtol=0, atol=0)
+    elif cfg.family.value == "moe":
+        served, _ = lm_apply(model, batch["tokens"], cfg)
+        torch.testing.assert_close(frozen, served, rtol=0, atol=0)
     for p in model.parameters():
         p.requires_grad_(True)
     logits, _ = registry.train_forward(model, batch, cfg)
     assert logits.requires_grad
     torch.testing.assert_close(logits.detach(), frozen, rtol=0, atol=0)
+    history = []
     _, state, losses = launch.train_loop(
         cfg, steps=2, batch=1, seq=8, seed=0, ckpt_dir=None, ckpt_every=0,
-        lr=1e-3, device="cpu")
+        lr=1e-3, device="cpu", history=history)
     assert state.step == 2 and all(np.isfinite(losses))
+    aux = [h["aux"] for h in history]   # the MoE family's load balancing
+    assert all(a > 0 for a in aux) if cfg.n_experts else aux == [0.0, 0.0]
 
 
 def test_paligemma_head_dim_is_named():
-    """paligemma-3b, head dim 256, trains, as a dense model at head dim
-    256 does: B2's backward takes every head dim its forward takes.  A
-    head dim above MAX_HEAD_DIM is refused by the forward's own check,
+    """paligemma-3b's head dim, 256, is the largest B2 takes
+    (``MAX_HEAD_DIM``): its backward takes every head dim its forward
+    takes.  A head dim above it is refused by the forward's own check,
     naming it."""
-    registry.trainable(get_config("paligemma-3b"))
-    registry.trainable(get_config("qwen2-1.5b").scaled(head_dim=256))
+    assert get_config("paligemma-3b").hd == MAX_HEAD_DIM == 256
     cfg = get_smoke_config("qwen2-1.5b").scaled(head_dim=MAX_HEAD_DIM + 8)
-    registry.trainable(cfg)
     model = registry.init_params(cfg, 0, "cpu")
     for p in model.parameters():
         p.requires_grad_(True)
