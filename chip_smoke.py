@@ -338,6 +338,9 @@ from repro_torch.benchmarks.common import (DAINT, MODE_LABEL,  # noqa: E402
                                            bench_topology, group_spread)
 from repro_torch.benchmarks.parity import (compare_traces,  # noqa: E402
                                            mode_counts, trace_protocol)
+from repro_torch.analysis import H100  # noqa: E402
+from repro_torch.ckpt import reshard_checkpoint  # noqa: E402
+from repro_torch.ckpt.checkpoint import to_host  # noqa: E402
 from repro_torch.core.strategies import RoutingMode  # noqa: E402
 from repro_torch.dragonfly import (DragonflySimulator, DragonflyTopology,  # noqa: E402
                                    RoutingPolicy, SimParams, TopologyParams,
@@ -3141,6 +3144,8 @@ def train_path(cuda) -> dict:
     profile_train_step(cfg, model, opt, cuda, "train step",
                        bwd_kernel_counts(cfg, [(per_step[1], TRAIN_SEQ)],
                                          per_step[1::2]))
+    # the trained state, as a checkpoint holds it, for phase 39
+    SNAPSHOTS[cfg.name] = to_host((model.state_dict(), opt))
     del model, opt
     torch.cuda.empty_cache()
     return dict(stats, idle=PROFILES.get("train step"), buckets=len(buckets),
@@ -3817,6 +3822,203 @@ def encdec_train_path(cuda) -> tuple:
                 batch_draw_s=draw_s), seen
 
 
+# --------------------------------------------------------- phases 39-40
+#: the host copies of trained states (``to_host`` of ``(state dict,
+#: AdamWState)``, what a checkpoint writes), by config name
+SNAPSHOTS: dict = {}
+#: phase 40: the reckoned peak, less the attention core's saved bytes,
+#: over the measured peak must lie in this band
+RECKON_PEAK_BAND = (0.85, 1.15)
+
+
+def _bits(t: torch.Tensor) -> bytes:
+    return t.detach().float().cpu().numpy().tobytes()
+
+
+def state_step(cfg, cuda, params: dict, opt) -> dict:
+    """One train step of ``cfg`` from ``params`` (name: tensor on
+    ``cuda``, taken as the model's parameters) and ``opt``, on step
+    TRAIN_STEPS's batch; returns the loss's and the gradient norm's
+    float32 bits."""
+    from repro_torch.launch.train import make_batch_np
+    from repro_torch.train.train_step import TrainConfig, train_step
+
+    model = model_tf.DenseLM(cfg, device="meta")
+    model.load_state_dict(params, assign=True)
+    b = make_batch_np(cfg, SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ),
+                      step=TRAIN_STEPS, batch=TRAIN_BATCH, seed=SEED)
+    b = {k: torch.from_numpy(v).to(cuda) for k, v in b.items()}
+    _, _, metrics = train_step(model, opt, b, cfg=cfg, tcfg=TrainConfig())
+    return {"loss": _bits(metrics["loss"]),
+            "grad_norm": _bits(metrics["grad_norm"]),
+            "loss_value": float(metrics["loss"])}
+
+
+def elastic_restart(cuda) -> dict:
+    """Phase 39: qwen2-1.5b's parameters and AdamW state after phase 24's
+    steps (the host copy a checkpoint writes) restored by
+    ``reshard_checkpoint`` onto a (1, 1) ("data", "model") mesh of a
+    world of one (NCCL on the card); every leaf's local tensor on the
+    device equal to the host array bit for bit; one train step from the
+    restored state and one from the host copy moved to the device as it
+    is give the same loss and gradient-norm bits."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.train.optimizer import AdamWState
+
+    cfg = QWEN2
+    saved = SNAPSHOTS.pop(cfg.name)
+    params, opt = saved
+    n_bytes = sum(a.nbytes for tree in (params, opt.m, opt.v)
+                  for a in tree.values())
+    print(f"phase 39: elastic restart of {cfg.name} after phase 24's "
+          f"{TRAIN_STEPS} steps: {len(params)} parameters and their AdamW "
+          f"moments ({n_bytes / 1e9:.3f} GB of host arrays, step "
+          f"{int(opt.step)}) onto a (1, 1) mesh of a world of one")
+    dist.init_process_group("nccl" if cuda.type == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh_for((1, 1), ("data", "model"),
+                             device_type=cuda.type)
+        t0 = time.perf_counter()
+        placed = reshard_checkpoint(saved, cfg, mesh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        leaves = [(f"params {n}", placed[0][n], params[n]) for n in params]
+        for part in ("m", "v"):
+            leaves += [(f"{part} {n}", getattr(placed[1], part)[n],
+                        getattr(opt, part)[n]) for n in params]
+        leaves.append(("step", placed[1].step, opt.step))
+        bad = [name for name, got, host in leaves
+               if got.to_local().device.type != cuda.type
+               or not torch.equal(got.to_local(),
+                                  torch.from_numpy(host).to(cuda))]
+        print(f"  restored {len(leaves)} leaves in {restore_s:.2f} s; "
+              f"{len(leaves) - len(bad)} equal to the host arrays bit for "
+              f"bit on the device")
+        check(not bad, f"restored leaves differ: {bad[:5]}")
+        got = state_step(
+            cfg, cuda, {n: t.to_local() for n, t in placed[0].items()},
+            AdamWState(step=int(placed[1].step.to_local()),
+                       m={n: t.to_local() for n, t in placed[1].m.items()},
+                       v={n: t.to_local() for n, t in placed[1].v.items()}))
+        del placed
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    def on_card(tree):
+        return {n: torch.from_numpy(a).to(cuda) for n, a in tree.items()}
+
+    want = state_step(cfg, cuda, on_card(params),
+                      AdamWState(step=int(opt.step), m=on_card(opt.m),
+                                 v=on_card(opt.v)))
+    del saved, params, opt
+    torch.cuda.empty_cache()
+    print(f"  one step: loss {got['loss_value']:.6f} restored, "
+          f"{want['loss_value']:.6f} from the host copy; loss bits "
+          f"{'equal' if got['loss'] == want['loss'] else 'DIFFER'}, "
+          f"gradient-norm bits "
+          f"{'equal' if got['grad_norm'] == want['grad_norm'] else 'DIFFER'}")
+    check(got["loss"] == want["loss"] and got["grad_norm"] == want["grad_norm"],
+          "a step from the restored state differs from one from the host "
+          "copy")
+    return {"leaves": len(leaves), "restore_s": restore_s,
+            "host_gb": n_bytes / 1e9, "loss": got["loss_value"]}
+
+
+#: phase 40's cells: (arch, layers or None, kind, sequence, rows)
+RECKON_SCRIPT = """
+import json, sys
+from repro_torch.configs import InputShape, get_config
+from repro_torch.launch.dryrun import lower_cell
+out = []
+for arch, layers, kind, seq, rows in json.loads(sys.argv[1]):
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.scaled(n_layers=layers)
+    rep, costs = lower_cell(cfg, InputShape(kind, seq, rows, kind),
+                            mesh_override=((1, 1), ("data", "model")))
+    out.append(dict(rep, peak_bytes=costs.peak_bytes,
+                    saved_bytes=costs.scope_saved_bytes["attn_core"]))
+print(json.dumps(out))
+"""
+
+
+def dryrun_reckoning(serve_stats: dict, trains: dict) -> list:
+    """Phase 40: the dry run (``repro_torch.launch.dryrun.lower_cell``) at
+    mesh (1, 1), in a subprocess that sees no card, reckons three cells
+    that this run measured: qwen2-1.5b's train step (phase 24),
+    granite-moe-3b-a800m's at phase 34's depth, and qwen2-1.5b's prefill
+    (phase 10), each TRAIN_BATCH x TRAIN_SEQ or SERVE_BATCH x PROMPT_LEN;
+    each cell's bound, ``max(compute, memory_flash, collective)`` on the
+    datasheet H100, at most its measured ``train_step_s`` or
+    ``prefill_s``, and its reckoned peak less the attention core's saved
+    bytes within RECKON_PEAK_BAND of its measured peak."""
+    import os
+
+    granite = trains[GRANITE.name]
+    cells = [(QWEN2.name, None, "train", TRAIN_SEQ, TRAIN_BATCH,
+              trains[QWEN2.name]["train_step_s"],
+              trains[QWEN2.name]["peak_memory_gb"], "phase 24"),
+             (GRANITE.name, granite["n_layers"], "train", TRAIN_SEQ,
+              TRAIN_BATCH, granite["train_step_s"],
+              granite["peak_memory_gb"], "phase 34"),
+             (QWEN2.name, None, "prefill", PROMPT_LEN, SERVE_BATCH,
+              serve_stats[QWEN2.name]["prefill_s"],
+              serve_stats[QWEN2.name]["peak_mem_gb"], "phase 10")]
+    print(f"phase 40: the dry run's reckoning at mesh (1, 1) beside this "
+          f"run's steps (bounds on the datasheet {H100.name}: "
+          f"{H100.peak_flops:.4g} FLOP/s, {H100.hbm_bw:.4g} B/s)")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-c", RECKON_SCRIPT,
+         json.dumps([c[:5] for c in cells])],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 CUDA_VISIBLE_DEVICES=""),
+        capture_output=True, text=True, timeout=600)
+    check(run.returncode == 0, f"the reckoning failed: {run.stderr[-3000:]}")
+    reps = json.loads(run.stdout.strip().splitlines()[-1])
+    print(f"  reckoned in {time.perf_counter() - t0:.1f} s")
+    out = []
+    for (arch, layers, kind, seq, rows, step_s, peak_gb, phase), rep in \
+            zip(cells, reps):
+        bound_ms = max(rep["compute_ms"], rep["memory_ms_flash"],
+                       rep["collective_ms"])
+        peak = (rep["peak_bytes"] - rep["saved_bytes"]) / 1e9
+        ratio = peak / peak_gb
+        share = rep["model_flops"] / H100.peak_flops / step_s
+        label = f"{arch}{f' at {layers} layers' if layers else ''} {kind}"
+        print(f"  {label} {rows} x {seq} ({phase}): bound {bound_ms:.4f} ms "
+              f"(compute {rep['compute_ms']:.4f}, memory {rep['memory_ms']:.4f}"
+              f", flash-adjusted {rep['memory_ms_flash']:.4f}, collective "
+              f"{rep['collective_ms']:.4f}) against {step_s * 1e3:.4f} ms "
+              f"measured, {bound_ms / (step_s * 1e3):.4f} of it; peak "
+              f"{rep['peak_bytes'] / 1e9:.3f} GB reckoned, less "
+              f"{rep['saved_bytes'] / 1e9:.3f} GB the attention core saves, "
+              f"{peak:.3f} against {peak_gb:.3f} measured ({ratio:.4f}); "
+              f"useful_flops_ratio {rep['useful_flops_ratio']:.4f}; model "
+              f"FLOPs {rep['model_flops']:.4g}, {share:.4f} of the "
+              f"datasheet H100's peak over the measured step")
+        check(bound_ms <= step_s * 1e3, f"{label}: the bound "
+              f"{bound_ms:.4f} ms exceeds the measured "
+              f"{step_s * 1e3:.4f} ms")
+        check(RECKON_PEAK_BAND[0] <= ratio <= RECKON_PEAK_BAND[1],
+              f"{label}: reckoned peak {peak:.3f} GB is {ratio:.4f} of the "
+              f"measured {peak_gb:.3f}")
+        out.append({"cell": label, "bound_ms": bound_ms,
+                    "measured_ms": step_s * 1e3,
+                    "peak_reckoned_gb": peak, "peak_measured_gb": peak_gb,
+                    "peak_ratio": ratio,
+                    "useful_flops_ratio": rep["useful_flops_ratio"],
+                    "model_flop_share": share, "trace_s": rep["trace_s"],
+                    "compute_ms": rep["compute_ms"],
+                    "memory_ms": rep["memory_ms"],
+                    "memory_ms_flash": rep["memory_ms_flash"]})
+    return out
+
+
 def new_shape_backward_checks(granite: dict, whisper: dict) -> dict:
     """Phase 38: B2's backward at granite's causal q ``[8,24,512,64]``
     over k, v ``[8,8,512,64]`` (G = 3) and at whisper's three shapes
@@ -4303,6 +4505,17 @@ def main() -> int:
     nrows = new_shape_backward_checks(granite_seen, whisper_seen)
     del granite_seen, whisper_seen
     torch.cuda.empty_cache()
+
+    # phase 39: elastic restart of phase 24's trained state
+    t0 = time.perf_counter()
+    trains[QWEN2.name]["elastic"] = elastic_restart(cuda)
+    print(f"phase 39: {time.perf_counter() - t0:.1f} s wall")
+
+    # phase 40: the dry run's reckoning beside this run's steps
+    t0 = time.perf_counter()
+    reckoning = dryrun_reckoning(serve_stats, trains)
+    print(f"phase 40: {time.perf_counter() - t0:.1f} s wall")
+    print("  reckoning " + json.dumps(reckoning))
     rows = {r["name"]: r for r in kernels}
     for name, entries in (("flash_attention_bwd", [zrows["flash"],
                                                    vrows["flash"]]

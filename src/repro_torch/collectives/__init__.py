@@ -10,10 +10,9 @@
 #                            (more phases/hops; scarce links carry 1/N)
 #
 # selector.AppAwareSelector runs the paper's Algorithm 1 verbatim on these
-# two modes, with (L, s) from the ICI cost model.  The reference also
-# feeds it from HLO-derived byte counters (HloCounterBackend); its
-# counterpart needs a port of analysis/hlo_parse.py and waits for
-# ROADMAP A.5.
+# two modes, with (L, s) from the ICI cost model, or synthesized from the
+# link-class byte counts of a traced step (trace_counters.py, the
+# counterpart of the reference's HLO-derived HloCounterBackend).
 
 from repro_torch.collectives.modes import CollectiveMode, mode_for_routing
 from repro_torch.collectives.allreduce import (
@@ -22,10 +21,11 @@ from repro_torch.collectives.allreduce import (
 from repro_torch.collectives.alltoall import (alltoall_direct,
                                               alltoall_hierarchical)
 from repro_torch.collectives.selector import AppAwareSelector, ICICostModel
+from repro_torch.collectives.trace_counters import TraceCounterBackend
 
 __all__ = [
     "CollectiveMode", "mode_for_routing",
     "allreduce_direct", "allreduce_hierarchical", "grad_allreduce",
     "alltoall_direct", "alltoall_hierarchical",
-    "AppAwareSelector", "ICICostModel",
+    "AppAwareSelector", "ICICostModel", "TraceCounterBackend",
 ]

@@ -58,7 +58,8 @@ def launches_kernel(name: str, first: torch.Tensor, *others) -> bool:
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (first, *others)):
         raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward yet (ROADMAP A.5), "
-            f"and an input requires a gradient; call it under "
-            f"torch.no_grad() or on tensors that do not require grad")
+            f"{name}: the CUDA kernel has no backward (the reference's "
+            f"kernel has none, and the simulator takes no gradient), and "
+            f"an input requires a gradient; call it under torch.no_grad() "
+            f"or on tensors that do not require grad")
     return True

@@ -1,11 +1,17 @@
 """Grouped-query attention with RoPE and a KV cache.
 
-Counterpart of ``repro/models/attention.py``, without its sharding
-constraints (serving on one card has no mesh).  A layer's compute
+Counterpart of ``repro/models/attention.py``.  A layer's compute
 weights are a dict (:meth:`repro_torch.models.transformer.DenseLM.
 weights`): ``wqkv`` ``[D, (H + 2 Hkv) hd]``, the three input projections
 side by side so that one product computes them, ``bqkv`` with the QKV
-bias, and ``wo``.
+bias, and ``wo``.  The reference's sharding constraints are here as
+:func:`~repro_torch.models.common.constrain` calls, which act on the
+dry run's DTensors only: heads over "model" when they divide, else q
+over the sequence and k, v replicated; the output back to the
+batch-over-data layout.  On DTensors ``wqkv`` is the three projections'
+tuple (:func:`~repro_torch.models.common.join`).  The attention core is
+the ``attn_core`` scope (:func:`~repro_torch.models.common.scoped`), the
+region the flash kernel replaces, as the reference names it.
 
 The reference model groups heads as ``[G, Hkv]``: q head ``g Hkv + j``
 attends with kv head ``j``.  The flash kernel (B2) groups them as
@@ -28,7 +34,11 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.common import ModelConfig, apply_rope
+from repro_torch.models.common import (ModelConfig, apply_rope, constrain,
+                                       dp_spec, is_sharded, mesh_axes,
+                                       scoped, split_product)
+from repro_torch.sharding.local import (attention_per_rank, pin,
+                                        write_positions)
 
 #: the reference's mask value
 NEG_INF = -1e30
@@ -42,11 +52,10 @@ def qkv_project(w: dict, x: torch.Tensor, cfg: ModelConfig,
     ``positions`` is not read)."""
     bsz, seq, _ = x.shape
     hd, heads, kv_heads = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    qkv = x @ w["wqkv"]
-    if cfg.qkv_bias:
-        qkv = qkv + w["bqkv"]
-    q, k, v = torch.split(qkv, [heads * hd, kv_heads * hd, kv_heads * hd],
-                          dim=-1)
+    q, k, v = split_product(x, w["wqkv"],
+                            [heads * hd, kv_heads * hd, kv_heads * hd],
+                            w["bqkv"] if cfg.qkv_bias else None)
+    q, k, v = _heads_layout(q, k, v, cfg)
     q = q.reshape(bsz, seq, heads, hd)
     k = k.reshape(bsz, seq, kv_heads, hd)
     v = v.reshape(bsz, seq, kv_heads, hd)
@@ -54,6 +63,31 @@ def qkv_project(w: dict, x: torch.Tensor, cfg: ModelConfig,
         return q, k, v
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _heads_layout(q, k, v, cfg: ModelConfig):
+    """The reference's layouts for q ``[B,S,H hd]``, k and v before their
+    heads are split out (:func:`heads_layout`)."""
+    return (heads_layout(q, cfg.n_heads, over_positions=True),
+            heads_layout(k, cfg.n_kv_heads),
+            heads_layout(v, cfg.n_kv_heads))
+
+
+def heads_layout(t, heads: int, *, over_positions: bool = False):
+    """The reference's layout for ``t`` ``[B,S,heads hd]`` before its heads
+    are split out: heads over "model" when they divide, else (for q,
+    ``over_positions``, with more than one position) the sequence over
+    "model", else replicated there; the batch over the data dims.  A
+    plain tensor passes as it is."""
+    axes = mesh_axes(t)
+    if not axes:
+        return t
+    model, dp = max(axes.get("model", 1), 1), dp_spec(t)
+    if heads and heads % model == 0:
+        return constrain(t, dp, None, "model")
+    if over_positions and t.shape[1] > 1:
+        return constrain(t, dp, "model", None)
+    return constrain(t, dp, None, None)
 
 
 def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -65,16 +99,25 @@ def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lets the first P positions see each other (the VLM's prefix-LM mask);
     otherwise every query sees every key (an encoder, or cross-attention
     with ``Sq != Skv``).  With one kv head (paligemma) the permute below
-    is the identity; it stays on the path."""
+    is the identity; it stays on the path.  On DTensors the core runs
+    per rank (:func:`~repro_torch.sharding.local.attention_per_rank`)."""
+    if is_sharded(q):      # k, v from a position-sharded cache: gathered
+        return attention_per_rank(_flash_attend, q, k, v, gather_kv=True,
+                                  causal=causal, prefix_len=prefix_len)
+    return _flash_attend(q, k, v, causal=causal, prefix_len=prefix_len)
+
+
+def _flash_attend(q, k, v, *, causal: bool, prefix_len: int):
     bsz, seq, heads, hd = q.shape
     kv_heads = k.shape[2]
     group = heads // kv_heads
     # model head g * Hkv + j -> kernel head j * G + g
     qk = q.reshape(bsz, seq, group, kv_heads, hd).permute(0, 3, 2, 1, 4) \
         .contiguous().view(bsz, heads, seq, hd)
-    o = flash_attention(qk, k.transpose(1, 2).contiguous(),
-                        v.transpose(1, 2).contiguous(), causal=causal,
-                        prefix_len=prefix_len)
+    o = scoped("attn_core", flash_attention, qk,
+               k.transpose(1, 2).contiguous(),
+               v.transpose(1, 2).contiguous(), causal=causal,
+               prefix_len=prefix_len)
     return o.view(bsz, kv_heads, group, seq, hd).permute(0, 3, 2, 1, 4) \
         .reshape(bsz, seq, heads, hd)
 
@@ -87,7 +130,29 @@ def gqa_attend(q, k, v, *, causal: bool,
     and v ``[B,Skv,Hkv,hd]``.  Scores in float32 from exact products,
     scaled after the dot; the causal mask keeps ``kpos <= qpos``;
     ``kv_valid_len`` ``[B]`` masks cache slots at or past it.  The
-    probabilities are cast to v's dtype before the product with v."""
+    probabilities are cast to v's dtype before the product with v.  The
+    ``attn_core`` scope.  On DTensors the core runs per rank where it is
+    local (:func:`~repro_torch.sharding.local.attention_per_rank`), else
+    (over a sequence-sharded cache) through DTensor's own rules, with q's
+    heads gathered."""
+    if is_sharded(q):
+        extra = () if kv_valid_len is None else (kv_valid_len,)
+        out = attention_per_rank(_gqa_scoped, q, k, v, *extra,
+                                 causal=causal)
+        if out is not None:
+            return out
+        q = constrain(q, dp_spec(q), None, None, None)
+        return constrain(_gqa_scoped(q, k, v, kv_valid_len, causal=causal),
+                         dp_spec(q), None, None, None)
+    return _gqa_scoped(q, k, v, kv_valid_len, causal=causal)
+
+
+def _gqa_scoped(q, k, v, kv_valid_len=None, *, causal: bool):
+    return scoped("attn_core", _gqa_attend, q, k, v, causal=causal,
+                  kv_valid_len=kv_valid_len)
+
+
+def _gqa_attend(q, k, v, *, causal: bool, kv_valid_len) -> torch.Tensor:
     bsz, sq, heads, hd = q.shape
     skv, kv_heads = k.shape[1], k.shape[2]
     group = heads // kv_heads
@@ -111,8 +176,13 @@ def gqa_attend(q, k, v, *, causal: bool,
 
 
 def attn_output(w: dict, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The output projection, back in the batch-over-data layout."""
     bsz, seq, heads, hd = o.shape
-    return o.reshape(bsz, seq, heads * hd) @ w["wo"]
+    o = o.reshape(bsz, seq, heads * hd)
+    # on DTensors, o's gradient comes back in o's layout, which the split
+    # into heads can follow where they do not divide "model"
+    out = (pin(o) if is_sharded(o) else o) @ w["wo"]
+    return constrain(out, dp_spec(out), None, None)
 
 
 # ------------------------------------------------------------------ caching
@@ -144,6 +214,10 @@ def cache_update(cache_k: torch.Tensor, cache_v: torch.Tensor,
     if not 0 <= start <= cache_k.shape[1] - seq:
         raise ValueError(f"cache_update: {seq} slots at {start} do not fit "
                          f"a cache of {cache_k.shape[1]}")
+    if is_sharded(cache_k):          # the dry run's, maybe position-sharded
+        write_positions(cache_k, k_new, start)
+        write_positions(cache_v, v_new, start)
+        return cache_k, cache_v
     cache_k[:, start:start + seq] = k_new
     cache_v[:, start:start + seq] = v_new
     return cache_k, cache_v

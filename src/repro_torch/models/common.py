@@ -3,9 +3,15 @@
 Counterpart of ``repro/models/common.py``.  One :class:`ModelConfig`
 covers every architecture family, with the reference's fields; ``dtype``
 (activations) and ``param_dtype`` (master weights) are torch dtypes.
-The reference's mesh and sharding helpers and its remat wrapper are
-left out: serving and training on one card use neither (the port keeps
-every activation of a train step; remat changes no number).
+The reference's remat wrapper is left out (the port keeps every
+activation of a train step; remat changes no number).  Its activation
+sharding helpers (:func:`mesh_axes`, :func:`dp_spec`, :func:`constrain`)
+read the mesh of the DTensor they are given, where the reference reads
+the active mesh: the multi-pod dry run (:mod:`repro_torch.launch.dryrun`)
+runs the models on DTensors, and on the plain tensors of the card's
+serving and training paths each is a no-op after one ``isinstance``
+check.  :func:`scoped` marks the regions the dry run's cost tracer
+attributes to a named scope, as the reference's ``jax.named_scope``.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.rmsnorm import rmsnorm_fused
 
@@ -183,3 +190,106 @@ def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "relu":
         return F.relu(x)
     raise ValueError(f"unknown activation {kind!r}")
+
+
+# ----------------------------------------------------- activation sharding
+def mesh_axes(x) -> dict:
+    """Dim sizes of ``x``'s mesh, ``{}`` for a plain tensor."""
+    if not isinstance(x, DTensor):
+        return {}
+    mesh = x.device_mesh
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
+def dp_spec(x):
+    """The data-parallel entry of a spec on ``x``'s mesh: ``("pod",
+    "data")``, ``"data"`` or None."""
+    axes = mesh_axes(x)
+    if "pod" in axes and "data" in axes:
+        return ("pod", "data")
+    if "data" in axes:
+        return "data"
+    return None
+
+
+def constrain(x, *spec):
+    """``x`` redistributed to ``spec`` (one entry per leading dim: None,
+    a mesh dim name or a tuple of names), divisibility-checked; a no-op
+    on a plain tensor.  An entry whose dims are missing from the mesh,
+    or whose tensor dim does not divide evenly, is dropped to None, as
+    the reference's ``constrain`` drops it; pending sums (``Partial``)
+    are reduced on the way.  As a sharding constraint binds the
+    cotangent too in the reference, ``x``'s gradient is brought to the
+    same placements."""
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.sharding.local import pin
+    from repro_torch.sharding.partition import placements
+    axes = mesh_axes(x)
+    cleaned = []
+    for dim, ax in zip(x.shape, spec):
+        group = ax if isinstance(ax, tuple) else (ax,)
+        if ax is None or not all(a in axes for a in group):
+            cleaned.append(None)
+            continue
+        size = math.prod(axes[a] for a in group)
+        cleaned.append(ax if dim % size == 0 and dim >= size else None)
+    cleaned += [None] * (x.ndim - len(cleaned))
+    want = placements(cleaned, x.device_mesh)
+    if tuple(x.placements) != want:
+        x = x.redistribute(x.device_mesh, want)
+    return pin(x) if x.requires_grad else x
+
+
+def embed_rows(table, tokens):
+    """``table[tokens]``: the embedding rows of ``tokens``; on DTensors
+    (a vocab-sharded table) in the batch-over-data layout that the
+    residual stream keeps."""
+    x = table[tokens.long()]
+    return constrain(x, dp_spec(x), None, None)
+
+
+def is_sharded(t) -> bool:
+    """Whether ``t`` is a DTensor (the dry run's)."""
+    return isinstance(t, DTensor)
+
+
+def join(ws: list, dim: int = -1):
+    """The weights ``ws`` side by side along ``dim``, so that one
+    product computes them all; for DTensors (the dry run's sharded
+    weights, each sharded on its own) the tuple ``ws``, whose products
+    :func:`split_product` keeps apart, as the reference computes
+    them."""
+    if isinstance(ws[0], DTensor):
+        return tuple(ws)
+    return torch.cat(ws, dim=dim)
+
+
+def split_product(x, w, sizes, bias=None, product=torch.matmul):
+    """``product(x, w) + bias`` split along the last dim into parts of
+    ``sizes``, for ``w`` and ``bias`` made by :func:`join`; a tuple
+    ``w`` gives each part its own product."""
+    if isinstance(w, tuple):
+        parts = [product(x, wi) for wi in w]
+        if bias is not None:
+            parts = [p + b for p, b in zip(parts, bias)]
+        return tuple(parts)
+    y = product(x, w)
+    if bias is not None:
+        y = y + bias
+    return torch.split(y, list(sizes), dim=-1)
+
+
+#: tracers of named regions (the dry run's cost tracer adds itself);
+#: empty on every other path
+SCOPE_TRACERS: list = []
+
+
+def scoped(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, attributed to scope ``name`` by the
+    innermost of :data:`SCOPE_TRACERS` (the reference's
+    ``jax.named_scope``); with no tracer, just the call."""
+    if not SCOPE_TRACERS:
+        return fn(*args, **kwargs)
+    tracer = SCOPE_TRACERS[-1]
+    return tracer.run_scoped(name, fn, args, kwargs)

@@ -40,7 +40,8 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (CastCache, ModelConfig, dense_init,
-                                       normal, rmsnorm)
+                                       embed_rows, join, normal, rmsnorm,
+                                       split_product)
 from repro_torch.models.mlp import MLP, mlp, mlp_weights, param
 from repro_torch.models.transformer import (Attention, DenseBlock,
                                             _positions, attn_weights,
@@ -113,10 +114,10 @@ class EncDecLM(CastCache):
         for block in self.dec_blocks:
             c = block.cross_attn
             cross = {"wq": c.wq.to(dt), "wo": c.wo.to(dt),
-                     "wkv": torch.cat([c.wk.to(dt), c.wv.to(dt)], dim=-1)}
+                     "wkv": join([c.wk.to(dt), c.wv.to(dt)], dim=-1)}
             if cfg.qkv_bias:
                 cross["bq"] = c.bq.to(dt)
-                cross["bkv"] = torch.cat([c.bk.to(dt), c.bv.to(dt)], dim=-1)
+                cross["bkv"] = join([c.bk.to(dt), c.bv.to(dt)], dim=-1)
             w = {"ln1": block.ln1.to(dt), "ln_x": block.ln_x.to(dt),
                  "ln2": block.ln2.to(dt),
                  "self": attn_weights(block.self_attn, cfg), "cross": cross}
@@ -158,16 +159,16 @@ def _cross_q(w: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     q = h @ w["wq"]
     if cfg.qkv_bias:
         q = q + w["bq"]
+    q = attn.heads_layout(q, cfg.n_heads, over_positions=True)
     return q.reshape(*h.shape[:2], cfg.n_heads, cfg.hd)
 
 
 def _cross_kv(w: dict, enc: torch.Tensor, cfg: ModelConfig):
     """Cross-attention keys and values ``[B,F,Hkv,hd]`` of the encoder
     states."""
-    kv = enc @ w["wkv"]
-    if cfg.qkv_bias:
-        kv = kv + w["bkv"]
-    k, v = torch.chunk(kv, 2, dim=-1)
+    n = cfg.n_kv_heads * cfg.hd
+    k, v = (attn.heads_layout(t, cfg.n_kv_heads) for t in split_product(
+        enc, w["wkv"], (n, n), w["bkv"] if cfg.qkv_bias else None))
     shape = (*enc.shape[:2], cfg.n_kv_heads, cfg.hd)
     return k.reshape(shape), v.reshape(shape)
 
@@ -197,7 +198,7 @@ def _apply(w: dict, frames: torch.Tensor, tokens: torch.Tensor,
     """The encoder, every decoder block's cross K/V and the decoder over
     the compute dict ``w``, under the caller's grad mode."""
     enc = _encode(w, frames, cfg)
-    x = w["embed"][tokens.long()]
+    x = embed_rows(w["embed"], tokens)
     positions = _positions(tokens)
     for blk in w["dec"]:
         x, _ = _dec_block(blk, x, cfg, positions,
@@ -265,7 +266,7 @@ def encdec_prefill(model: EncDecLM, tokens: torch.Tensor, cfg: ModelConfig,
     cross K/V from ``state.enc`` (which must already hold the encoder
     output); returns (last-token logits ``[B,1,Vp]``, state)."""
     w = model.weights()
-    x = w["embed"][tokens.long()]
+    x = embed_rows(w["embed"], tokens)
     bsz, seq = tokens.shape
     positions = _positions(tokens)
     cache = state.cache
@@ -285,7 +286,7 @@ def encdec_decode_step(model: EncDecLM, token: torch.Tensor, cfg: ModelConfig,
                        state: EncDecState):
     """token ``[B,1]`` -> (logits ``[B,1,Vp]``, the next state)."""
     w = model.weights()
-    x = w["embed"][token.long()]
+    x = embed_rows(w["embed"], token)
     bsz, pos = x.shape[0], state.pos
     cache = state.cache
     positions = torch.full((bsz, 1), pos, dtype=torch.int32, device=x.device)

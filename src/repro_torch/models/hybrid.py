@@ -34,7 +34,7 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (CastCache, ModelConfig, dense_init,
-                                       normal, rmsnorm)
+                                       embed_rows, normal, rmsnorm)
 from repro_torch.models.mamba2 import Mamba2State, init_mamba2_state
 from repro_torch.models.mlp import param
 from repro_torch.models.ssm_lm import SSMLayer
@@ -140,7 +140,7 @@ def _forward(model: HybridLM, tokens: torch.Tensor, cfg: ModelConfig,
     once, so its gradient sums over its applications), else the serving
     caches."""
     w = model._cast() if train else model.weights()
-    x = w["embed"][tokens.long()]
+    x = embed_rows(w["embed"], tokens)
     positions = _positions(tokens)
     for a, layers in _groups(model, w["ln"]):
         if a:
@@ -222,7 +222,7 @@ def hybrid_decode_step(model: HybridLM, token: torch.Tensor,
     context for the Mamba backbone; the shared block attends over its
     cache slot of each application."""
     w = model.weights()
-    x = w["embed"][token.long()]
+    x = embed_rows(w["embed"], token)
     cache = state.attn_cache
     for a, layers in _groups(model, w["ln"]):
         if a:

@@ -15,7 +15,8 @@ copies until the module moves or is reloaded, which gives the same
 numbers; training passes copies cast anew with gradients
 (:meth:`Mamba2Block._cast`), so the gradient reaches the masters
 through B3's and B4's backward kernels.  The five input projections
-share one product against their concatenated weights.
+share one product against their concatenated weights (five products
+on the dry run's DTensors, each sharded on its own).
 """
 
 from __future__ import annotations
@@ -28,8 +29,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.ssd_scan import ssd_scan_op
-from repro_torch.models.common import (CastCache, ModelConfig, dense_init,
-                                       normal, rmsnorm)
+from repro_torch.models.common import (CastCache, ModelConfig, constrain,
+                                       dense_init, dp_spec, is_sharded,
+                                       normal, rmsnorm, split_product)
+from repro_torch.sharding.local import (channels_per_rank, heads_view, pin,
+                                        ssd_per_rank, ssd_step_per_rank)
 
 
 # ----------------------------------------------------------------- SSD core
@@ -44,6 +48,9 @@ def ssd_chunked(x, dt, a_log, b_mat, c_mat, chunk: int,
     final_state [B,H,N,P])``.  bf16 x, B and C take B3's tensor-core
     route (:mod:`repro_torch.kernels.ssd_scan`).
     """
+    if is_sharded(x):
+        return ssd_per_rank(ssd_scan_op, x, dt, a_log, b_mat, c_mat,
+                            init_state, chunk=chunk)
     return ssd_scan_op(x, dt, a_log, b_mat, c_mat, chunk,
                        init_state=init_state)
 
@@ -81,7 +88,10 @@ def _dims(cfg: ModelConfig):
 def _causal_conv(x, prev, w, b, dtype):
     """Depthwise causal conv along seq.  x ``[B,S,C]``; prev
     ``[B,K-1,C]``; w ``[K,C]`` float32; returns ``(y [B,S,C], new_prev
-    [B,K-1,C])``.  The taps are summed in float32 and rounded once."""
+    [B,K-1,C])``.  The taps are summed in float32 and rounded once.  On
+    DTensors it runs per rank over each rank's channels."""
+    if is_sharded(x):
+        return channels_per_rank(_causal_conv, x, prev, w, b, dtype=dtype)
     k, s = w.shape[0], x.shape[1]
     xpad = torch.cat([prev.to(dtype), x], dim=1)
     new_prev = xpad[:, s:, :]
@@ -164,14 +174,16 @@ class Mamba2Block(CastCache):
         w.update({name: getattr(self, name).to(dt_).float()
                   for name in _TAPS})
         w.update({name: getattr(self, name).float() for name in _F32})
-        w["w_in"] = torch.cat([getattr(self, n) for n in _IN_PROJ],
-                              dim=1).to(dt_)
+        ws = [getattr(self, n) for n in _IN_PROJ]
+        w["w_in"] = (tuple(t.to(dt_) for t in ws) if is_sharded(ws[0])
+                     else torch.cat(ws, dim=1).to(dt_))
         return w
 
-    def _split(self, zxbcdt):
+    def _project(self, x, w_in):
+        """The five input projections of ``x``."""
         d, d_inner, heads, groups, n = self.dims
-        return torch.split(zxbcdt, [d_inner, d_inner, groups * n,
-                                    groups * n, heads], dim=-1)
+        return split_product(x, w_in, [d_inner, d_inner, groups * n,
+                                       groups * n, heads])
 
     def forward(self, x: torch.Tensor,
                 init_state: Mamba2State | None = None, *,
@@ -183,9 +195,10 @@ class Mamba2Block(CastCache):
         d, d_inner, heads, groups, n = self.dims
         cfg = self.cfg
         w = self.weights() if w is None else w
+        x = constrain(x, dp_spec(x), None, None)
         bsz, seq, _ = x.shape
         dt_, k = cfg.dtype, cfg.ssm_conv
-        z, xs, bm, cm, dt_raw = self._split(x @ w["w_in"])
+        z, xs, bm, cm, dt_raw = self._project(x, w["w_in"])
 
         if init_state is None:
             def zpad(ch):
@@ -202,7 +215,7 @@ class Mamba2Block(CastCache):
         cm, new_pc = _causal_conv(cm, prev_c, w["conv_c_w"], w["conv_cb"],
                                   dt_)
 
-        xh = xs.reshape(bsz, seq, heads, cfg.ssm_head_dim)
+        xh = heads_view(xs, heads, cfg.ssm_head_dim)
         dt = F.softplus(dt_raw.float() + w["dt_bias"])
 
         # B and C per group: the scan reads group h // (H/G) for head h
@@ -212,8 +225,11 @@ class Mamba2Block(CastCache):
             init_state.ssm if init_state is not None else None)
         y = y + xh * w["d_skip"][None, None, :, None]
         y = y.reshape(bsz, seq, d_inner)
+        if is_sharded(y):
+            y = pin(y)
         y = rmsnorm(y * F.silu(z), w["norm_g"], cfg.norm_eps)
         out = y @ w["out_proj"]
+        out = constrain(out, dp_spec(out), None, None)
         return out, Mamba2State(ssm=ssm_final, conv_x=new_px, conv_b=new_pb,
                                 conv_c=new_pc)
 
@@ -221,9 +237,10 @@ class Mamba2Block(CastCache):
         """One-token decode.  x_t ``[B,1,D]``."""
         d, d_inner, heads, groups, n = self.dims
         cfg, w = self.cfg, self.weights()
+        x_t = constrain(x_t, dp_spec(x_t), None, None)
         bsz = x_t.shape[0]
         dt_ = cfg.dtype
-        z, xs, bm, cm, dt_raw = self._split(x_t @ w["w_in"])
+        z, xs, bm, cm, dt_raw = self._project(x_t, w["w_in"])
         xs, bm, cm, dt_raw = xs[:, 0], bm[:, 0], cm[:, 0], dt_raw[:, 0]
 
         def upd(prev, new):
@@ -237,16 +254,22 @@ class Mamba2Block(CastCache):
         bm = _conv_step(win_b, w["conv_b_w"], w["conv_bb"], dt_)
         cm = _conv_step(win_c, w["conv_c_w"], w["conv_cb"], dt_)
 
-        xh = xs.reshape(bsz, heads, cfg.ssm_head_dim)
+        xh = heads_view(xs, heads, cfg.ssm_head_dim)
         rep = heads // groups
         b_h = bm.reshape(bsz, groups, n).repeat_interleave(rep, dim=1)
         c_h = cm.reshape(bsz, groups, n).repeat_interleave(rep, dim=1)
         dt = F.softplus(dt_raw.float() + w["dt_bias"])
-        y, ssm_new = ssd_decode_step(state.ssm, xh, dt, w["a_log"], b_h, c_h)
+        if is_sharded(xh):
+            y, ssm_new = ssd_step_per_rank(ssd_decode_step, state.ssm, xh,
+                                           dt, w["a_log"], b_h, c_h)
+        else:
+            y, ssm_new = ssd_decode_step(state.ssm, xh, dt, w["a_log"], b_h,
+                                         c_h)
         y = y + xh * w["d_skip"][None, :, None]
         y = y.reshape(bsz, 1, d_inner)
         y = rmsnorm(y * F.silu(z), w["norm_g"], cfg.norm_eps)
         out = y @ w["out_proj"]
+        out = constrain(out, dp_spec(out), None, None)
         return out, Mamba2State(ssm=ssm_new, conv_x=new_px, conv_b=new_pb,
                                 conv_c=new_pc)
 

@@ -4,7 +4,10 @@ Counterpart of ``repro/models/mlp.py``.  :class:`MLP` holds a block's
 float32 masters under the reference's names; :func:`mlp_weights` casts
 them to the compute dict that :func:`mlp` reads: ``w_in`` and
 ``w_gate`` side by side as ``w_in_gate`` ``[D, 2F]`` when the block is
-gated, so that one product computes both, and ``w_out``.
+gated, so that one product computes both (the pair itself on DTensors,
+:func:`~repro_torch.models.common.join`), and ``w_out``.  On DTensors
+the output comes back to the batch-over-data layout, as the
+attention's does.
 """
 
 from __future__ import annotations
@@ -12,7 +15,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.models.common import ModelConfig, activation
+from repro_torch.models.common import (ModelConfig, activation, constrain,
+                                       dp_spec, join, split_product)
 
 
 def param(shape, cfg: ModelConfig, device, fill: float = 0.0,
@@ -40,7 +44,7 @@ def mlp_weights(m: MLP, cfg: ModelConfig) -> dict:
     dt = cfg.dtype
     w = {"w_out": m.w_out.to(dt)}
     if cfg.glu:
-        w["w_in_gate"] = torch.cat([m.w_in.to(dt), m.w_gate.to(dt)], dim=-1)
+        w["w_in_gate"] = join([m.w_in.to(dt), m.w_gate.to(dt)], dim=-1)
     else:
         w["w_in"] = m.w_in.to(dt)
     return w
@@ -48,8 +52,10 @@ def mlp_weights(m: MLP, cfg: ModelConfig) -> dict:
 
 def mlp(w: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.glu:
-        h, g = torch.chunk(x @ w["w_in_gate"], 2, dim=-1)
+        f = w["w_out"].shape[0]
+        h, g = split_product(x, w["w_in_gate"], (f, f))
         h = activation(g, cfg.act) * h
     else:
         h = activation(x @ w["w_in"], cfg.act)
-    return h @ w["w_out"]
+    y = h @ w["w_out"]
+    return constrain(y, dp_spec(y), None, None)

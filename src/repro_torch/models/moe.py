@@ -36,9 +36,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import (ModelConfig, activation, dense_init,
-                                       normal)
+from repro_torch.models.common import (ModelConfig, activation, constrain,
+                                       dense_init, dp_spec, is_sharded, join,
+                                       normal, split_product)
 from repro_torch.models.mlp import MLP, mlp, mlp_weights, param
+from repro_torch.sharding.local import moe_per_rank
 
 MOE_GROUP = 512  # tokens per dispatch group (capacity is per group)
 
@@ -82,7 +84,7 @@ def moe_weights(m: MoE, cfg: ModelConfig) -> dict:
     experts in ``cfg.dtype``."""
     dt = cfg.dtype
     w = {"router": m.router.float(),
-         "w_in_gate": torch.cat([m.w_in.to(dt), m.w_gate.to(dt)], dim=-1),
+         "w_in_gate": join([m.w_in.to(dt), m.w_gate.to(dt)], dim=-1),
          "w_out": m.w_out.to(dt)}
     if cfg.n_shared_experts:
         w["shared"] = mlp_weights(m.shared, cfg)
@@ -142,15 +144,28 @@ def expert_ffn(w: dict, xe: torch.Tensor, cfg: ModelConfig,
     """The gated per-expert FFN on tokens ``xe`` laid out as ``spec``
     (the expert first, the model dim last)."""
     out = spec[:-1] + "f"
-    h, g = torch.chunk(torch.einsum(f"{spec},edf->{out}", xe,
-                                    w["w_in_gate"]), 2, dim=-1)
+    f = w["w_out"].shape[1]
+    h, g = split_product(
+        xe, w["w_in_gate"], (f, f),
+        product=lambda a, b: torch.einsum(f"{spec},edf->{out}", a, b))
     h = activation(g, cfg.act) * h
     return torch.einsum(f"{out},efd->{spec}", h, w["w_out"])
 
 
 def moe_einsum(w: dict, x: torch.Tensor, cfg: ModelConfig):
     """x ``[B,S,D]`` -> (y, aux_loss).  GShard-style grouped dense
-    dispatch."""
+    dispatch.  On DTensors it runs per rank
+    (:func:`~repro_torch.sharding.local.moe_per_rank`)."""
+    if is_sharded(x):
+        y, aux = moe_per_rank(_moe_einsum, w, x, cfg)
+        return constrain(y, dp_spec(y), None, None), constrain(aux)
+    return _moe_einsum(w, x, cfg)
+
+
+def _moe_einsum(w: dict, x: torch.Tensor, cfg: ModelConfig,
+                experts: slice | None = None):
+    """``experts``: the experts whose weights ``w`` holds (every one by
+    default): the dispatch and combine keep their slots only."""
     bsz, seq, d = x.shape
     dt = cfg.dtype
     n_tok = bsz * seq
@@ -163,6 +178,8 @@ def moe_einsum(w: dict, x: torch.Tensor, cfg: ModelConfig):
     capacity = max(cfg.top_k, int(math.ceil(
         sg * cfg.top_k * 1.25 / cfg.n_experts)))
     disp, comb, aux = topk_dispatch(probs, cfg, capacity)
+    if experts is not None:
+        disp, comb = disp[:, :, experts], comb[:, :, experts]
     xt = xg.reshape(g, sg, d)
     # dispatch: [g,s,e,c] x [g,s,d] -> [e,g,c,d]
     xe = torch.einsum("gsec,gsd->egcd", disp.to(dt), xt)

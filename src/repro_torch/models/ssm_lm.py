@@ -14,7 +14,8 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from repro_torch.models.common import CastCache, ModelConfig, normal, rmsnorm
+from repro_torch.models.common import (CastCache, ModelConfig, embed_rows,
+                                       normal, rmsnorm)
 from repro_torch.models.mamba2 import (Mamba2Block, Mamba2State,
                                        init_mamba2_state)
 
@@ -66,7 +67,7 @@ class SSMLM(CastCache):
 
 
 def _embed(w: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return w["embed"][tokens.long()]
+    return embed_rows(w["embed"], tokens)
 
 
 def _logits(w: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

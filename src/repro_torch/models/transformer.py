@@ -45,7 +45,8 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (CastCache, Family, ModelConfig,
-                                       dense_init, normal, rmsnorm)
+                                       dense_init, embed_rows, join, normal,
+                                       rmsnorm)
 from repro_torch.models.mlp import MLP, mlp, mlp_weights, param
 from repro_torch.models.moe import MoE, init_moe, moe_einsum, moe_weights
 
@@ -162,7 +163,7 @@ def attn_weights(a: Attention, cfg: ModelConfig) -> dict:
     dt = cfg.dtype
 
     def cat(*ws):
-        return torch.cat([w.to(dt) for w in ws], dim=-1)
+        return join([w.to(dt) for w in ws], dim=-1)
 
     w = {"wqkv": cat(a.wq, a.wk, a.wv), "wo": a.wo.to(dt)}
     if cfg.qkv_bias:
@@ -244,7 +245,7 @@ def _embed(w: dict, tokens: torch.Tensor,
     """The token embeddings from the compute dict ``w``, after
     ``extra_embeds`` ``[B,P,D]`` (the VLM's patches) cast to
     ``cfg.dtype`` where given."""
-    x = w["embed"][tokens.long()]
+    x = embed_rows(w["embed"], tokens)
     if extra_embeds is None:
         return x
     return torch.cat([extra_embeds.to(x.dtype), x], dim=1)

@@ -21,6 +21,7 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 
 @dataclass(frozen=True)
@@ -76,13 +77,17 @@ def global_norm(tensors) -> torch.Tensor:
                         for t in tensors]).sum().sqrt()
 
 
+def _clip(grads: dict, norm: torch.Tensor, max_norm: float) -> None:
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    torch._foreach_mul_(list(grads.values()), scale)
+
+
 @torch.no_grad()
 def clip_by_global_norm(grads: dict, max_norm: float):
     """Scales ``grads`` in place by ``min(1, max_norm / norm)``; returns
     ``(grads, norm)`` (the norm before the clip, a device scalar)."""
     norm = global_norm(grads.values())
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    torch._foreach_mul_(list(grads.values()), scale)
+    _clip(grads, norm, max_norm)
     return grads, norm
 
 
@@ -91,9 +96,41 @@ def adamw_update(cfg: AdamWConfig, params: dict, grads: dict,
                  state: AdamWState):
     """-> (params, new_state, metrics).  Clips ``grads`` and updates
     ``params`` and the moments in place; ``metrics`` holds ``lr`` (host)
-    and ``grad_norm`` (device, before the clip)."""
+    and ``grad_norm`` (device, before the clip).  On DTensors (the dry
+    run's) each gradient is first brought to its parameter's placements
+    (the data-parallel reduction) and the norm taken over the whole
+    tensors; the update then runs on each rank's shards, as a sharded
+    optimizer steps."""
+    if any(isinstance(p, DTensor) for p in params.values()):
+        grads = {n: g.redistribute(params[n].device_mesh,
+                                   params[n].placements)
+                 for n, g in grads.items()}
+        norm = global_norm(grads.values())
+        norm = norm.redistribute(norm.device_mesh,
+                                 [Replicate()] * norm.device_mesh.ndim)
+
+        def local(d):
+            return {n: t.to_local() for n, t in d.items()}
+
+        _, new, metrics = _update(
+            cfg, local(params), local(grads),
+            AdamWState(state.step, local(state.m), local(state.v)),
+            norm.to_local())
+        return params, AdamWState(new.step, state.m, state.v), \
+            dict(metrics, grad_norm=norm)
+    return _update(cfg, params, grads, state)
+
+
+def _update(cfg: AdamWConfig, params: dict, grads: dict, state: AdamWState,
+            norm: torch.Tensor | None = None):
+    """:func:`adamw_update` on plain tensors; ``norm``: the gradients'
+    global norm where the caller took it."""
     names = list(params)
-    _, gnorm = clip_by_global_norm(grads, cfg.grad_clip_norm)
+    if norm is None:
+        _, gnorm = clip_by_global_norm(grads, cfg.grad_clip_norm)
+    else:
+        gnorm = norm
+        _clip(grads, norm, cfg.grad_clip_norm)
     step = state.step + 1
     lr = cosine_schedule(cfg, step)
     bc1 = float(1.0 - _f32(cfg.b1) ** step)

@@ -19,7 +19,10 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.models import registry as model_registry
-from repro_torch.models.common import Family, ModelConfig
+from repro_torch.models.common import (Family, ModelConfig, constrain,
+                                       dp_spec, is_sharded)
+from repro_torch.sharding.local import (rows_per_rank, vocab_gather,
+                                        vocab_logsumexp)
 from repro_torch.train.optimizer import (AdamWConfig, AdamWState,
                                          adamw_update)
 
@@ -66,10 +69,14 @@ def loss_fn(logits: torch.Tensor, labels: torch.Tensor, *,
     """logits ``[B,S,V]`` (any float dtype; V the padded vocab), labels
     ``[B,S]`` int -> scalar float32: cross-entropy from a float32
     logsumexp and a gather, plus ``z_loss`` times the mean squared
-    logsumexp."""
-    lg = logits.float()
-    lse = torch.logsumexp(lg, dim=-1)                          # [B,S]
-    gold = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    logsumexp.  Logits that are DTensors (the dry run's) are kept sharded
+    over the vocab, their gradient too, and take the vocab-parallel
+    logsumexp and gather."""
+    lg = constrain(logits.float(), dp_spec(logits), None, "model")
+    lse = (vocab_logsumexp(lg) if is_sharded(lg)               # [B,S]
+           else torch.logsumexp(lg, dim=-1))
+    gold = (vocab_gather(lg, labels) if is_sharded(lg)
+            else torch.gather(lg, -1, labels.long()[..., None])[..., 0])
     ce = (lse - gold).mean()
     if z_loss:
         ce = ce + z_loss * lse.square().mean()
@@ -120,12 +127,16 @@ def train_step(model, opt_state: AdamWState, batch: dict, *,
 
 def _train_step_micro(model, opt_state, batch: dict, *, cfg, tcfg):
     """Gradient accumulation over microbatches: float32 gradients summed
-    over the splits, then divided by their number."""
+    over the splits, then divided by their number.  A batch of DTensors
+    (the dry run's) is split within each rank's rows, so that every
+    microbatch stays sharded as the batch is (the reference reshapes and
+    re-shards; either split sums to the same gradient)."""
     n = batch["tokens"].shape[0] // tcfg.microbatch
     mb = tcfg.microbatch
     acc, loss_sum, metrics = None, torch.zeros(()), None
     for i in range(n):
-        part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+        part = {k: (rows_per_rank(v, i, n) if is_sharded(v)
+                    else v[i * mb:(i + 1) * mb]) for k, v in batch.items()}
         loss, metrics, grads = value_and_grad(model, part, cfg, tcfg)
         if acc is None:
             acc = {k: g.float() for k, g in grads.items()}

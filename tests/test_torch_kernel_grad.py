@@ -10,8 +10,9 @@ A bfloat16 B2 call that needs a gradient asks the forward for its LSE,
 which the Function saves and hands to the backward; one under
 ``no_grad`` asks for none.  B1 (segment sum) writes into a fresh tensor
 through ``ctypes`` and has no backward: where grad mode is on and an
-input requires a gradient, its wrappers raise (naming ROADMAP A.5)
-instead of returning a result whose gradient would silently be zero.  On the CPU the plain versions stay
+input requires a gradient, its wrappers raise (saying that the kernel
+has no backward) instead of returning a result whose gradient would
+silently be zero.  On the CPU the plain versions stay
 differentiable.  The card's branch is reached here without a card: the
 routing helper's device check is patched to answer "cuda", and each
 kernel library's loader to fail loudly, so a call that gets past the
@@ -108,7 +109,9 @@ def card_branch(monkeypatch):
 @pytest.mark.parametrize("name", WITHOUT_BACKWARD)
 def test_cuda_call_needing_a_gradient_is_refused(card_branch, name):
     call = WRAPPERS[name](np.random.default_rng(0))
-    with pytest.raises(RuntimeError, match=r"no backward yet \(ROADMAP A\.5\)"):
+    with pytest.raises(RuntimeError,
+                       match=r"the CUDA kernel has no backward \(the "
+                             r"reference's kernel has none"):
         call()
 
 
