@@ -77,7 +77,20 @@ Drives the port's main paths on the card at full width:
   depth through ``train_loop``, 8 steps of 8 x (1504 stub frames + 448
   tokens, its ``max_target_positions``): B2's backward non-causal over
   the frames, causal over the tokens and across to the frames, and
-  B4's, on every step.
+  B4's, on every step;
+* the configs served at full size since phases 41-44 were added:
+  stablelm-1.6b (24 layers, d_model 2048, 32 heads of 64), qwen2-moe-a2.7b
+  at its 24 layers from bf16 parameters (60 experts top-4 and 4 shared,
+  16 heads of 128, vocab 151,936; its float32 masters and their bf16 copy
+  exceed the card), codeqwen1.5-7b (32 layers, d_model 4096, 32 heads of
+  128 with the QKV bias, vocab 92,416) and llama3-8b (32 layers, d_model
+  4096, 32 heads over 8 KV heads of 128, vocab 128,256, RoPE theta 5e5),
+  the same requests as the other serves; their weights, drawn on the host
+  from the seed by one CPU generator each (about 0.1 G values a second),
+  are drawn by a background thread while the earlier phases run;
+* the port's user entry points: ``python -m repro_torch.examples.
+  quickstart`` and ``python -m repro_torch.benchmarks.run --only
+  selector,model``.
 
 To fit the training phases 34-38 in the time limit, phase 15 compares
 granite-moe-3b-a800m card vs CPU at 8 of its 32 layers, and phase 20
@@ -305,7 +318,29 @@ Phases:
     tile), its non-causal cross-attention of 448 queries over 1504 keys
     and its causal decoder ``[8,20,448,64]``; B4's backward at
     ``[12032,1280]`` and ``[3584,1280]``; each as phase 23 holds and
-    times them.
+    times them;
+39. phase 24's trained state restored by ``reshard_checkpoint`` onto a
+    (1, 1) mesh, every leaf bit for bit, one step's loss bits;
+40. the dry run's reckoning of three measured cells at mesh (1, 1);
+41-44. stablelm-1.6b, qwen2-moe-a2.7b (bf16 parameters), codeqwen1.5-7b
+    and llama3-8b, each moved to the card from its host draw; the serve's
+    peak reckoned from the config (parameters, compute copies, KV cache)
+    beside the measured; on a warm-up serve's own inputs B2 at the
+    prefill's shape (and cut to 200 rows) against its plain version, timed
+    beside SDPA with its bound, and the model's head order into B2
+    (``flash_attend``) against the reference's grouping (``gqa_attend``);
+    B4 at the prefill's and decode step's shapes (``[4096,4096]``, the
+    register route's 16 vectors a lane, and ``[4096,2048]``) held and
+    timed as in phase 17, and at the prefill's shape in float32 (the
+    generic route); the serve as phase 10's (B2 / B4 launches per prefill
+    and decode step: 24/49 and 0/49, 24/49 and 0/49, 32/65 and 0/65,
+    32/65 and 0/65), profiled; for the three dense configs card vs CPU at
+    2 layers, float32 at ``LOGITS_F32_TOL`` per element as phase 11 holds
+    it, bf16 by the accuracy rule;
+45. ``repro_torch.examples.quickstart`` (30 steps of the smoke qwen2 at
+    8 x 64, a 4-request serve, the 8-group alltoall sweep with Algorithm
+    1) and ``repro_torch.benchmarks.run --only selector,model`` on the
+    card, their outputs checked.
 
 Prints the kernel summary as one JSON line, then the ``ok`` line last.
 Any failed check exits non-zero; so does a machine without CUDA, and a
@@ -318,10 +353,12 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import io
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -356,6 +393,9 @@ from repro_torch.collectives import (CollectiveMode,  # noqa: E402
 from repro_torch.collectives.moe_ep import moe_ep, moe_ep_ref  # noqa: E402
 from repro_torch.configs.granite_moe_3b_a800m import \
     CONFIG as GRANITE  # noqa: E402
+from repro_torch.configs.codeqwen15_7b import \
+    CONFIG as CODEQWEN  # noqa: E402
+from repro_torch.configs.llama3_8b import CONFIG as LLAMA3  # noqa: E402
 from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2  # noqa: E402
 from repro_torch.configs.paligemma_3b import \
     CONFIG as PALIGEMMA  # noqa: E402
@@ -2496,19 +2536,21 @@ def whisper_kernel_checks(seen: dict) -> dict:
     return {"flash": flash, "rms": rms}
 
 
-def family_cpu_compare(cfg, cuda) -> dict:
-    """Phases 20 and 22: the same seeded model (``cfg``, cut in depth) on
-    the card and on the CPU, last-token prefill logits of ``CPU_BATCH`` x
+def family_cpu_compare(cfg, cuda, host=None) -> dict:
+    """Phases 20, 22 and 41-44: the same seeded model (``cfg``, cut in
+    depth; ``host``: that model already drawn on the CPU) on the card
+    and on the CPU, last-token prefill logits of ``CPU_BATCH`` x
     ``CPU_PROMPT`` tokens (and, for whisper, frames of the config's
     length; for paligemma, its image tokens' patches), in float32 and
-    bf16.  float32 is held at
-    ``LOGITS_F32_TOL``; bf16 by the accuracy rule of phases 8 and 11:
+    bf16.  float32 is held at ``LOGITS_F32_TOL`` times the largest
+    logit, and for the dense family also per element at rtol = atol =
+    ``LOGITS_F32_TOL``, as phases 8 and 11 hold it; bf16 by the accuracy
+    rule of phases 8 and 11:
     the card's bf16 logits no farther from the CPU's float32 ones than
     ``BF16_ACCURACY_RATIO`` times the CPU's bf16 ones, in the largest and
     in the mean difference, with the CPU's argmax at the family's full
     depth (printed at a cut depth, as phase 15 does)."""
-    full = {ZAMBA2.name: ZAMBA2.n_layers, WHISPER.name: WHISPER.n_layers,
-            PALIGEMMA.name: PALIGEMMA.n_layers}[cfg.name]
+    full = FULL_DEPTH[cfg.name]
     toks = torch.from_numpy(np.array(
         prompts(cfg.vocab, CPU_BATCH, CPU_PROMPT, 1)))
     batch = {"tokens": toks}
@@ -2519,7 +2561,8 @@ def family_cpu_compare(cfg, cuda) -> dict:
         batch["patches"] = torch.from_numpy(
             patches(cfg, CPU_BATCH, np.random.default_rng(2)))
     t0 = time.perf_counter()
-    host = model_registry.init_params(cfg, SEED, "cpu")
+    if host is None:
+        host = model_registry.init_params(cfg, SEED, "cpu")
     on_card = type(host)(cfg, device=cuda)
     on_card.load_state_dict(host.state_dict())
     print(f"  {cfg.name}, {cfg.n_layers} layers"
@@ -2559,14 +2602,15 @@ def family_cpu_compare(cfg, cuda) -> dict:
     limit = LOGITS_F32_TOL * max(1.0, scale)
     per_element = bool(torch.allclose(card32, host32, rtol=LOGITS_F32_TOL,
                                       atol=LOGITS_F32_TOL))
+    ok = err <= limit and (per_element or cfg.family != Family.DENSE)
     print(f"  float32: logits max_abs_err {err:.3e} (max |logit| "
           f"{scale:.3f}; limit {LOGITS_F32_TOL} x max(1, max |logit|) = "
           f"{limit:.3e}, {err / limit:.3f} of it; per element at rtol = "
           f"atol = {LOGITS_F32_TOL}: {'within' if per_element else 'beyond'}"
-          f", shown, not held) {'ok' if err <= limit else 'MISMATCH'}")
+          f"{', held' if cfg.family == Family.DENSE else ', shown, not held'}"
+          f") {'ok' if ok else 'MISMATCH'}")
     report["float32"]["limit_share"] = err / limit
-    check(err <= limit, f"{cfg.name}: card and CPU logits disagree in "
-          f"float32")
+    check(ok, f"{cfg.name}: card and CPU logits disagree in float32")
     bf_card, bf_host = logits[torch.bfloat16]
     spread, acc = max_err(bf_host, host32), max_err(bf_card, host32)
     spread_mean = float((bf_host - host32).abs().mean())
@@ -2602,6 +2646,10 @@ def family_cpu_compare(cfg, cuda) -> dict:
 #: card vs CPU depth of phase 22: paligemma-3b at full width and this many
 #: layers
 PALIGEMMA_CPU_LAYERS = 4
+#: the published depth of each config that a card-vs-CPU check cuts
+FULL_DEPTH = {c.name: c.n_layers for c in (ZAMBA2, WHISPER, PALIGEMMA,
+                                          STABLELM, CODEQWEN, LLAMA3,
+                                          QWEN2_MOE)}
 
 
 def paligemma_kernel_checks(seen: dict) -> dict:
@@ -4066,6 +4114,408 @@ def new_shape_backward_checks(granite: dict, whisper: dict) -> dict:
     return {"flash": flash, "rms": rms}
 
 
+# --------------------------------------------------------- phases 41-45
+#: qwen2-moe-a2.7b at its 24 layers serves from bf16 parameters: its
+#: float32 masters (57.3 GB) and their bf16 copy (28.6 GB) exceed the card.
+#: The same seed gives the same bf16 values, and the serve the same bits
+#: (tests/test_torch_serve.py::test_bf16_params_serve_the_same_bits)
+QWEN2_MOE_SERVED = QWEN2_MOE.scaled(param_dtype=torch.bfloat16)
+#: codeqwen1.5-7b's served depth: the valve of the time limit (its shapes,
+#: head dim 128 with G = 1 and the QKV bias, show at any depth)
+CODEQWEN_LAYERS = 32
+CODEQWEN_SERVED = CODEQWEN.scaled(n_layers=CODEQWEN_LAYERS)
+#: phases 41-44: the configs not served at full size before, in order
+NEW_SERVES = (STABLELM, QWEN2_MOE_SERVED, CODEQWEN_SERVED, LLAMA3)
+#: card vs CPU depth of the dense ones (qwen2-moe keeps phase 15's)
+DENSE_CPU_LAYERS = 2
+#: the host draws of phases 41-44 (``HostDraws``), in the order they
+#: start: qwen2-moe-a2.7b's 138 s first, while phases 34-39 run; the rest
+#: once phase 39 has freed its snapshot, llama3-8b's before the twins so
+#: that it starts as soon as qwen2-moe's host copy is gone
+DRAW_ORDER = (QWEN2_MOE.name, STABLELM.name, f"{STABLELM.name} twin",
+              CODEQWEN.name, LLAMA3.name, f"{CODEQWEN.name} twin",
+              f"{LLAMA3.name} twin")
+#: GB of drawn models the draws may hold: none until phase 33's float32
+#: CPU step is done (it holds about 27 GB beside phase 24's 18.5 GB
+#: snapshot, and 48 GB of draws held through it exceeded the machine's 96
+#: GiB); qwen2-moe's 28.6 GB through phases 34-39; more once phase 39 has
+#: freed the snapshot
+DRAW_BUDGET_GB = (0.0, 30.0, 72.0)
+#: host memory a draw must leave available (GB)
+HOST_RESERVE_GB = 12.0
+#: threads drawing at once
+DRAW_WORKERS = 2
+
+
+def host_available() -> float:
+    """Bytes of host memory available: MemAvailable, or the cgroup's
+    limit less its use where that is less (read, never written)."""
+    avail = float("inf")
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                avail = int(line.split()[1]) * 1024
+    try:
+        limit = Path("/sys/fs/cgroup/memory.max").read_text().strip()
+        used = int(Path("/sys/fs/cgroup/memory.current").read_text())
+        if limit != "max":
+            avail = min(avail, int(limit) - used)
+    except (OSError, ValueError):
+        pass
+    return avail
+
+
+def param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+class HostDraws:
+    """Models drawn from ``SEED`` on the host by ``DRAW_WORKERS`` threads,
+    each taking the next of ``jobs`` (``(key, cfg)``), which start in
+    their order, while the earlier phases run: a draw is one host core's
+    sequential work (one CPU generator), about 0.1 G values a second.  ``init_params(cfg, SEED,
+    "cpu")`` draws on the host exactly what ``init_params(cfg, SEED,
+    cuda)`` copies to the card as it draws, so a model taken here and
+    moved with ``.to(cuda)`` holds the same bits.  A draw starts only
+    where the models drawn and not yet released stay within ``budget``
+    bytes and the host keeps ``HOST_RESERVE_GB`` available after it.  A
+    monitor samples the host's available memory twice a second, its
+    lowest reading kept per window of phases (:meth:`window`)."""
+
+    def __init__(self, jobs, budget_gb: float):
+        self.jobs = list(jobs)
+        self.next_job = self.started = 0
+        self.budget = budget_gb * 1e9
+        self.held = 0
+        self.ready: dict = {}
+        self.log: dict = {}
+        self.low_water: dict = {}
+        self.error = None
+        self.done = False
+        self.cond = threading.Condition()
+        self.t0 = time.perf_counter()
+        self.window("phases 3-23")
+        self.threads = [threading.Thread(target=self._work, daemon=True,
+                                         name=f"host-draws-{i}")
+                        for i in range(DRAW_WORKERS)]
+        self.threads.append(threading.Thread(target=self._monitor,
+                                             daemon=True, name="host-memory"))
+        for t in self.threads:
+            t.start()
+
+    def window(self, name: str) -> None:
+        """Lowest available host memory from here on goes under ``name``."""
+        self.low_water[name] = host_available()
+        self.current = name
+
+    def set_budget(self, budget_gb: float) -> None:
+        with self.cond:
+            self.budget = budget_gb * 1e9
+            self.cond.notify_all()
+
+    def _monitor(self) -> None:
+        while not self.done:
+            name = self.current
+            self.low_water[name] = min(self.low_water[name],
+                                       host_available())
+            time.sleep(0.5)
+
+    def _work(self) -> None:
+        try:
+            while True:
+                with self.cond:
+                    if self.next_job == len(self.jobs) or self.error:
+                        return
+                    index = self.next_job
+                    key, cfg = self.jobs[index]
+                    self.next_job += 1
+                need = param_bytes(model_tf.DenseLM(cfg, device="meta"))
+                t_wait = time.perf_counter()
+                with self.cond:
+                    while not (self.started == index and
+                               self.held + need <= self.budget and
+                               host_available() - need
+                               >= HOST_RESERVE_GB * 1e9):
+                        self.cond.wait(timeout=1.0)   # freed memory shows
+                    self.held += need                 # by polling too
+                    self.started += 1
+                    self.cond.notify_all()
+                t0 = time.perf_counter()
+                free = host_available()
+                model = model_registry.init_params(cfg, SEED, "cpu")
+                draw_s = time.perf_counter() - t0
+                n = sum(p.numel() for p in model.parameters())
+                with self.cond:
+                    self.ready[key] = (model, need)
+                    self.log[key] = {
+                        "gb": need / 1e9, "params": n, "draw_s": draw_s,
+                        "values_per_s": n / draw_s,
+                        "held_back_s": t0 - t_wait,
+                        "host_available_gb": free / 1e9,
+                        "started_at_s": t0 - self.t0,
+                        "ready_at_s": time.perf_counter() - self.t0}
+                    self.cond.notify_all()
+        except BaseException as e:     # handed to the main thread's take
+            with self.cond:
+                self.error = e
+                self.cond.notify_all()
+
+    def take(self, key: str) -> tuple:
+        """The drawn model of ``key`` (waiting for it) and its bytes,
+        which the caller hands back to :meth:`release` once the host
+        copy is gone."""
+        t0 = time.perf_counter()
+        with self.cond:
+            while key not in self.ready and self.error is None:
+                self.cond.wait(timeout=1.0)
+            if key not in self.ready:
+                raise SystemExit(f"chip_smoke FAILED: drawing {key} on the "
+                                 f"host: {self.error!r}")
+            model, need = self.ready.pop(key)
+            self.log[key]["main_waited_s"] = time.perf_counter() - t0
+        return model, need
+
+    def release(self, need: int) -> None:
+        with self.cond:
+            self.held -= need
+            self.cond.notify_all()
+
+    def finish(self) -> dict:
+        self.done = True
+        for t in self.threads:
+            t.join(timeout=60)
+        check(not any(t.is_alive() for t in self.threads) and not self.ready
+              and self.error is None, "the host draws did not finish: "
+              f"{sorted(self.ready)} {self.error!r}")
+        return dict(self.log, host_low_water_gb={
+            k: v / 1e9 for k, v in self.low_water.items()})
+
+
+def serve_reckoning(cfg) -> dict:
+    """The serve's device bytes reckoned from ``cfg`` on the meta device
+    (nothing allocated): the parameters; the compute dict's copies
+    (``DenseLM.weights()``: every cast and every join; a ``.to()`` that
+    changes no dtype and the tied head's transpose are the parameter's
+    own storage); the KV cache of ``SERVE_BATCH`` x the serve's
+    ``max_len``.  The measured peak adds the prefill's activations and
+    the allocator's blocks."""
+    meta = model_tf.DenseLM(cfg, device="meta")
+    own = {id(p) for p in meta.parameters()}
+
+    def copies(tree) -> int:
+        if isinstance(tree, dict):
+            return sum(copies(v) for v in tree.values())
+        if isinstance(tree, (list, tuple)):
+            return sum(copies(v) for v in tree)
+        if torch.is_tensor(tree) and id(tree) not in own and \
+                tree._base is None:
+            return tree.numel() * tree.element_size()
+        return 0
+
+    cache = model_attention.init_cache(
+        cfg, SERVE_BATCH, PROMPT_LEN + NEW_TOKENS + 8, device="meta")
+    out = {"params_gb": param_bytes(meta) / 1e9,
+           "copies_gb": copies(meta._cast()) / 1e9,
+           "kv_cache_gb": sum(t.numel() * t.element_size()
+                              for t in cache) / 1e9}
+    out["peak_gb"] = sum(out.values())
+    return out
+
+
+def head_order_hold(cfg, q, k, v) -> float:
+    """The model's way into B2 (``models.attention.flash_attend``: q's
+    heads from the reference's ``[G, Hkv]`` grouping into the kernel's
+    ``[Hkv, G]`` and back) against the reference's plain grouped
+    attention (``gqa_attend``) on the same heads: B2's captured q, k, v
+    (``[B, H, S, hd]``, the kernel's head order) put back into the
+    model's order and layout.  Held as ``flash_hold`` holds bf16; returns
+    the largest gap."""
+    bsz, heads, seq, hd = q.shape
+    kv_heads = k.shape[1]
+    group = heads // kv_heads
+
+    def model_order(t):        # kernel head j * G + g -> model g * Hkv + j
+        return t.view(bsz, kv_heads, group, seq, hd) \
+            .permute(0, 3, 2, 1, 4).reshape(bsz, seq, heads, hd)
+
+    qm, km, vm = model_order(q), k.transpose(1, 2), v.transpose(1, 2)
+    got = model_attention.flash_attend(qm, km, vm, causal=True)
+    want = model_attention.gqa_attend(qm, km, vm, causal=True)
+    torch.cuda.synchronize()
+    gap = (got.float() - want.float()).abs()
+    limit = model_order(flash_bf16_atol(q, k, v, True)) \
+        + BF16_RTOL * want.float().abs()
+    ok = bool((gap <= limit).all())
+    share = float((gap / limit.clamp_min(1e-30)).max())
+    print(f"  flash_attend vs gqa_attend, {cfg.name}, {heads} q heads over "
+          f"{kv_heads} kv heads (G = {group}): max_abs_err "
+          f"{float(gap.max()):.3e}, largest gap {share:.3f} of its limit "
+          f"{'ok' if ok else 'MISMATCH'}")
+    check(ok, f"{cfg.name}: flash_attend's head order disagrees with the "
+          f"reference's grouping")
+    return float(gap.max())
+
+
+def dense_kernel_checks(cfg, seen: dict) -> dict:
+    """Phases 41-44: on a warm-up serve's own inputs, B2 at the prefill's
+    shape (and its first 2 rows cut to 200 tokens) against its plain
+    version, timed beside SDPA with its bound, and the model's head
+    order into it against the reference's grouping; B4 at the prefill's
+    and the decode step's shapes (its register route, or the generic one
+    past 16 vectors a lane, and the generic one on an unaligned copy),
+    held and timed, and at the prefill's shape cast to float32 (the
+    float32 model's rows of phases 41-44's card vs CPU, which take the
+    generic route past 4 KB)."""
+    keys = [k for k in seen if k[0] == "flash"]
+    check(len(keys) == 1, f"the {cfg.name} serve gave B2 shapes {keys}")
+    q, k, v, causal = seen[keys[0]]
+    want_q = (SERVE_BATCH, cfg.n_heads, PROMPT_LEN, cfg.hd)
+    want_k = (SERVE_BATCH, cfg.n_kv_heads, PROMPT_LEN, cfg.hd)
+    check(causal and q.dtype == torch.bfloat16 and tuple(q.shape) == want_q
+          and tuple(k.shape) == want_k, f"B2 saw q {tuple(q.shape)} "
+          f"{q.dtype}, k {tuple(k.shape)}, causal {causal}")
+    flash = flash_entry("prefill", cfg.name, q, k, v, True, ragged=True)
+    flash["group"] = cfg.n_heads // cfg.n_kv_heads
+    flash["head_order_err"] = head_order_hold(cfg, q, k, v)
+    rms = family_rms_rows(seen, 2, cfg.name)
+    x, gamma, eps = seen[("rms", SERVE_BATCH, PROMPT_LEN, cfg.d_model)]
+    rms_hold(x.reshape(-1, cfg.d_model).float(), gamma.float(), eps)
+    return {"flash": flash, "rms": rms}
+
+
+def new_serve(cfg, cuda, draws: HostDraws, phase: int) -> tuple:
+    """One of phases 41-44: ``cfg``'s model, drawn on the host by
+    ``draws``, moved to the card; its kernels on a warm-up serve's
+    inputs (``dense_kernel_checks``); the serve as phases 10 and 14 run
+    it, with its reckoned peak (``serve_reckoning``) beside the
+    measured; for the dense family, card vs CPU at ``DENSE_CPU_LAYERS``
+    layers (``family_cpu_compare``).  Returns the serve's stats and the
+    kernel checks."""
+    t0 = time.perf_counter()
+    host, need = draws.take(cfg.name)
+    drawn = draws.log[cfg.name]
+    gc.collect()               # what earlier phases left in reference cycles
+    torch.cuda.empty_cache()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    model = host.to(cuda)
+    torch.cuda.synchronize()
+    move_s = time.perf_counter() - t1
+    del host
+    draws.release(need)
+    reckoned = serve_reckoning(cfg)
+    dtypes = sorted({str(p.dtype)[6:] for p in model.parameters()})
+    print(f"phase {phase}: serving model {cfg.name} ({cfg.n_layers} layers"
+          f", d_model {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} of {cfg.hd}, vocab {cfg.vocab}, parameters in "
+          f"{'/'.join(dtypes)}): {drawn['params']} parameters, drawn on the "
+          f"host in {drawn['draw_s']:.2f} s ({drawn['values_per_s'] / 1e6:.1f}"
+          f" M values/s, ready {drawn['ready_at_s']:.1f} s after the draws "
+          f"began; this phase waited {drawn['main_waited_s']:.2f} s), moved "
+          f"to the card in {move_s:.2f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB on the card, "
+          f"{before_gb:.3f} of it before the move")
+    print(f"  reckoned serve peak {reckoned['peak_gb']:.3f} GB: parameters "
+          f"{reckoned['params_gb']:.3f}, compute copies "
+          f"{reckoned['copies_gb']:.3f}, KV cache "
+          f"{reckoned['kv_cache_gb']:.3f}")
+    if cfg.n_layers < FULL_DEPTH[cfg.name]:
+        full = serve_reckoning(cfg.scaled(n_layers=FULL_DEPTH[cfg.name]))
+        print(f"  at its full {FULL_DEPTH[cfg.name]} layers the reckoned "
+              f"serve peak is {full['peak_gb']:.3f} GB (parameters "
+              f"{full['params_gb']:.3f}, copies {full['copies_gb']:.3f})")
+        reckoned["full_depth_peak_gb"] = full["peak_gb"]
+    seen = capture_inputs(cfg, model, cuda)
+    print(f"  after the warm-up serve (the compute copies made): peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    checks = dense_kernel_checks(cfg, seen)
+    del seen
+    stats = serve_path(cfg, model, cuda, phase)
+    stats.update(n_layers=cfg.n_layers, reckoned=reckoned, drawn=drawn,
+                 move_s=move_s, before_gb=before_gb)
+    print(f"  peak {stats['peak_mem_gb']:.3f} GB measured, "
+          f"{reckoned['peak_gb']:.3f} reckoned "
+          f"({reckoned['peak_gb'] / stats['peak_mem_gb']:.4f} of it; "
+          f"{before_gb:.3f} GB were on the card before the move)")
+    del model
+    torch.cuda.empty_cache()
+    if cfg.family == Family.DENSE:
+        twin, need = draws.take(f"{cfg.name} twin")
+        print(f"phase {phase}: card vs CPU, {cfg.name} at {DENSE_CPU_LAYERS}"
+              f" layers, prefill of {CPU_BATCH} x {CPU_PROMPT} tokens (drawn"
+              f" on the host in {draws.log[f'{cfg.name} twin']['draw_s']:.2f}"
+              f" s)")
+        stats["card_vs_cpu"] = family_cpu_compare(
+            cfg.scaled(n_layers=DENSE_CPU_LAYERS), cuda, host=twin)
+        del twin
+        draws.release(need)
+    print(f"phase {phase}: {time.perf_counter() - t0:.1f} s wall")
+    return stats, checks
+
+
+def draw_jobs() -> list:
+    """The host draws of phases 41-44 in ``DRAW_ORDER``: the models of
+    ``NEW_SERVES`` and the dense ones' twins at ``DENSE_CPU_LAYERS``
+    layers."""
+    jobs = {cfg.name: cfg for cfg in NEW_SERVES}
+    jobs.update({f"{cfg.name} twin": cfg.scaled(n_layers=DENSE_CPU_LAYERS)
+                 for cfg in NEW_SERVES if cfg.family == Family.DENSE})
+    check(sorted(jobs) == sorted(DRAW_ORDER), f"draws {sorted(jobs)}")
+    return [(key, jobs[key]) for key in DRAW_ORDER]
+
+
+def entry_points() -> dict:
+    """Phase 45: the port's quickstart (``repro_torch.examples.
+    quickstart``: the smoke qwen2 trained 30 steps at 8 x 64, a
+    4-request serve, the 8-group alltoall sweep with Algorithm 1) and
+    the figure runner's ``selector`` and ``model`` suites
+    (``repro_torch.benchmarks.run``), on the card as a user runs them;
+    each output checked for its shape and finite values."""
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.examples import quickstart
+
+    t0 = time.perf_counter()
+    print("phase 45: python -m repro_torch.examples.quickstart")
+    got = quickstart.main([])
+    losses = got["losses"]
+    vocab = get_smoke_config("qwen2-1.5b").vocab
+    check(len(losses) == 30 and bool(np.isfinite(losses).all())
+          and losses[-1] < losses[0], f"quickstart losses {losses}")
+    check(len(got["generated"]) == 4 and all(
+        len(t) == 8 and all(0 <= x < vocab for x in t)
+        for t in got["generated"]), f"quickstart tokens {got['generated']}")
+    check(sorted(got["medians"]) == ["ADAPTIVE_0", "ADAPTIVE_3",
+                                     "app_aware"]
+          and all(np.isfinite(m) and m > 0
+                  for m in got["medians"].values()),
+          f"quickstart medians {got['medians']}")
+    quick_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    print("phase 45: python -m repro_torch.benchmarks.run --only "
+          "selector,model")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench_run.main(["--only", "selector,model"])
+    lines = buf.getvalue().splitlines()
+    print("\n".join(f"  {line}" for line in lines))
+    rows = [line.split(",", 2) for line in lines[1:]]
+    check(lines[0] == "name,us_per_call,derived" and all(
+        len(r) == 3 and np.isfinite(float(r[1])) for r in rows),
+        "benchmarks.run printed a malformed row")
+    names = [r[0] for r in rows]
+    check(sum(n.startswith("h100_selector.sweep.") for n in names) == 21
+          and "h100_selector.crossover_bytes" in names
+          and sum(n.startswith("model_validation.") for n in names) == 7,
+          f"benchmarks.run rows {names}")
+    out = {"quickstart_s": quick_s, "run_s": time.perf_counter() - t1,
+           "losses": [losses[0], losses[-1]], "medians": got["medians"],
+           "rows": len(rows)}
+    print(f"phase 45: {time.perf_counter() - t0:.1f} s wall")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path needs one",
@@ -4101,6 +4551,15 @@ def main() -> int:
         print(f"  {lib.path.name}: {n_hgmma} HGMMA instructions in its "
               f"SASS ({'present' if n_hgmma else 'ABSENT'})")
         check(n_hgmma > 0, f"{lib.path.name}'s SASS holds no HGMMA")
+
+    # phases 41-44's models are drawn on the host meanwhile
+    draws = HostDraws(draw_jobs(), DRAW_BUDGET_GB[0])
+    print(f"  host draws begun for phases 41-44 ({DRAW_WORKERS} threads): "
+          f"{', '.join(key for key, _ in draws.jobs)} (at most "
+          f"{DRAW_BUDGET_GB[0]:.0f}, {DRAW_BUDGET_GB[1]:.0f} and "
+          f"{DRAW_BUDGET_GB[2]:.0f} GB held in phases 3-33, 34-39 and "
+          f"40-44; "
+          f"{host_available() / 1e9:.1f} GB of host memory available)")
 
     topo = DragonflyTopology(TopologyParams(n_groups=N_GROUPS))
     n_links = int(topo.n_links)
@@ -4437,6 +4896,7 @@ def main() -> int:
     kernels += backward_kernel_checks(cuda)
 
     # phase 24: the training path; launch counts from here on are its own
+    draws.window("phases 24-33")
     t0 = time.perf_counter()
     train = train_path(cuda)
     print(f"phase 24: {time.perf_counter() - t0:.1f} s wall")
@@ -4479,6 +4939,8 @@ def main() -> int:
     # phase 33: card vs CPU, one float32 paligemma-3b step at 2 layers
     trains[PALIGEMMA.name]["card_vs_cpu"] = train_cpu_compare(
         cuda, PALIGEMMA, 33)
+    draws.set_budget(DRAW_BUDGET_GB[1])
+    draws.window("phases 34-39")
 
     # phase 34: the MoE training path at the reckoned depth; launch counts
     # from here on are its own, its first step's backward inputs kept
@@ -4509,6 +4971,8 @@ def main() -> int:
     # phase 39: elastic restart of phase 24's trained state
     t0 = time.perf_counter()
     trains[QWEN2.name]["elastic"] = elastic_restart(cuda)
+    draws.set_budget(DRAW_BUDGET_GB[2])    # the snapshot is gone
+    draws.window("phases 40-44")
     print(f"phase 39: {time.perf_counter() - t0:.1f} s wall")
 
     # phase 40: the dry run's reckoning beside this run's steps
@@ -4516,7 +4980,26 @@ def main() -> int:
     reckoning = dryrun_reckoning(serve_stats, trains)
     print(f"phase 40: {time.perf_counter() - t0:.1f} s wall")
     print("  reckoning " + json.dumps(reckoning))
+
+    # phases 41-44: the configs not served at full size before, their
+    # kernels at their shapes first, then launch counts from each serve
+    # are its own
     rows = {r["name"]: r for r in kernels}
+    for phase, cfg in enumerate(NEW_SERVES, 41):
+        serve_stats[cfg.name], got = new_serve(cfg, cuda, draws, phase)
+        rows["flash_attention"]["by_shape"].append(got["flash"])
+        rows["rmsnorm_fused"]["by_shape"] += [rms_entry(r, cfg.name)
+                                              for r in got["rms"]]
+        for name, errs in (("flash_attention", [
+                got["flash"]["max_abs_err"], got["flash"]["head_order_err"]]),
+                ("rmsnorm_fused", [r["max_abs_err"] for r in got["rms"]])):
+            rows[name]["max_abs_err"] = max([rows[name]["max_abs_err"]]
+                                            + errs)
+    print("  host draws " + json.dumps(draws.finish()))
+
+    # phase 45: the port's examples and figure runner, as a user runs them
+    entry = entry_points()
+    print("  entry points " + json.dumps(entry))
     for name, entries in (("flash_attention_bwd", [zrows["flash"],
                                                    vrows["flash"]]
                            + nrows["flash"]),

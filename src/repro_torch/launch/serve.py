@@ -14,13 +14,27 @@
         --new-tokens 32                                    # enc-dec, on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \
         --requests 8 --prompt-len 512 --new-tokens 32      # VLM, on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --requests 8 --prompt-len 512 --new-tokens 32      # also stablelm-1.6b,
+                                                           # codeqwen1.5-7b
 
 ``--arch`` takes any ported architecture (``repro_torch.configs.PORTED``:
 mamba2-130m, the dense qwen2-1.5b, stablelm-1.6b, llama3-8b,
 codeqwen1.5-7b, the MoE granite-moe-3b-a800m and qwen2-moe-a2.7b, the
-hybrid zamba2-7b, the enc-dec whisper-large-v3 and the VLM paligemma-3b;
-qwen2-moe-a2.7b's 14.3 B parameters do not fit one 80 GB card in float32
-masters plus their bf16 copies).  The weights are random, drawn from
+hybrid zamba2-7b, the enc-dec whisper-large-v3 and the VLM paligemma-3b).
+qwen2-moe-a2.7b's 14.3 B parameters do not fit one 80 GB card as the
+launcher builds them, in float32 masters (57.3 GB) plus their bf16 copies
+(28.6 GB).  Served from bf16 parameters they do (47.8 GB reckoned with
+the compute copies; chip_smoke.py phase 42), with the same bits: the weights
+are drawn in float32 and cast, so the model holds the float32 masters'
+bf16 copy, and the MoE router stays float32.  The launcher has no flag
+for it; from the library::
+
+    cfg = get_config("qwen2-moe-a2.7b").scaled(param_dtype=torch.bfloat16)
+    model = model_registry.init_params(cfg, seed)          # on the card
+    ServeEngine(cfg, model, ServeConfig(batch=8, max_len=552)).run(reqs)
+
+The same holds for the dense family.  The weights are random, drawn from
 ``--seed``; for whisper the frame embeddings ``[requests,
 encoder_frames, d_model]`` and for paligemma the patch embeddings
 ``[requests, img_tokens, d_model]`` are ``standard_normal * 0.02`` from

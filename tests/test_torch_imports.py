@@ -82,6 +82,12 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.train.optimizer", "repro_torch.train.train_step",
             "repro_torch.train.grad_comm", "repro_torch.ckpt",
             "repro_torch.ckpt.checkpoint", "repro_torch.launch.train"} <= names
+    # the user-facing entry points: the examples and the figure driver
+    assert {"repro_torch.examples", "repro_torch.examples.quickstart",
+            "repro_torch.examples.serve_lm", "repro_torch.examples.train_lm",
+            "repro_torch.examples.noise_aware_collectives",
+            "repro_torch.benchmarks.run",
+            "repro_torch.benchmarks.h100_selector"} <= names
 
 
 def test_simulator_without_device_raises_when_cuda_is_absent(monkeypatch):

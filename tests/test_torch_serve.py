@@ -176,3 +176,43 @@ def test_launcher_refuses_unported_architectures(capsys):
     with pytest.raises(KeyError, match="unknown arch"):
         launch_serve.main(["--arch", "no-such-arch", "--smoke", "--device",
                            "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "llama3-8b"])
+def test_bf16_params_serve_the_same_bits(arch):
+    """A model built with ``param_dtype=torch.bfloat16`` (the way
+    qwen2-moe-a2.7b fits the card at full depth) holds the values of the
+    float32 masters' bf16 cast (the draws are float32 on the host, then
+    cast), keeps the MoE router in float32, serves its unjoined weights
+    from the parameters' own storage, and serves the same bits as the
+    float32-master model from the same seed: prefill logits equal and
+    the same greedy tokens."""
+    from repro_torch.models import registry
+
+    cfg = get_smoke_config(arch)
+    models = {pd: registry.init_params(cfg.scaled(param_dtype=pd), 0, "cpu")
+              for pd in (torch.float32, torch.bfloat16)}
+    m32, m16 = models[torch.float32], models[torch.bfloat16]
+    for (name, p32), (_, p16) in zip(m32.named_parameters(),
+                                     m16.named_parameters()):
+        want = torch.float32 if name.endswith("moe.router") else torch.bfloat16
+        assert p16.dtype == want, name
+        assert torch.equal(p16, p32.to(want)), name
+    w16 = m16.weights()
+    assert w16["blocks"][0]["wo"].data_ptr() == \
+        m16.blocks[0].attn.wo.data_ptr()
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab, (2, 24)))
+    got = {}
+    for pd, model in models.items():
+        c = cfg.scaled(param_dtype=pd)
+        state = registry.make_decode_state(c, 2, 40, device="cpu")
+        logits, _ = registry.prefill(model, {"tokens": toks}, c, state)
+        out = ServeEngine(c, model, ServeConfig(batch=4, max_len=32),
+                          device="cpu").run(
+            [Request(prompt=list(p), max_new_tokens=n)
+             for p, n in zip(PROMPTS, NEW)])
+        got[pd] = (logits, [r.out_tokens for r in out])
+    assert torch.equal(got[torch.bfloat16][0], got[torch.float32][0])
+    assert got[torch.bfloat16][1] == got[torch.float32][1]
+    assert [len(t) for t in got[torch.float32][1][:3]] == NEW
