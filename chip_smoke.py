@@ -100,8 +100,9 @@ Phases:
 
 1. the card's name, power limit and compute capability (must be 9.0);
 2. build of every kernel library (one ``nvcc`` per source, all started
-   together), and a probe of the flash and SSD libraries' SASS for
-   ``HGMMA`` (the tensor-core ``wgmma`` of their bf16 kernels);
+   together), a probe of the flash and SSD libraries' SASS for
+   ``HGMMA`` (the tensor-core ``wgmma`` of their bf16 kernels), and
+   ptxas's report that B4's wide-route builds spill nothing;
 3. the segment-sum kernels against their plain PyTorch versions' sums
    in float64 on the card, at the simulator path's shapes (the scatter form also on
    slices that start off a 16-byte boundary), with the ids per link the
@@ -193,9 +194,10 @@ Phases:
 17. zamba2-7b built on the card (parameters, build time, peak memory);
     on a warm-up serve's own inputs B2 at head dim 112 (the 128 build),
     B3 at N = 64 with 112 heads on both routes and B4 at `[4096,3584]`,
-    `[4096,7168]` (the generic route), `[8,3584]` and `[8,7168]`, each
+    `[4096,7168]` (the wide route), `[8,3584]` and `[8,7168]` (wide), each
     against its plain version under the rules of phases 6 and 9, timed,
-    with its bound (B2 beside SDPA);
+    with its bound (B2 beside SDPA); B4's generic route at the two
+    7168-wide shapes on copies no vector route takes, held and timed;
 18. the hybrid serving path as phase 7: every prefill (12 B2, 81 B3, 187
     B4) and decode step (0, 0, 187) checked, then profiled;
 19. whisper-large-v3: B2 at the encoder's non-causal `[8,20,1504,64]`,
@@ -268,8 +270,9 @@ Phases:
     step of that run profiled (B3's two tensor-core backward kernels 14
     times each); then, on the first run's captured inputs, B3's backward at
     ``[8,4,112,128,64]``, N = 64, B2's at q, k, v ``[8,32,512,112]`` and
-    B4's at widths 3584 and 7168 (its generic route), each held and
-    timed as in phases 23 and 26;
+    B4's at widths 3584 and 7168 (its wide route; and its generic route on
+    copies no vector route takes, held and timed), each held and timed as
+    in phases 23 and 26;
 30. as phase 25 for zamba2-7b at full width and 3 layers with the
     shared block between each two, so that its gradient sums over two
     applications;
@@ -332,7 +335,7 @@ Phases:
     B4 at the prefill's and decode step's shapes (``[4096,4096]``, the
     register route's 16 vectors a lane, and ``[4096,2048]``) held and
     timed as in phase 17, and at the prefill's shape in float32 (the
-    generic route); the serve as phase 10's (B2 / B4 launches per prefill
+    register route at 2048, the wide one at 4096); the serve as phase 10's (B2 / B4 launches per prefill
     and decode step: 24/49 and 0/49, 24/49 and 0/49, 32/65 and 0/65,
     32/65 and 0/65), profiled; for the three dense configs card vs CPU at
     2 layers, float32 at ``LOGITS_F32_TOL`` per element as phase 11 holds
@@ -1268,32 +1271,43 @@ def rms_row(x, gamma, eps, iters: int = 200) -> dict:
 
 
 def rms_entry(row: dict, model: str) -> dict:
-    """B4's ``by_shape`` entry of one shape's row."""
+    """B4's ``by_shape`` entry of one shape's row (with the generic
+    route's time where ``rms_generic_check`` took one)."""
     return dict({k: row[k] for k in (
         "shape", "kernel_route", "ms", "library_graph_ms", "bound_ms",
         "warm_ms", "library_warm_graph_ms", "copy_graph_ms", "max_abs_err",
-        "plain_ms", "library_ms")}, model=model)
+        "plain_ms", "library_ms", "generic_ms") if k in row}, model=model)
 
 
-def register_fits(x2) -> bool:
-    """Whether B4's register route takes rows of ``x2``'s width: whole
-    16-byte vectors, at most 16 per lane of a warp."""
+def route_by_width(x2) -> str:
+    """The route B4 takes for aligned rows of ``x2``'s width: whole
+    16-byte vectors, at most 16 per lane of a warp on the register
+    route, at most 2,048 a row on the wide route; else the generic
+    route."""
     row_bytes = x2.shape[-1] * x2.element_size()
-    return row_bytes % 16 == 0 and -(-row_bytes // 16 // 32) <= 16
+    if row_bytes % 16:
+        return "generic"
+    vectors = row_bytes // 16
+    return ("register" if vectors <= 32 * 16 else
+            "wide" if vectors <= 2048 else "generic")
+
+
+def shifted_copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` one element off a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def rms_hold(x2, gamma, eps) -> float:
     """B4 against its plain version at one shape (one bf16 ulp), on the
-    route the shape takes (the register route where ``register_fits``,
-    else the generic one) and on the generic route (a copy of ``x`` one
-    element off a 16-byte boundary); prints the routes.  Returns the
-    largest gap to the plain version."""
+    route the shape takes (``route_by_width``) and on the generic route
+    (a copy of ``x`` one element off a 16-byte boundary); prints the
+    routes.  Returns the largest gap to the plain version."""
     want = rmsnorm_plain(x2, gamma, eps)
-    buf = torch.empty(x2.numel() + 1, dtype=x2.dtype, device=x2.device)
-    shifted = buf[1:].view(x2.shape)
-    shifted.copy_(x2)
     e = 0.0
-    for label, xin in (("", x2), ("unaligned copy, ", shifted)):
+    for label, xin in (("", x2), ("unaligned copy, ", shifted_copy(x2))):
         route = rms_ops.route(xin, gamma)
         got = rmsnorm_fused(xin, gamma, eps)
         torch.cuda.synchronize()
@@ -1308,12 +1322,57 @@ def rms_hold(x2, gamma, eps) -> float:
               f"{'ok' if ok else 'MISMATCH'}")
         check(ok, f"rmsnorm {tuple(x2.shape)} on the {route[0]} route "
               f"disagrees with its plain version")
-        check((route[0] == "generic") == (bool(label) or
-                                          not register_fits(x2)),
+        check(route[0] == ("generic" if label else route_by_width(x2)),
               f"rmsnorm {tuple(x2.shape)}: {label or 'aligned, '}"
               f"{route[0]} route")
         e = max(e, gap)
     return e
+
+
+def rms_generic_check(x2, gamma, eps, dy2=None) -> float:
+    """B4's generic route (``dy2`` None), or its backward's, at one of
+    the shapes the wide routes take: each held against its plain version
+    on two copies that no vector route takes, x (and dy) one element off
+    a 16-byte boundary, and gamma so with x, dy and the outputs aligned
+    (the generic kernels as they ran such rows before the wide routes:
+    the forward's two-pass 16-byte loop, the backward's block a row);
+    the second timed over a ring of x.  Returns its milliseconds."""
+    shape = tuple(x2.shape)
+    off_g = shifted_copy(gamma)
+    if dy2 is None:
+        want = rmsnorm_plain(x2, gamma, eps)
+        for label, ins in (("x", (shifted_copy(x2), gamma)),
+                           ("gamma", (x2, off_g))):
+            route = rms_ops.route(*ins)
+            got = rmsnorm_fused(*ins, eps)
+            torch.cuda.synchronize()
+            ok = bool(torch.allclose(got.float(), want.float(),
+                                     rtol=BF16_RTOL, atol=0.0))
+            gap = max_err(got.float(), want.float())
+            print(f"  rmsnorm {shape}, {label} off 16 bytes: {route[0]} "
+                  f"route, max_abs_err {gap:.3e} (rtol {BF16_RTOL:.4g}) "
+                  f"{'ok' if ok else 'MISMATCH'}")
+            check(route[0] == "generic" and ok, f"rmsnorm {shape} with "
+                  f"{label} off 16 bytes: {route[0]} route, ok {ok}")
+        ms = graph_ms_ring(lambda xi: rmsnorm_fused(xi, off_g, eps), x2,
+                           RMS_ITERS)
+    else:
+        for label, ins in (("x and dy", (shifted_copy(x2), gamma,
+                                         shifted_copy(dy2))),
+                           ("gamma", (x2, off_g, dy2))):
+            route = rms_ops.bwd_route(*ins)
+            check(route[0] == "generic", f"rmsnorm_bwd {shape} with {label} "
+                  f"off 16 bytes: {route[0]} route")
+            print(f"  rmsnorm_bwd {shape}, {label} off 16 bytes: generic "
+                  f"route")
+            hold_grads(f"generic, {label} off", rmsnorm_bwd(*ins, eps),
+                       lambda *t: rmsnorm_bwd_plain(*t, eps), ins)
+        ms = graph_ms_ring(lambda xi: rmsnorm_bwd(xi, off_g, dy2, eps), x2,
+                           50)
+    print(f"  {'rmsnorm' if dy2 is None else 'rmsnorm_bwd'} {shape} on the "
+          f"generic route (gamma off 16 bytes): {ms * 1e3:.2f} us/call "
+          f"(graph replay over a ring of x)")
+    return ms
 
 
 def flash_checks(seen: dict) -> dict:
@@ -2506,6 +2565,11 @@ def zamba2_kernel_checks(seen: dict) -> dict:
                            ZAMBA2.ssm_head_dim, ZAMBA2.ssm_state, 1],
           f"B3 saw {ssd['shape']}")
     rms = family_rms_rows(seen, 4, ZAMBA2.name)
+    for key, row in zip(sorted(k for k in seen if k[0] == "rms"), rms):
+        x, gamma, eps = seen[key]
+        if x.shape[-1] == d_inner:
+            row["generic_ms"] = rms_generic_check(
+                x.reshape(-1, d_inner), gamma, eps)
     return {"flash": flash, "ssd": ssd, "rms": rms}
 
 
@@ -2993,8 +3057,9 @@ def flash_bwd_row(args, lse, full: bool = True, *, prefix: int = 0,
 def rms_bwd_row(args, want_route: str = "register") -> dict:
     """Phase 23, B4's backward at a train step's shape: held in bf16 and
     float32, timed by graph replay over a ring of copies of x beside the
-    plain backward and ``F.rms_norm``'s autograd backward, with its
-    bound; the route must be ``want_route``."""
+    plain backward, ``F.rms_norm``'s autograd backward and ``x + dy``
+    (the same bytes), with its bound; the route must be
+    ``want_route``."""
     import torch.nn.functional as F
 
     x, gamma, dy = args[:3]
@@ -3022,6 +3087,9 @@ def rms_bwd_row(args, want_route: str = "register") -> dict:
     nbytes = 3 * x2.numel() * x2.element_size() + 2 * d * gamma.element_size()
     flops = 8 * x2.numel()
     ms = graph_ms_ring(lambda xi: rmsnorm_bwd(xi, gamma, dy2, eps), x2, 50)
+    # the bytes of the bound (read x and dy, write one such tensor) moved
+    # by one PyTorch elementwise kernel, as the timed call moves them
+    copy_ms = graph_ms_ring(lambda xi: torch.add(xi, dy2), x2, 50)
     warm_ms = graph_ms(lambda: rmsnorm_bwd(x2, gamma, dy2, eps), 50)
     plain_ms = cuda_ms(lambda: rmsnorm_bwd_plain(x2, gamma, dy2, eps), 20)
     library_ms = library_bwd_ms(
@@ -3034,13 +3102,15 @@ def rms_bwd_row(args, want_route: str = "register") -> dict:
           f"{warm_ms * 1e3:.2f} us), plain {plain_ms * 1e3:.2f} us, "
           f"F.rms_norm autograd backward (forward subtracted) "
           f"{library_ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us ({nbytes} "
-          f"bytes), {bound / ms:.1%} of it")
+          f"bytes), {bound / ms:.1%} of it; x + dy over the ring (the same "
+          f"bytes) {copy_ms * 1e3:.2f} us")
     return {"name": "rmsnorm_bwd", "route": "cuda", "source": RMS_BWD_SOURCE,
             "replaces": RMS_TPU, "launches": 0, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": library_ms, "shape": list(x2.shape),
-            "warm_ms": warm_ms, "kernel_route": list(route)}
+            "warm_ms": warm_ms, "copy_graph_ms": copy_ms,
+            "kernel_route": list(route)}
 
 
 def backward_kernel_checks(cuda) -> list:
@@ -3557,10 +3627,17 @@ def hybrid_train_path(cuda) -> tuple:
     rows = {"flash": flash_bwd_row(fa, fkw.get("lse"), full=False),
             "ssd": ssd_bwd_row(calls["ssd", cfg.ssm_head_dim][0], ZAMBA2.name,
                                full=False),
-            "rms": [rms_bwd_row(ra + tuple(rkw.values()), "generic")
-                    for ra, rkw in (calls["rms", cfg.d_model],
-                                    calls["rms", d_inner])]}
-    del seen, calls, fa
+            "rms": []}
+    for ra, rkw in (calls["rms", cfg.d_model], calls["rms", d_inner]):
+        args = ra + tuple(rkw.values())
+        row = rms_bwd_row(args, "wide")
+        x, gamma, dy = args[:3]
+        row["generic_ms"] = rms_generic_check(
+            x.reshape(-1, x.shape[-1]), gamma,
+            args[3] if len(args) > 3 else cfg.norm_eps,
+            dy.reshape(-1, x.shape[-1]))
+        rows["rms"].append(row)
+    del seen, calls, fa, ra, args, x, gamma, dy
     torch.cuda.empty_cache()
     print(f"phase 29: {time.perf_counter() - t0:.1f} s wall")
     return stats, rows
@@ -4361,11 +4438,11 @@ def dense_kernel_checks(cfg, seen: dict) -> dict:
     shape (and its first 2 rows cut to 200 tokens) against its plain
     version, timed beside SDPA with its bound, and the model's head
     order into it against the reference's grouping; B4 at the prefill's
-    and the decode step's shapes (its register route, or the generic one
+    and the decode step's shapes (its register route, or the wide one
     past 16 vectors a lane, and the generic one on an unaligned copy),
     held and timed, and at the prefill's shape cast to float32 (the
     float32 model's rows of phases 41-44's card vs CPU, which take the
-    generic route past 4 KB)."""
+    wide route past 8 KB)."""
     keys = [k for k in seen if k[0] == "flash"]
     check(len(keys) == 1, f"the {cfg.name} serve gave B2 shapes {keys}")
     q, k, v, causal = seen[keys[0]]
@@ -4536,6 +4613,7 @@ def main() -> int:
         lib.load()
     print(f"phase 2: built {len(infos)} kernel libraries in "
           f"{time.perf_counter() - t0:.2f} s wall")
+    wide_spills = []
     for info in infos:
         print(f"  {info.path}: {info.seconds:.2f} s")
         entry = ""
@@ -4546,6 +4624,15 @@ def main() -> int:
                     if "_cu_" in entry else entry[:48]
             elif "registers" in line or "spill" in line:
                 print("   ", entry, line.strip())
+                if "spill stores" in line and ("rmsnorm_wide" in entry or
+                                               "rmsnorm_bwd_wide" in entry):
+                    wide_spills.append(int(line.split("bytes spill stores")[0]
+                                           .split(",")[-1]))
+    if any(info.path == rms_ops.LIB.path and info.log for info in infos):
+        check(len(wide_spills) == 12 and not any(wide_spills),
+              f"B4's wide-route builds spill: {wide_spills} bytes of spill "
+              f"stores")
+        print(f"  B4's {len(wide_spills)} wide-route builds: no spill")
     for lib in (FLASH_LIB, SSD_LIB):
         n_hgmma = hgmma_count(lib)
         print(f"  {lib.path.name}: {n_hgmma} HGMMA instructions in its "
@@ -5010,7 +5097,8 @@ def main() -> int:
             {k: e[k] for k in ("model", "attention", "shape", "causal",
                                "prefix_len", "max_abs_err", "ms", "plain_ms",
                                "bound_ms", "bound_by", "library_ms",
-                               "float32")
+                               "float32", "kernel_route", "generic_ms",
+                               "copy_graph_ms")
              if k in e} for e in entries)
         rows[name]["max_abs_err"] = max([rows[name]["max_abs_err"]] +
                                         [e["max_abs_err"] for e in entries])

@@ -6,15 +6,20 @@ eps) * gamma`` over the last axis, in float32, cast once to ``x``'s
 dtype.  ``x`` is float32 or bfloat16 of any leading shape; ``gamma`` is
 ``[D]``, float32 or bfloat16.
 
-On the card the kernel takes one of two routes (:func:`route`): the
-register route, which holds a row in registers and reads it once, where
-D is a multiple of 16 bytes' worth of values, at most 16 such vectors
-per lane (D <= 4,096 in bf16, D <= 2,048 in float32), and x and gamma are
-16-byte aligned; else the generic two-pass route.  The register route
-sums in the order of the generic route's 16-byte loop, so on aligned rows
-the two give the same bits; the generic route's one-value loop (unaligned
-rows, D not a multiple of the vector) sums in another order and agrees
-to one bf16 ulp.
+On the card the kernel takes one of three routes (:func:`route`): the
+register route, which holds a row in one warp's registers and reads it
+once, where D is a multiple of 16 bytes' worth of values, at most 16 such
+vectors per lane (D <= 4,096 in bf16, D <= 2,048 in float32), and x,
+gamma and out are 16-byte aligned; the wide route, for such rows past 16
+vectors a lane up to 2,048 vectors (D <= 16,384 in bf16, <= 8,192 in
+float32), which holds a row in the registers of one block, 4 vectors a
+thread (at zamba2-7b's ``[4096, 7168]`` in bf16 it must move 117.4 MB,
+35.06 us at 3.35 TB/s); else the generic two-pass route.  The register
+route sums in the order of the generic route's 16-byte loop, so on
+aligned rows the two give the same bits; the wide route folds its warps'
+sums in warp order, and the generic route's one-value loop (unaligned
+rows, D not a multiple of the vector) sums in another order: each agrees
+with the plain version to one bf16 ulp.
 
 :func:`rmsnorm_fused` returns through :class:`RMSNormFunction`, whose
 forward runs the kernel of ``csrc/rmsnorm.cu`` and whose backward runs
@@ -23,11 +28,17 @@ forward runs the kernel of ``csrc/rmsnorm.cu`` and whose backward runs
 (:func:`bwd_route`): a register route with a warp per row where D is a
 multiple of 16 bytes' worth of values, at most 8 such vectors per lane
 (D <= 2,048 in bf16, D <= 1,024 in float32), and x, gamma and dy are
-16-byte aligned; else a generic route with a block per chunk of rows.
-Each gives the same bits from run to run.  Each wrapper runs its plain version
-only for tensors on the CPU (which only the tests pass); for CUDA
-tensors it launches its kernel on the current stream or raises, and any
-other device raises.  No path on a CUDA tensor reaches a plain version.
+16-byte aligned; a wide route for such rows up to 2,048 vectors, where a
+block walks a chunk of rows a row at a time with 2 or 4 vectors a thread
+and the next row's loads in flight (it must move 88.1 and 176.2 MB at
+zamba2-7b's ``[4096, 3584]`` and ``[4096, 7168]``, 26.30 and 52.59 us);
+else a generic route with a block per chunk of rows.  :func:`bwd_blocks`
+sizes the grid, and with it the ``[blocks, D]`` float32 scratch of
+dgamma partials (7.3 MB at ``[4096, 7168]``, written once and read once).
+Each route gives the same bits from run to run.  Each wrapper runs its
+plain version only for tensors on the CPU (which only the tests pass);
+for CUDA tensors it launches its kernel on the current stream or raises,
+and any other device raises.  No path on a CUDA tensor reaches a plain version.
 The wrappers count their launches in ``rmsnorm_fused.launches`` and
 ``rmsnorm_bwd.launches``.
 """
@@ -44,9 +55,12 @@ DTYPES = (torch.float32, torch.bfloat16)
 #: lives in shared memory, 4 bytes a column)
 MAX_BWD_D = 56000
 #: blocks of the backward's row kernel per SM: the register route's
-#: 256-thread blocks (8 warps, a warp a row at a time), the generic
-#: route's (a block a row at a time)
-BWD_BLOCKS_PER_SM = {"register": 2, "generic": 4}
+#: 256-thread blocks (8 warps, a warp a row at a time), the wide route's
+#: (up to 16 warps, a block a row at a time, the next row's loads in
+#: flight), the generic route's (a block a row at a time)
+BWD_BLOCKS_PER_SM = {"register": 2, "wide": 2, "generic": 4}
+#: the routes' names by the libraries' route codes
+ROUTES = ("generic", "register", "wide")
 
 
 def rmsnorm_plain(x: torch.Tensor, gamma: torch.Tensor,
@@ -162,13 +176,7 @@ def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
     if rows == 0:
         return dx, torch.zeros_like(gamma)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    kind = bwd_route(x, gamma, dy)[0]
-    cap = BWD_BLOCKS_PER_SM[kind] * sms
-    if kind == "register":   # 8 warps a block, each the same number of rows
-        per_warp = -(-rows // (8 * cap))
-        blocks = -(-rows // (8 * per_warp))
-    else:
-        blocks = min(rows, cap)
+    blocks = bwd_blocks(bwd_route(x, gamma, dy)[0], rows, sms)
     part = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
     dgamma = torch.empty_like(gamma)
     err = lib.rmsnorm_bwd(
@@ -185,28 +193,48 @@ def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
 rmsnorm_bwd.launches = 0
 
 
+def bwd_blocks(kind: str, rows: int, sms: int) -> int:
+    """Blocks of the backward's row kernel on route ``kind`` for ``rows``
+    rows on ``sms`` SMs, each block walking a contiguous chunk of rows
+    and writing one row of the ``[blocks, D]`` float32 scratch: at most
+    ``BWD_BLOCKS_PER_SM[kind] * sms`` and at most ``rows``.  The vector
+    routes take as few blocks as leave each the same number of rows
+    (but the last): on the register route every one of a block's 8
+    warps; on the wide route the block itself (256 at 4,096 rows on 132
+    SMs, 16 rows each)."""
+    cap = BWD_BLOCKS_PER_SM[kind] * sms
+    if kind == "register":   # 8 warps a block, each the same number of rows
+        per_warp = -(-rows // (8 * cap))
+        return -(-rows // (8 * per_warp))
+    if kind == "wide":
+        return -(-rows // -(-rows // cap))
+    return min(rows, cap)
+
+
 def route(x: torch.Tensor, gamma: torch.Tensor) -> tuple:
     """The route :func:`rmsnorm_fused` takes on the card for these
     CUDA tensors, launching nothing: ``("register", kV, warps)`` with kV
-    16-byte vectors per lane, or ``("generic", 0, warps)``; ``warps`` is
-    rows per block.  Assumes an output from PyTorch's allocator (16-byte
+    16-byte vectors per lane and ``warps`` rows per block, ``("wide",
+    4, 1)`` (4 vectors a thread, a block a row), or ``("generic", 0,
+    warps)``.  Assumes an output from PyTorch's allocator (16-byte
     aligned), as the wrapper makes."""
     d = x.shape[-1]
     code = LIB.load().rmsnorm_route(
         x.data_ptr(), gamma.data_ptr(), None, x.numel() // d, d,
         int(x.dtype == torch.bfloat16))
-    kv, warps = divmod(code, 256)
-    return ("register" if kv else "generic", kv, warps)
+    kind, rest = divmod(code, 65536)
+    return (ROUTES[kind],) + divmod(rest, 256)
 
 
 def bwd_route(x: torch.Tensor, gamma: torch.Tensor,
               dy: torch.Tensor) -> tuple:
     """The route :func:`rmsnorm_bwd` takes on the card for these CUDA
     tensors, launching nothing: ``("register", kV)`` with kV 16-byte
-    vectors per lane, or ``("generic", 0)``.  Assumes a dx from
-    PyTorch's allocator (16-byte aligned), as the wrapper makes."""
+    vectors per lane, ``("wide", kV)`` with kV (2 or 4) a thread, or
+    ``("generic", 0)``.  Assumes a dx from PyTorch's allocator (16-byte
+    aligned), as the wrapper makes."""
     d = x.shape[-1]
-    kv = LIB.load().rmsnorm_bwd_route(
+    kind, kv = divmod(LIB.load().rmsnorm_bwd_route(
         x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), None, d,
-        int(x.dtype == torch.bfloat16))
-    return ("register" if kv else "generic", kv)
+        int(x.dtype == torch.bfloat16)), 256)
+    return (ROUTES[kind], kv)

@@ -292,9 +292,10 @@ def test_batched_phases_on_the_card(cuda, planned):
     ((4100, 768), torch.float32, torch.float32),
 ])
 def test_rmsnorm_kernel_matches_plain(cuda, shape, xdtype, gdtype):
-    """Both routes against the plain version: the register route (every
+    """Every route against the plain version: the register route (every
     shape whose D is a multiple of 16 bytes, up to 16 vectors per lane),
-    the generic one for the rest."""
+    the wide route past it (``[2, 8192]`` in float32), the generic one
+    for the rest."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(shape, device=cuda, generator=gen).to(xdtype)
     gamma = (1 + 0.5 * torch.randn(shape[-1], device=cuda,
@@ -585,15 +586,16 @@ def test_ssd_kernel_at_zamba2_shape(cuda, dtype):
 @pytest.mark.parametrize("shape,route", [
     ((4096, 3584), "register"),   # zamba2 prefill ln (14 vectors a lane)
     ((8, 3584), "register"),      # zamba2 decode
-    ((4096, 7168), "generic"),    # zamba2 gated norm over d_inner
-    ((8, 7168), "generic"),
+    ((4096, 7168), "wide"),       # zamba2 gated norm over d_inner
+    ((8, 7168), "wide"),
     ((12032, 1280), "register"),  # whisper encoder
     ((1024, 1280), "register"),   # whisper decoder prefill
 ])
 def test_rmsnorm_at_the_hybrid_and_encdec_shapes(cuda, shape, route):
     """B4 at zamba2-7b's and whisper-large-v3's serving shapes, in bf16 on
-    the route each takes, and a copy one element off a 16-byte boundary
-    on the generic route; both at one bf16 ulp of the plain version."""
+    the route each takes (the wide one at 7168), and a copy one element
+    off a 16-byte boundary on the generic route; both at one bf16 ulp of
+    the plain version."""
     gen = torch.Generator(device=cuda).manual_seed(7)
     x = torch.randn(shape, device=cuda, generator=gen).to(torch.bfloat16)
     gamma = (1 + 0.5 * torch.randn(shape[-1], device=cuda,
@@ -608,6 +610,32 @@ def test_rmsnorm_at_the_hybrid_and_encdec_shapes(cuda, shape, route):
         torch.cuda.synchronize()
         torch.testing.assert_close(out.float(), want, rtol=BF16_RTOL,
                                    atol=0.0)
+
+
+@pytest.mark.parametrize("shape,xdtype,gdtype", [
+    ((4096, 7168), torch.bfloat16, torch.bfloat16),  # zamba2 prefill
+    ((8, 7168), torch.bfloat16, torch.bfloat16),     # zamba2 decode
+    ((16, 4104), torch.bfloat16, torch.float32),     # 513 vectors a row
+    ((4, 4096), torch.float32, torch.float32),
+])
+def test_rmsnorm_wide_route_is_deterministic(cuda, shape, xdtype, gdtype):
+    """The forward's wide route (a block a row, 4 vectors a thread, the
+    warps' sums folded in warp order): taken past 16 vectors a lane,
+    the same bits in two runs, held against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(shape, device=cuda, generator=gen).to(xdtype)
+    gamma = (1 + 0.5 * torch.randn(shape[-1], device=cuda,
+                                   generator=gen)).to(gdtype)
+    assert rms_route(x, gamma) == ("wide", 4, 1)
+    first, second = rmsnorm_fused(x, gamma), rmsnorm_fused(x, gamma)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    want = rmsnorm_plain(x, gamma)
+    if xdtype == torch.float32:
+        torch.testing.assert_close(first, want, rtol=TOL, atol=TOL)
+    else:
+        torch.testing.assert_close(first.float(), want.float(),
+                                   rtol=BF16_RTOL, atol=0.0)
 
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-large-v3",
@@ -839,11 +867,14 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, shape, xdtype, gdtype):
     ((5, 264), torch.float32, torch.float32, ("register", 3)),
     ((3, 2048), torch.bfloat16, torch.float32, ("register", 8)),
     ((3, 5, 100), torch.bfloat16, torch.float32, ("generic", 0)),
-    ((1000, 7168), torch.float32, torch.float32, ("generic", 0)),
+    ((1000, 7168), torch.float32, torch.float32, ("wide", 4)),
+    ((4096, 7168), torch.bfloat16, torch.bfloat16, ("wide", 4)),  # zamba2
+    ((4096, 3584), torch.bfloat16, torch.bfloat16, ("wide", 2)),  # train
 ])
 def test_rmsnorm_bwd_route_is_deterministic(cuda, shape, xdtype, gdtype,
                                             want):
-    """Each route of B4's backward: the route the width picks, dx and
+    """Each route of B4's backward: the route the width picks (the wide
+    one past 8 vectors a lane, as at zamba2-7b's train step), dx and
     dgamma the same bits in two runs (no atomics; every sum in a fixed
     order), held against the plain version."""
     gen = torch.Generator(device=cuda).manual_seed(11)

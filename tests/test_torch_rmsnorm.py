@@ -11,6 +11,7 @@ The CUDA kernel is held against the plain version on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +20,9 @@ import torch
 from repro.kernels.rmsnorm.ref import rmsnorm_ref
 from repro.kernels.rmsnorm.rmsnorm import rmsnorm_fused as rmsnorm_pallas
 from repro.models.common import rmsnorm as model_rmsnorm_ref
-from repro_torch.kernels.rmsnorm import rmsnorm_fused, rmsnorm_plain
+from repro_torch.kernels.rmsnorm import (rmsnorm_bwd, rmsnorm_bwd_plain,
+                                         rmsnorm_fused, rmsnorm_plain)
+from repro_torch.kernels.rmsnorm.ops import BWD_BLOCKS_PER_SM, bwd_blocks
 from repro_torch.models.common import rmsnorm as model_rmsnorm
 
 F32_TOL = 1e-5
@@ -118,3 +121,69 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         args = (x.to("meta"), gamma.to("meta"))
     with pytest.raises(ValueError):
         rmsnorm_fused(*args)
+
+
+#: zamba2-7b's gated norm over d_inner: past the register routes, on the
+#: card the wide routes' width
+WIDE = (3, 7168)
+
+
+@pytest.mark.parametrize("jdtype,tdtype", DTYPES)
+def test_plain_matches_pallas_and_ref_past_the_register_route(jdtype, tdtype):
+    x, gamma = _inputs(WIDE, seed=9)
+    jx = jnp.asarray(x, jdtype)
+    pallas = rmsnorm_pallas(jx, jnp.asarray(gamma), interpret=True)
+    out = rmsnorm_fused(torch.from_numpy(x).to(tdtype),
+                        torch.from_numpy(gamma))
+    _close(out, pallas, tdtype)
+    _close(out, rmsnorm_ref(jx, jnp.asarray(gamma)), tdtype)
+
+
+@pytest.mark.parametrize("jdtype,tdtype", DTYPES)
+def test_plain_backward_matches_the_refs_vjp_past_the_register_route(
+        jdtype, tdtype):
+    """The plain backward (the wrapper's CPU path) against ``jax.vjp`` of
+    ``rmsnorm_ref`` at width 7168.  Both work in float32 from the same
+    values, so in bfloat16 (inputs rounded to bf16, the reference's
+    float32 gradients cast once) they agree to one bf16 ulp."""
+    x, gamma = _inputs(WIDE, seed=10)
+    dy = np.random.default_rng(11).standard_normal(WIDE).astype(np.float32)
+    tx, tg, tdy = (torch.from_numpy(a).to(tdtype) for a in (x, gamma, dy))
+    before = rmsnorm_bwd.launches
+    got = rmsnorm_bwd(tx, tg, tdy)
+    assert rmsnorm_bwd.launches == before        # no kernel on the CPU
+    _, vjp = jax.vjp(rmsnorm_ref, *(jnp.asarray(t.float().numpy())
+                                    for t in (tx, tg)))
+    want = vjp(jnp.asarray(tdy.float().numpy()))
+    for g, w in zip(got, want):
+        assert g.dtype == tdtype and g.shape == w.shape
+        _close(g, np.asarray(jnp.asarray(w, jdtype), np.float32), tdtype)
+
+
+def test_backward_grid_and_scratch_arithmetic():
+    """The backward's grid on each route, which sizes the ``[blocks, D]``
+    float32 scratch: on the wide route two blocks an SM at most, as few
+    as leave each the same number of rows but the last (256 of 16 rows
+    at zamba2-7b's train step on 132 SMs: 7.3 MB of scratch at width
+    7168, 4.2 % of the 176.2 MB the backward must move); the register
+    route's 8 warps a block each the same number of rows; the generic
+    route's four blocks an SM, at most one a row."""
+    sms = 132
+    for d in (3584, 7168):
+        blocks = bwd_blocks("wide", 4096, sms)
+        assert blocks == 256 and 4096 / blocks == 16
+        scratch = blocks * d * 4
+        moved = 3 * 4096 * d * 2 + 2 * d * 2
+        assert scratch == {3584: 3_670_016, 7168: 7_340_032}[d]
+        assert scratch / moved < 0.042
+    assert bwd_blocks("register", 4096, sms) == 256
+    assert bwd_blocks("generic", 4096, sms) == 528
+    for kind in ("register", "wide", "generic"):
+        cap = BWD_BLOCKS_PER_SM[kind] * sms
+        for rows in (1, 5, 131, 132, 263, 264, 265, 1000, 4096, 12032,
+                     100_000):
+            blocks = bwd_blocks(kind, rows, sms)
+            assert 1 <= blocks <= min(rows, cap), (kind, rows, blocks)
+            per = -(-rows // blocks)      # the kernels' rows a block
+            if kind != "generic":         # no block left without a row
+                assert (blocks - 1) * per < rows, (kind, rows, blocks)
