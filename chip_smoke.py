@@ -432,8 +432,10 @@ from repro_torch.models import common as model_common  # noqa: E402
 from repro_torch.models import encdec as model_encdec  # noqa: E402
 from repro_torch.models import mamba2 as model_mamba2  # noqa: E402
 from repro_torch.models import moe as model_moe  # noqa: E402
+from repro_torch.models import hybrid as model_hybrid  # noqa: E402
 from repro_torch.models import moe_parity  # noqa: E402
 from repro_torch.models import registry as model_registry  # noqa: E402
+from repro_torch.models import ssm_lm as model_ssm  # noqa: E402
 from repro_torch.models import transformer as model_tf  # noqa: E402
 from repro_torch.models.common import CastCache, Family  # noqa: E402
 from repro_torch.models.hybrid import hybrid_layout  # noqa: E402
@@ -441,6 +443,7 @@ from repro_torch.policy import PolicyEngine  # noqa: E402
 from repro_torch.runtime import on_hopper  # noqa: E402
 from repro_torch.serve import Request, ServeConfig, ServeEngine  # noqa: E402
 from repro_torch.tenancy import InterferenceEngine, sweep  # noqa: E402
+from repro_torch.train.optimizer import UPDATE_CHUNK  # noqa: E402
 
 N_GROUPS = 12
 N_FLOWS = 120_000
@@ -3135,6 +3138,43 @@ def backward_kernel_checks(cuda) -> list:
 TRAINED = (flash_attention, flash_attention_bwd, rmsnorm_fused, rmsnorm_bwd)
 
 
+def train_calls(cfg) -> dict:
+    """The forward and backward calls of B2, B3 and B4 in one train step
+    of ``cfg``, derived from the model's layout, by kernel (``"B2"``,
+    ``"B3"``, ``"B4"``): ``(forward, backward)``.  The units that
+    ``models.common.checkpoint_wrap`` wraps (each block; the hybrid's
+    super-blocks, its trailing layers outside; whisper's encoder blocks
+    and decoder blocks with their cross K/V) run their forward kernels a
+    second time in the backward under ``cfg.remat``; the final norms run
+    once."""
+    L = cfg.n_layers
+    if cfg.family == Family.SSM:
+        inside, outside = {"B3": L, "B4": 2 * L}, {"B4": 1}
+    elif cfg.family == Family.HYBRID:
+        n_super, period, rem, apps = hybrid_layout(cfg)
+        inside = {"B2": apps, "B3": n_super * period,
+                  "B4": 2 * n_super * period + 2 * apps}
+        outside = {"B3": rem, "B4": 2 * rem + 1}
+    elif cfg.family == Family.ENCDEC:
+        le = cfg.n_encoder_layers
+        inside, outside = {"B2": le + 2 * L, "B4": 2 * le + 3 * L}, \
+            {"B4": 2}
+    else:                               # dense, MoE, VLM
+        inside, outside = {"B2": L, "B4": 2 * L}, {"B4": 1}
+    rerun = 2 if cfg.remat else 1
+    return {k: (rerun * inside.get(k, 0) + outside.get(k, 0),
+                inside.get(k, 0) + outside.get(k, 0))
+            for k in ("B2", "B3", "B4")
+            if inside.get(k, 0) + outside.get(k, 0)}
+
+
+def step_counts(cfg, kernels=("B2", "B4")) -> tuple:
+    """:func:`train_calls` as a ``train_run`` count: forward, backward of
+    each of ``kernels`` in turn."""
+    calls = train_calls(cfg)
+    return tuple(n for k in kernels for n in calls[k])
+
+
 def train_run(cfg, cuda, trained: tuple, per_step: tuple,
               steps: int = TRAIN_STEPS, lr: float = TRAIN_LR,
               seq: int | None = None, **loop) -> tuple:
@@ -3242,12 +3282,12 @@ def train_path(cuda) -> dict:
           f"{cfg.hd}, vocab {cfg.vocab}), bf16 compute, {TRAIN_BATCH} x "
           f"{TRAIN_SEQ} tokens, {TRAIN_STEPS} AdamW steps, lr {TRAIN_LR}, "
           f"comm_policy app_aware")
-    per_step = (cfg.n_layers, cfg.n_layers, 2 * cfg.n_layers + 1,
-                2 * cfg.n_layers + 1)
-    print(f"  per step: B2 {per_step[0]} forward calls (each writing its "
-          f"LSE) and {per_step[1]} backward calls of 4 tensor-core kernels, "
-          f"B4 {per_step[2]} and {per_step[3]} of 2")
-    model, opt, stats, history = train_run(cfg, cuda, TRAINED, per_step,
+    counts = step_counts(cfg)
+    print(f"  per step: B2 {counts[0]} forward calls (each writing its "
+          f"LSE; every block's twice under remat {cfg.remat}, policy "
+          f"{cfg.remat_policy}) and {counts[1]} backward calls of 4 "
+          f"tensor-core kernels, B4 {counts[2]} and {counts[3]} of 2")
+    model, opt, stats, history = train_run(cfg, cuda, TRAINED, counts,
                                            comm_policy="app_aware")
     losses = stats["losses"]
     check(stats["n_params"] == QWEN2_PARAMS, f"{stats['n_params']} "
@@ -3260,8 +3300,8 @@ def train_path(cuda) -> dict:
           f"{sum(m == 'HIERARCHICAL' for h in history for m in h['modes'])}"
           f" HIERARCHICAL of {sum(len(h['modes']) for h in history)}")
     profile_train_step(cfg, model, opt, cuda, "train step",
-                       bwd_kernel_counts(cfg, [(per_step[1], TRAIN_SEQ)],
-                                         per_step[1::2]))
+                       bwd_kernel_counts(cfg, [(counts[1], TRAIN_SEQ)],
+                                         counts[1::2]))
     # the trained state, as a checkpoint holds it, for phase 39
     SNAPSHOTS[cfg.name] = to_host((model.state_dict(), opt))
     del model, opt
@@ -3332,7 +3372,8 @@ def train_cpu_compare(cuda, base=QWEN2, phase: int = 25, **cut) -> dict:
             loss, metrics, grads = value_and_grad(model, b, cfg, tcfg)
         aux[label] = float(metrics["aux"])
         if moe and label == "card":
-            routing = moe_parity.flips(own, anchor, cfg.n_layers)
+            routing = moe_parity.flips(own, anchor, cfg.n_layers,
+                                       recomputed=cfg.remat)
         g_host = {k: g.detach().cpu().clone() for k, g in grads.items()}
         params = dict(model.named_parameters())
         _, _, m = adamw_update(tcfg.optimizer, params, grads,
@@ -3354,7 +3395,8 @@ def train_cpu_compare(cuda, base=QWEN2, phase: int = 25, **cut) -> dict:
               f"{routing['per_layer']}; largest margin {routing['share']:.4f}"
               f" of its tie bound; aux rel diff {routing['aux_rel']:.3e} "
               f"(limit {STEP_LOSS_RTOL})")
-        check(routing["calls"] == cfg.n_layers and routing["share"] <= 1.0,
+        check(routing["calls"] == cfg.n_layers * (2 if cfg.remat else 1)
+              and routing["share"] <= 1.0,
               f"{cfg.name}: a routing flip beyond the tie rule ({routing})")
         check(routing["aux_rel"] <= STEP_LOSS_RTOL,
               f"{cfg.name}: aux {aux['card']} vs {aux['cpu']}")
@@ -3533,8 +3575,9 @@ def ssm_backward_checks(cuda) -> dict:
 def ssm_train_path(cuda) -> dict:
     """Phase 27: ``train_loop`` on mamba2-130m at full width and depth,
     bf16 compute, TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens;
-    per step 24 B3 and 24 B3-backward calls, 49 B4 and 49 B4-backward
-    calls asserted; one more step profiled."""
+    per step the B3 and B4 calls of :func:`train_calls` asserted (48 B3
+    and 24 B3-backward calls, 97 B4 and 49 B4-backward under remat); one
+    more step profiled."""
     cfg = MAMBA2
     d_inner = cfg.ssm_expand * cfg.d_model
     print(f"phase 27: train {cfg.name} ({cfg.n_layers} layers, d_model "
@@ -3542,10 +3585,9 @@ def ssm_train_path(cuda) -> dict:
           f"{cfg.ssm_head_dim}, N = {cfg.ssm_state}, chunk {cfg.ssm_chunk}, "
           f"vocab {cfg.vocab}), bf16 compute, {TRAIN_BATCH} x {TRAIN_SEQ} "
           f"tokens, {TRAIN_STEPS} AdamW steps, lr {TRAIN_LR}")
-    per_step = (cfg.n_layers, cfg.n_layers, 2 * cfg.n_layers + 1,
-                2 * cfg.n_layers + 1)
+    counts = step_counts(cfg, ("B3", "B4"))
     ssd_inner.bf16_launches = ssd_inner_bwd.bf16_launches = 0
-    model, opt, stats, _ = train_run(cfg, cuda, SSM_TRAINED, per_step)
+    model, opt, stats, _ = train_run(cfg, cuda, SSM_TRAINED, counts)
     losses = stats["losses"]
     check(stats["n_params"] == MAMBA2_PARAMS, f"{stats['n_params']} "
           f"parameters")
@@ -3559,8 +3601,8 @@ def ssm_train_path(cuda) -> dict:
           f"backward calls off the tensor-core route")
     print(f"  every B3 call ({ssd_inner.launches}) and B3 backward call "
           f"({ssd_inner_bwd.launches}) on the tensor-core route")
-    want_k = {n: per_step[1] for n in SSD_BWD}
-    want_k.update({n: per_step[3] for n in RMS_BWD_REGS})
+    want_k = {n: counts[1] for n in SSD_BWD}
+    want_k.update({n: counts[3] for n in RMS_BWD_REGS})
     profile_train_step(cfg, model, opt, cuda, "ssm train step", want_k)
     del model, opt
     torch.cuda.empty_cache()
@@ -3588,11 +3630,10 @@ def hybrid_train_path(cuda) -> tuple:
           f"{ZAMBA2_TRAIN_STEPS} AdamW steps")
     t0 = time.perf_counter()
     trained = TRAINED + (ssd_inner, ssd_inner_bwd)
-    norms = 2 * cfg.n_layers + 2 * apps + 1
-    per_step = (apps, apps, norms, norms, cfg.n_layers, cfg.n_layers)
+    counts = step_counts(cfg, ("B2", "B4", "B3"))
     ssd_inner_bwd.bf16_launches = 0
     with backward_inputs() as seen:
-        model, opt, stats, _ = train_run(cfg, cuda, trained, per_step,
+        model, opt, stats, _ = train_run(cfg, cuda, trained, counts,
                                          steps=ZAMBA2_TRAIN_STEPS)
     del model, opt
     torch.cuda.empty_cache()
@@ -3605,7 +3646,7 @@ def hybrid_train_path(cuda) -> tuple:
     check(losses[1] < losses[0], f"loss at step 1 {losses[1]} is not below "
           f"step 0's {losses[0]}")
     print(f"  again at lr {ZAMBA2_LOW_LR} for {ZAMBA2_LOW_STEPS} steps")
-    model, opt, low, _ = train_run(cfg, cuda, trained, per_step,
+    model, opt, low, _ = train_run(cfg, cuda, trained, counts,
                                    steps=ZAMBA2_LOW_STEPS, lr=ZAMBA2_LOW_LR)
     profile_train_step(cfg, model, opt, cuda, "hybrid train step",
                        {n: cfg.n_layers for n in SSD_BWD})
@@ -3714,8 +3755,9 @@ def vlm_train_path(cuda) -> dict:
     bf16 compute, TRAIN_STEPS steps of TRAIN_BATCH x (256 patches +
     TRAIN_SEQ tokens); per step 18 B2 and 18 B2-backward calls (every
     one on the tensor-core route), 37 B4 and 37 B4-backward calls
-    asserted; one more step profiled; every loss finite and the last
-    below step 0's."""
+    asserted, the forward calls twice in every block under remat (36 B2,
+    73 B4); one more step profiled; every loss finite and the last below
+    step 0's."""
     cfg = PALIGEMMA
     positions = TRAIN_BATCH * (cfg.img_tokens + TRAIN_SEQ)
     print(f"phase 32: train {cfg.name} ({cfg.n_layers} layers, d_model "
@@ -3724,14 +3766,13 @@ def vlm_train_path(cuda) -> dict:
           f"{cfg.vocab}), bf16 compute, {TRAIN_BATCH} x ({cfg.img_tokens} "
           f"patches + {TRAIN_SEQ} tokens) = {positions} positions a step, "
           f"{TRAIN_STEPS} AdamW steps, lr {TRAIN_LR}")
-    per_step = (cfg.n_layers, cfg.n_layers, 2 * cfg.n_layers + 1,
-                2 * cfg.n_layers + 1)
+    counts = step_counts(cfg)
     with flash_bwd_routes() as routes:
-        model, opt, stats, _ = train_run(cfg, cuda, TRAINED, per_step)
+        model, opt, stats, _ = train_run(cfg, cuda, TRAINED, counts)
     losses = stats["losses"]
     check(stats["n_params"] == PALIGEMMA_PARAMS, f"{stats['n_params']} "
           f"parameters")
-    check(routes == {"wgmma": TRAIN_STEPS * per_step[1]},
+    check(routes == {"wgmma": TRAIN_STEPS * counts[1]},
           f"B2's backward routes {routes}")
     print(f"  every B2 backward call ({routes['wgmma']}) on the tensor-core "
           f"route; {positions} positions a step, "
@@ -3740,9 +3781,9 @@ def vlm_train_path(cuda) -> dict:
     check(losses[-1] < losses[0], f"loss at step {TRAIN_STEPS - 1} "
           f"{losses[-1]} is not below step 0's {losses[0]}")
     profile_train_step(cfg, model, opt, cuda, "vlm train step",
-                       bwd_kernel_counts(cfg, [(per_step[1], cfg.img_tokens
+                       bwd_kernel_counts(cfg, [(counts[1], cfg.img_tokens
                                                 + TRAIN_SEQ)],
-                                         per_step[1::2]))
+                                         counts[1::2]))
     del model, opt
     torch.cuda.empty_cache()
     return dict(stats, idle=PROFILES.get("vlm train step"),
@@ -3763,9 +3804,15 @@ GRANITE_BUDGET_GB = 76.0
 #: float32 master and two AdamW moments, and the bf16 compute copy (the
 #: gradients come as the backward frees the activations)
 FWD_BYTES_PER_PARAM = 14
-#: bytes a parameter live in the AdamW update: the master, its gradient,
-#: the two moments and the update's two float32 temporaries
-UPDATE_BYTES_PER_PARAM = 24
+#: bytes a parameter live at most at the end of the backward: those, and
+#: the float32 gradient (the compute copies go as each block's backward
+#: ends; counted whole here)
+BWD_BYTES_PER_PARAM = 18
+#: bytes a parameter live in the AdamW update: the master, its gradient
+#: and the two moments; beside them the update's two float32 temporaries
+#: over one chunk (``optimizer.UPDATE_CHUNK`` entries, or the largest
+#: tensor), 8 bytes an entry of it
+UPDATE_BYTES_PER_PARAM = 16
 #: phase 37's cut of whisper-large-v3: 2 encoder and 2 decoder layers
 WHISPER_CPU_CUT = dict(n_layers=2, n_encoder_layers=2)
 
@@ -3773,20 +3820,25 @@ WHISPER_CPU_CUT = dict(n_layers=2, n_encoder_layers=2)
 def granite_reckoning(n_layers: int) -> dict:
     """The reckoned peak of one granite-moe-3b-a800m train step at
     ``n_layers`` layers and full width (TRAIN_BATCH x TRAIN_SEQ tokens,
-    bf16 compute), in bytes: the larger of the update's
-    UPDATE_BYTES_PER_PARAM a parameter and the forward's end, where
-    FWD_BYTES_PER_PARAM a parameter live beside, per layer, what
-    autograd keeps of the forward (``moe_einsum``'s top_k float32
-    one-hot slot tensors ``[G,S,E,C]`` that ``sel * topv`` saves, the
-    bf16 dispatch and combine, ``xe`` and ``ye`` ``[E,G,C,D]``, the
-    experts' joined in/gate product and their activation, the router's
-    float32 input, and the attention block's bf16 tensors), the loss
-    (bf16 logits ``[B,S,Vp]`` and three float32 tensors of that shape:
-    the logits read in float32, their exponentials, the gradient) and
-    the tied head's first gradient (float32 and bf16 ``[Vp,D]``)."""
+    bf16 compute, the config's remat), in bytes: the largest of the
+    update's (UPDATE_BYTES_PER_PARAM a parameter and two float32
+    temporaries over a chunk), the backward's end (BWD_BYTES_PER_PARAM a
+    parameter) and the forward's end, where FWD_BYTES_PER_PARAM a
+    parameter live beside the loss (bf16 logits ``[B,S,Vp]`` and three
+    float32 tensors of that shape: the logits read in float32, their
+    exponentials, the gradient), the tied head's first gradient (float32
+    and bf16 ``[Vp,D]``) and what autograd keeps of the layers.  A layer
+    keeps (``layer_bytes``) ``moe_einsum``'s top_k float32 one-hot slot
+    tensors ``[G,S,E,C]`` that ``sel * topv`` saves, the bf16 dispatch
+    and combine, ``xe`` and ``ye`` ``[E,G,C,D]``, the experts' joined
+    in/gate product and their activation, the router's float32 input,
+    and the attention block's bf16 tensors; under remat
+    (``checkpoint_wrap``) only its bf16 input ``[B,S,D]`` is kept, and
+    one layer's are live again while the backward recomputes it."""
     cfg = GRANITE.scaled(n_layers=n_layers)
-    params = sum(p.numel() for p in model_tf.DenseLM(
-        cfg, device="meta").parameters())
+    meta = model_tf.DenseLM(cfg, device="meta")
+    params = sum(p.numel() for p in meta.parameters())
+    largest = max(p.numel() for p in meta.parameters())
     tokens = TRAIN_BATCH * TRAIN_SEQ
     groups = max(1, tokens // model_moe.MOE_GROUP)
     per_group = tokens // groups
@@ -3804,12 +3856,18 @@ def granite_reckoning(n_layers: int) -> dict:
                                     + 2 * cfg.n_heads * cfg.hd) * 2}
     loss = tokens * cfg.vocab_padded * (2 + 3 * 4) \
         + cfg.vocab_padded * cfg.d_model * (4 + 2)
-    fwd = FWD_BYTES_PER_PARAM * params + n_layers * sum(layer.values()) \
-        + loss
-    update = UPDATE_BYTES_PER_PARAM * params
-    return {"n_layers": n_layers, "params": params,
-            "bytes": max(fwd, update), "update_bytes": update,
+    block_input = tokens * cfg.d_model * 2
+    kept = (n_layers * block_input + sum(layer.values()) if cfg.remat
+            else n_layers * sum(layer.values()))
+    fwd = FWD_BYTES_PER_PARAM * params + kept + loss
+    bwd = BWD_BYTES_PER_PARAM * params
+    update = UPDATE_BYTES_PER_PARAM * params \
+        + 8 * max(UPDATE_CHUNK, largest)
+    return {"n_layers": n_layers, "params": params, "remat": cfg.remat,
+            "bytes": max(fwd, bwd, update), "fwd_bytes": fwd,
+            "bwd_bytes": bwd, "update_bytes": update,
             "state_bytes": FWD_BYTES_PER_PARAM * params,
+            "kept_bytes": kept, "block_input_bytes": block_input,
             "layer_bytes": layer, "loss_bytes": loss, "capacity": cap,
             "groups": groups}
 
@@ -3825,16 +3883,23 @@ def granite_depth() -> dict:
             best = r
     full = granite_reckoning(GRANITE.n_layers)
     check(best is not None, "no granite depth fits the budget")
-    for r in (full, best):
-        print(f"  reckoned peak at {r['n_layers']} layers: "
-              f"{r['bytes'] / 1e9:.2f} GB: at the forward's end "
-              f"{r['params']} parameters x {FWD_BYTES_PER_PARAM} B "
-              f"{r['state_bytes'] / 1e9:.2f} GB + {r['n_layers']} x "
-              f"{sum(r['layer_bytes'].values()) / 1e9:.3f} GB of saved "
-              f"activations + the loss and the head's gradient "
-              f"{r['loss_bytes'] / 1e9:.2f} GB; in the update "
-              f"{UPDATE_BYTES_PER_PARAM} B a parameter, "
-              f"{r['update_bytes'] / 1e9:.2f} GB")
+    for r in {r['n_layers']: r for r in (full, best)}.values():
+        kept = (f"{r['n_layers']} x {r['block_input_bytes'] / 1e9:.4f} GB "
+                f"of block inputs + one recomputed layer's "
+                f"{sum(r['layer_bytes'].values()) / 1e9:.3f} GB"
+                if r["remat"] else
+                f"{r['n_layers']} x {sum(r['layer_bytes'].values()) / 1e9:.3f}"
+                f" GB of saved activations")
+        print(f"  reckoned peak at {r['n_layers']} layers (remat "
+              f"{r['remat']}): {r['bytes'] / 1e9:.2f} GB: at the forward's "
+              f"end {r['fwd_bytes'] / 1e9:.2f} GB ({r['params']} parameters "
+              f"x {FWD_BYTES_PER_PARAM} B {r['state_bytes'] / 1e9:.2f} GB + "
+              f"{kept} + the loss and the head's gradient "
+              f"{r['loss_bytes'] / 1e9:.2f} GB); at the backward's end "
+              f"{BWD_BYTES_PER_PARAM} B a parameter, "
+              f"{r['bwd_bytes'] / 1e9:.2f} GB; in the update "
+              f"{UPDATE_BYTES_PER_PARAM} B a parameter and a chunk's "
+              f"temporaries, {r['update_bytes'] / 1e9:.2f} GB")
     print("  per layer: " + ", ".join(
         f"{k} {v / 1e9:.3f} GB" for k, v in best["layer_bytes"].items())
           + f" ({best['groups']} groups, capacity {best['capacity']})")
@@ -3847,11 +3912,12 @@ def moe_train_path(cuda) -> tuple:
     """Phase 34: ``train_loop`` on granite-moe-3b-a800m at full width and
     the depth :func:`granite_depth` reckons, bf16 compute, TRAIN_STEPS
     steps of TRAIN_BATCH x TRAIN_SEQ tokens, ``comm_policy="app_aware"``;
-    per step L B2 and L B2-backward calls (every one on the tensor-core
-    route) and 2L + 1 B4 and B4-backward calls asserted; the measured
-    peak beside the reckoned; one more step profiled; every loss finite
-    and step 7's below step 0's.  Returns (stats, the first step's
-    backward inputs)."""
+    per step L B2-backward calls (every one on the tensor-core route) and
+    2L + 1 B4-backward calls, and the forward calls of
+    :func:`train_calls` (2L B2 and 4L + 1 B4 under remat) asserted; the
+    measured peak beside the reckoned; one more step profiled; every loss
+    finite and step 7's below step 0's.  Returns (stats, the first
+    step's backward inputs)."""
     print(f"phase 34: train {GRANITE.name} at full width (d_model "
           f"{GRANITE.d_model}, {GRANITE.n_heads} heads over "
           f"{GRANITE.n_kv_heads} of {GRANITE.hd}, {GRANITE.n_experts} "
@@ -3862,9 +3928,9 @@ def moe_train_path(cuda) -> tuple:
     reckon = granite_depth()
     cfg = GRANITE.scaled(n_layers=reckon["n_layers"])
     n = cfg.n_layers
-    per_step = (n, n, 2 * n + 1, 2 * n + 1)
+    counts = step_counts(cfg)
     with backward_inputs() as seen, flash_bwd_routes() as routes:
-        model, opt, stats, history = train_run(cfg, cuda, TRAINED, per_step,
+        model, opt, stats, history = train_run(cfg, cuda, TRAINED, counts,
                                                comm_policy="app_aware")
     losses = stats["losses"]
     check(stats["n_params"] == reckon["params"], f"{stats['n_params']} "
@@ -3884,7 +3950,7 @@ def moe_train_path(cuda) -> tuple:
           f"step 0's {losses[0]}")
     profile_train_step(cfg, model, opt, cuda, "moe train step",
                        bwd_kernel_counts(cfg, [(n, TRAIN_SEQ)],
-                                         per_step[1::2]))
+                                         counts[1::2]))
     del model, opt
     torch.cuda.empty_cache()
     return dict(stats, idle=PROFILES.get("moe train step"),
@@ -3895,24 +3961,24 @@ def moe_train_path(cuda) -> tuple:
 def encdec_train_path(cuda) -> tuple:
     """Phase 36: ``train_loop`` on whisper-large-v3 at full width and
     depth, bf16 compute, TRAIN_STEPS steps of TRAIN_BATCH x (1504 stub
-    frames + WHISPER_TRAIN_SEQ tokens); per step 96 B2 and 96
-    B2-backward calls (32 encoder non-causal, 32 decoder causal, 32
-    cross non-causal; every backward on the tensor-core route) and 162
-    B4 and 162 B4-backward calls asserted; one more step profiled; every
-    loss finite and step 7's below step 0's.  Returns (stats, the first
-    step's backward inputs, each attention told apart)."""
+    frames + WHISPER_TRAIN_SEQ tokens); per step 96 B2-backward calls
+    (32 encoder non-causal, 32 decoder causal, 32 cross non-causal; every
+    one on the tensor-core route) and 162 B4-backward calls, and the
+    forward calls of :func:`train_calls` (192 B2 and 322 B4 under remat)
+    asserted; one more step profiled; every loss finite and step 7's
+    below step 0's.  Returns (stats, the first step's backward inputs,
+    each attention told apart)."""
     cfg = WHISPER
     print(f"phase 36: train {cfg.name} ({cfg.n_encoder_layers} + "
           f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
           f"heads of {cfg.hd}, vocab {cfg.vocab}), bf16 compute, "
           f"{TRAIN_BATCH} x {step_positions(cfg, WHISPER_TRAIN_SEQ)}, "
           f"{TRAIN_STEPS} AdamW steps, lr {TRAIN_LR}")
-    attn = cfg.n_encoder_layers + 2 * cfg.n_layers
-    norms = 2 * cfg.n_encoder_layers + 1 + 3 * cfg.n_layers + 1
-    per_step = (attn, attn, norms, norms)
+    counts = step_counts(cfg)
+    attn = counts[1]
     with backward_inputs(distinct=True) as seen, \
             flash_bwd_routes() as routes:
-        model, opt, stats, _ = train_run(cfg, cuda, TRAINED, per_step,
+        model, opt, stats, _ = train_run(cfg, cuda, TRAINED, counts,
                                          seq=WHISPER_TRAIN_SEQ)
     losses = stats["losses"]
     check(stats["n_params"] == WHISPER_PARAMS, f"{stats['n_params']} "
@@ -3938,7 +4004,7 @@ def encdec_train_path(cuda) -> tuple:
               (cfg.n_layers, cfg.encoder_frames),
               (cfg.n_layers, WHISPER_TRAIN_SEQ)]
     profile_train_step(cfg, model, opt, cuda, "encdec train step",
-                       bwd_kernel_counts(cfg, shapes, per_step[1::2]),
+                       bwd_kernel_counts(cfg, shapes, counts[1::2]),
                        seq=WHISPER_TRAIN_SEQ)
     del model, opt
     torch.cuda.empty_cache()
@@ -3951,8 +4017,8 @@ def encdec_train_path(cuda) -> tuple:
 #: the host copies of trained states (``to_host`` of ``(state dict,
 #: AdamWState)``, what a checkpoint writes), by config name
 SNAPSHOTS: dict = {}
-#: phase 40: the reckoned peak, less the attention core's saved bytes,
-#: over the measured peak must lie in this band
+#: phase 40: the reckoned peak, less the attention core's saved bytes
+#: live at it, over the measured peak must lie in this band
 RECKON_PEAK_BAND = (0.85, 1.15)
 
 
@@ -4066,7 +4132,7 @@ for arch, layers, kind, seq, rows in json.loads(sys.argv[1]):
     rep, costs = lower_cell(cfg, InputShape(kind, seq, rows, kind),
                             mesh_override=((1, 1), ("data", "model")))
     out.append(dict(rep, peak_bytes=costs.peak_bytes,
-                    saved_bytes=costs.scope_saved_bytes["attn_core"]))
+                    saved_bytes=costs.scope_saved_at_peak["attn_core"]))
 print(json.dumps(out))
 """
 
@@ -4080,7 +4146,10 @@ def dryrun_reckoning(serve_stats: dict, trains: dict) -> list:
     each cell's bound, ``max(compute, memory_flash, collective)`` on the
     datasheet H100, at most its measured ``train_step_s`` or
     ``prefill_s``, and its reckoned peak less the attention core's saved
-    bytes within RECKON_PEAK_BAND of its measured peak."""
+    bytes live at that peak (the plain attention's, which B2 does not
+    keep; under remat one recomputed layer's at most) within
+    RECKON_PEAK_BAND of its measured peak.  The train cells run the
+    configs' remat, as the card's steps do."""
     import os
 
     granite = trains[GRANITE.name]
@@ -4121,7 +4190,8 @@ def dryrun_reckoning(serve_stats: dict, trains: dict) -> list:
               f"{rep['collective_ms']:.4f}) against {step_s * 1e3:.4f} ms "
               f"measured, {bound_ms / (step_s * 1e3):.4f} of it; peak "
               f"{rep['peak_bytes'] / 1e9:.3f} GB reckoned, less "
-              f"{rep['saved_bytes'] / 1e9:.3f} GB the attention core saves, "
+              f"{rep['saved_bytes'] / 1e9:.3f} GB the attention core saves "
+              f"live at it, "
               f"{peak:.3f} against {peak_gb:.3f} measured ({ratio:.4f}); "
               f"useful_flops_ratio {rep['useful_flops_ratio']:.4f}; model "
               f"FLOPs {rep['model_flops']:.4g}, {share:.4f} of the "
@@ -4205,13 +4275,16 @@ CODEQWEN_SERVED = CODEQWEN.scaled(n_layers=CODEQWEN_LAYERS)
 NEW_SERVES = (STABLELM, QWEN2_MOE_SERVED, CODEQWEN_SERVED, LLAMA3)
 #: card vs CPU depth of the dense ones (qwen2-moe keeps phase 15's)
 DENSE_CPU_LAYERS = 2
-#: the host draws of phases 41-44 (``HostDraws``), in the order they
-#: start: qwen2-moe-a2.7b's 138 s first, while phases 34-39 run; the rest
-#: once phase 39 has freed its snapshot, llama3-8b's before the twins so
-#: that it starts as soon as qwen2-moe's host copy is gone
+#: the host draws of phases 41-44 and 46 (``HostDraws``), in the order
+#: they start: qwen2-moe-a2.7b's 138 s first, while phases 34-39 run; the
+#: rest once phase 39 has freed its snapshot, llama3-8b's before the twins
+#: so that it starts as soon as qwen2-moe's host copy is gone; phase 46's
+#: six cut models (12.6 GB) last, while phases 43-45 run
 DRAW_ORDER = (QWEN2_MOE.name, STABLELM.name, f"{STABLELM.name} twin",
               CODEQWEN.name, LLAMA3.name, f"{CODEQWEN.name} twin",
-              f"{LLAMA3.name} twin")
+              f"{LLAMA3.name} twin") + tuple(
+                  f"remat {base.name}" for base in (
+                      QWEN2, MAMBA2, ZAMBA2, PALIGEMMA, GRANITE, WHISPER))
 #: GB of drawn models the draws may hold: none until phase 33's float32
 #: CPU step is done (it holds about 27 GB beside phase 24's 18.5 GB
 #: snapshot, and 48 GB of draws held through it exceeded the machine's 96
@@ -4244,6 +4317,21 @@ def host_available() -> float:
 
 def param_bytes(model) -> int:
     return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def model_bytes(cfg) -> int:
+    """The parameter bytes of ``cfg``'s model, built on the meta device
+    (nothing allocated, nothing drawn)."""
+    with torch.device("meta"):
+        if cfg.family == Family.SSM:
+            model = model_ssm.SSMLM(cfg)
+        elif cfg.family == Family.HYBRID:
+            model = model_hybrid.HybridLM(cfg)
+        elif cfg.family == Family.ENCDEC:
+            model = model_encdec.EncDecLM(cfg)
+        else:
+            model = model_tf.DenseLM(cfg)
+    return param_bytes(model)
 
 
 class HostDraws:
@@ -4306,7 +4394,7 @@ class HostDraws:
                     index = self.next_job
                     key, cfg = self.jobs[index]
                     self.next_job += 1
-                need = param_bytes(model_tf.DenseLM(cfg, device="meta"))
+                need = model_bytes(cfg)
                 t_wait = time.perf_counter()
                 with self.cond:
                     while not (self.started == index and
@@ -4532,12 +4620,14 @@ def new_serve(cfg, cuda, draws: HostDraws, phase: int) -> tuple:
 
 
 def draw_jobs() -> list:
-    """The host draws of phases 41-44 in ``DRAW_ORDER``: the models of
-    ``NEW_SERVES`` and the dense ones' twins at ``DENSE_CPU_LAYERS``
-    layers."""
+    """The host draws of phases 41-44 and 46 in ``DRAW_ORDER``: the models
+    of ``NEW_SERVES``, the dense ones' twins at ``DENSE_CPU_LAYERS``
+    layers and phase 46's cut models (``REMAT_CUTS``)."""
     jobs = {cfg.name: cfg for cfg in NEW_SERVES}
     jobs.update({f"{cfg.name} twin": cfg.scaled(n_layers=DENSE_CPU_LAYERS)
                  for cfg in NEW_SERVES if cfg.family == Family.DENSE})
+    jobs.update({f"remat {base.name}": base.scaled(**cut)
+                 for base, cut in REMAT_CUTS})
     check(sorted(jobs) == sorted(DRAW_ORDER), f"draws {sorted(jobs)}")
     return [(key, jobs[key]) for key in DRAW_ORDER]
 
@@ -4593,6 +4683,137 @@ def entry_points() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 46
+#: phase 46's families at full width and a cut depth: 2 layers (whisper 2
+#: + 2), zamba2-7b at phase 29's 14 (two super-blocks, the shared block
+#: once between them, 2 trailing layers outside the wrapped units)
+REMAT_CUTS = ((QWEN2, dict(n_layers=2)), (MAMBA2, dict(n_layers=2)),
+              (ZAMBA2, dict(n_layers=ZAMBA2_TRAIN_LAYERS)),
+              (PALIGEMMA, dict(n_layers=2)), (GRANITE, dict(n_layers=2)),
+              (WHISPER, WHISPER_CPU_CUT))
+#: the variants in the order they run; the first is the one held, the
+#: second its witness
+REMAT_VARIANTS = (("off", dict(remat=False)),
+                  ("off again", dict(remat=False)),
+                  ("full", dict(remat=True, remat_policy="full")),
+                  ("dots", dict(remat=True, remat_policy="dots")))
+#: the forward kernels whose launches a variant's step counts
+FWD_KERNELS = {"B2": flash_attention, "B3": ssd_inner, "B4": rmsnorm_fused}
+
+
+def remat_step(model, start: dict, batch: dict, cfg, tcfg) -> dict:
+    """One bf16 AdamW step of ``model`` from the parameters ``start``
+    (``train_step``, fresh moments) under ``cfg``'s remat, with the
+    forward kernels' counts set to 0 just before and read just after:
+    ``{"launches", "want", "peak_gb", "step_s"}``."""
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import train_step
+
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(start[n])
+    model._cw = None
+    opt = adamw_init(dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in FWD_KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    train_step(model, opt, batch, cfg=cfg, tcfg=tcfg)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    want = {k: f for k, (f, _) in train_calls(cfg).items()}
+    got = {k: FWD_KERNELS[k].launches for k in FWD_KERNELS
+           if FWD_KERNELS[k].launches or k in want}
+    del opt
+    return {"launches": got, "want": want, "step_s": step_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def remat_compare(cuda, draws: HostDraws) -> dict:
+    """Phase 46: each trained family (REMAT_CUTS, drawn on the host by
+    ``draws`` meanwhile) takes one bf16 AdamW
+    step (TRAIN_BATCH x TRAIN_SEQ tokens, with the VLM's patches or the
+    enc-dec family's frames; STEP_OPT) four times from the same
+    parameters and batch (REMAT_VARIANTS): without remat, again without
+    (the witness), under "full" and under "dots".  The updated parameters
+    of each must equal the first run's bit for bit, or, where the
+    witness itself differs from the first run, lie no farther from it
+    than the witness does; each step's forward launches must be those
+    :func:`train_calls` derives from the wrapping; each one's peak
+    memory printed."""
+    from repro_torch.launch.train import make_batch_np
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import TrainConfig
+
+    t0 = time.perf_counter()
+    print(f"phase 46: activation recomputation on and off, one bf16 AdamW "
+          f"step of {TRAIN_BATCH} x {TRAIN_SEQ} tokens per variant "
+          f"{[v for v, _ in REMAT_VARIANTS]}")
+    tcfg = TrainConfig(optimizer=AdamWConfig(**STEP_OPT))
+    out = {}
+    for base, cut in REMAT_CUTS:
+        cfg0 = base.scaled(**cut)
+        t1 = time.perf_counter()
+        host, need = draws.take(f"remat {base.name}")
+        model = host.to(cuda)
+        del host
+        draws.release(need)
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        batch = make_batch_np(cfg0, SyntheticLM(vocab=cfg0.vocab,
+                                                seq_len=TRAIN_SEQ),
+                              step=0, batch=TRAIN_BATCH, seed=SEED)
+        batch = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+        print(f"  {cfg0.name} at full width, "
+              f"{', '.join(f'{k} {v}' for k, v in cut.items())}: "
+              f"{sum(p.numel() for p in start.values())} parameters, drawn "
+              f"on the host in "
+              f"{draws.log[f'remat {base.name}']['draw_s']:.2f} s, taken "
+              f"and moved in {time.perf_counter() - t1:.2f} s")
+        first, rows = None, {}
+        for label, kw in REMAT_VARIANTS:
+            cfg = cfg0.scaled(**kw)
+            row = remat_step(model, start, batch, cfg, tcfg)
+            params = dict(model.named_parameters())
+            if first is None:
+                first = {n: p.detach().clone() for n, p in params.items()}
+                row["equal"], row["gap"] = True, 0.0
+            else:
+                row["equal"] = all(torch.equal(p, first[n])
+                                   for n, p in params.items())
+                row["gap"] = max(float((p.detach() - first[n]).abs().max())
+                                 for n, p in params.items())
+            print(f"    {label:9s} (remat {cfg.remat}, policy "
+                  f"{cfg.remat_policy}): forward launches {row['launches']}"
+                  f" (derived {row['want']}), peak memory "
+                  f"{row['peak_gb']:.3f} GB, step {row['step_s']:.3f} s, "
+                  f"updated parameters "
+                  f"{'equal' if row['equal'] else 'differ'} to the first "
+                  f"run's (largest gap {row['gap']:.3e})")
+            check(row["launches"] == row["want"],
+                  f"{cfg.name} {label}: forward launches {row['launches']}, "
+                  f"derived {row['want']}")
+            rows[label] = row
+        witness = rows["off again"]["gap"]
+        for label in ("full", "dots"):
+            check(rows[label]["equal"] or rows[label]["gap"] <= witness,
+                  f"{cfg0.name} {label}: updated parameters "
+                  f"{rows[label]['gap']:.3e} from the first run's, the "
+                  f"witness {witness:.3e}")
+        print(f"    witness gap (two runs without remat) {witness:.3e}; "
+              f"peak under full / dots / off again (the first run's copy "
+              f"live beside each) {rows['full']['peak_gb']:.3f} / "
+              f"{rows['dots']['peak_gb']:.3f} / "
+              f"{rows['off again']['peak_gb']:.3f} GB")
+        out[cfg0.name] = {label: {k: r[k] for k in ("launches", "peak_gb",
+                                                    "step_s", "equal", "gap")}
+                          for label, r in rows.items()}
+        del model, start, first, batch, params
+        torch.cuda.empty_cache()
+    print(f"phase 46: {time.perf_counter() - t0:.1f} s wall")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path needs one",
@@ -4645,7 +4866,7 @@ def main() -> int:
           f"{', '.join(key for key, _ in draws.jobs)} (at most "
           f"{DRAW_BUDGET_GB[0]:.0f}, {DRAW_BUDGET_GB[1]:.0f} and "
           f"{DRAW_BUDGET_GB[2]:.0f} GB held in phases 3-33, 34-39 and "
-          f"40-44; "
+          f"40-46; "
           f"{host_available() / 1e9:.1f} GB of host memory available)")
 
     topo = DragonflyTopology(TopologyParams(n_groups=N_GROUPS))
@@ -5059,7 +5280,7 @@ def main() -> int:
     t0 = time.perf_counter()
     trains[QWEN2.name]["elastic"] = elastic_restart(cuda)
     draws.set_budget(DRAW_BUDGET_GB[2])    # the snapshot is gone
-    draws.window("phases 40-44")
+    draws.window("phases 40-46")
     print(f"phase 39: {time.perf_counter() - t0:.1f} s wall")
 
     # phase 40: the dry run's reckoning beside this run's steps
@@ -5082,11 +5303,15 @@ def main() -> int:
                 ("rmsnorm_fused", [r["max_abs_err"] for r in got["rms"]])):
             rows[name]["max_abs_err"] = max([rows[name]["max_abs_err"]]
                                             + errs)
-    print("  host draws " + json.dumps(draws.finish()))
 
     # phase 45: the port's examples and figure runner, as a user runs them
     entry = entry_points()
     print("  entry points " + json.dumps(entry))
+
+    # phase 46: one step of each trained family with remat off, off again,
+    # "full" and "dots", from the same parameters and batch
+    print("  remat " + json.dumps(remat_compare(cuda, draws)))
+    print("  host draws " + json.dumps(draws.finish()))
     for name, entries in (("flash_attention_bwd", [zrows["flash"],
                                                    vrows["flash"]]
                            + nrows["flash"]),

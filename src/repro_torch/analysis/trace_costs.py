@@ -35,7 +35,10 @@ What it counts, per rank:
     core, which the flash kernel B2 replaces), forward and backward: the
     backward nodes a scoped region made run under its scope;
   * ``scope_saved_bytes`` — the bytes of tensors made inside a scope
-    that autograd saves for the backward pass;
+    that autograd saves for the backward pass (twice where activation
+    recomputation runs the scope again); ``scope_saved_at_peak`` — those
+    of them still live when the peak was reached (a recomputed layer's
+    saved tensors are dropped after its forward: one layer's at most);
   * ``n_while`` is 0: the port's layers are a Python loop, not a scan,
     so every layer's ops are counted as they run.
 
@@ -121,6 +124,7 @@ class TraceCosts:
     scope_bytes: dict = field(default_factory=dict)  # scope -> bytes
     scope_flops: dict = field(default_factory=dict)
     scope_saved_bytes: dict = field(default_factory=dict)
+    scope_saved_at_peak: dict = field(default_factory=dict)
     args_bytes: int = 0               # live storage when tracing began
     peak_bytes: int = 0               # most live storage, args included
     out_bytes: int = 0                # storage made by the step still live
@@ -319,6 +323,9 @@ class CostTracer(TorchDispatchMode):
         self.scope_bytes = {s: 0.0 for s in TRACKED_SCOPES}
         self.scope_flops = {s: 0.0 for s in TRACKED_SCOPES}
         self.scope_saved = {s: 0.0 for s in TRACKED_SCOPES}
+        self.saved_at_peak = {s: 0.0 for s in TRACKED_SCOPES}
+        self._saved_live: dict = {}     # storage key -> (scope, bytes)
+        self._saved_bytes = {s: 0.0 for s in TRACKED_SCOPES}
         self._scope: list = []          # forward scopes, innermost last
         self._bwd_scope: list = []      # scopes of running backward nodes
         self._scope_made: dict = {}     # scope -> storage keys made in it
@@ -338,6 +345,9 @@ class CostTracer(TorchDispatchMode):
         self._refs.pop(key, None)
         for made in self._scope_made.values():
             made.discard(key)          # a later storage may take its address
+        if key in self._saved_live:
+            scope, sb = self._saved_live.pop(key)
+            self._saved_bytes[scope] -= sb
         if nb is not None:
             self.live_bytes -= nb
 
@@ -360,7 +370,9 @@ class CostTracer(TorchDispatchMode):
                 # reference counts would free them on the card
                 gc.collect(1)
                 self._collected_at = self.live_bytes
-            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+            if self.live_bytes > self.peak_bytes:
+                self.peak_bytes = self.live_bytes
+                self.saved_at_peak = dict(self._saved_bytes)
         return key
 
     def track(self, tree) -> int:
@@ -383,9 +395,13 @@ class CostTracer(TorchDispatchMode):
     def run_scoped(self, name: str, fn, args, kwargs):
         """``fn(*args, **kwargs)`` under scope ``name``: its ops, the
         backward nodes it makes, and the bytes of what it saves for the
-        backward that it made itself."""
+        backward that it made itself.  Saved tensors then go on to the
+        hooks that were in force (activation recomputation's, which
+        drop them from the forward and bring them back in the
+        backward)."""
         made = self._scope_made.setdefault(name, set())
         saved: set = set()
+        outer = torch._C._autograd._top_saved_tensors_default_hooks(False)
 
         def pack(t):
             st = _storage(t)
@@ -394,13 +410,20 @@ class CostTracer(TorchDispatchMode):
                 saved.add(st._cdata)
                 self.scope_saved[name] = \
                     self.scope_saved.get(name, 0.0) + st.nbytes()
+                if st._cdata not in self._saved_live:
+                    self._saved_live[st._cdata] = (name, st.nbytes())
+                    self._saved_bytes[name] = \
+                        self._saved_bytes.get(name, 0.0) + st.nbytes()
+            if outer is not None:
+                return outer[0](t)
             # detached: a saved output held with its grad_fn would make a
             # cycle, freed only by the garbage collector, at no fixed time
             return t.detach()
 
+        unpack = (lambda t: t) if outer is None else outer[1]
         self._scope.append(name)
         try:
-            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
                 out = fn(*args, **kwargs)
         finally:
             self._scope.pop()
@@ -516,6 +539,7 @@ class CostTracer(TorchDispatchMode):
             scope_bytes=dict(self.scope_bytes),
             scope_flops=dict(self.scope_flops),
             scope_saved_bytes=dict(self.scope_saved),
+            scope_saved_at_peak=dict(self.saved_at_peak),
             args_bytes=self.args_bytes, peak_bytes=self.peak_bytes,
             out_bytes=out_bytes)
 

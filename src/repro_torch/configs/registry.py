@@ -44,3 +44,8 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).SMOKE
+
+
+def list_archs() -> tuple:
+    """Every architecture id, in the reference's order."""
+    return ARCHS

@@ -3,8 +3,12 @@
 Counterpart of ``repro/models/common.py``.  One :class:`ModelConfig`
 covers every architecture family, with the reference's fields; ``dtype``
 (activations) and ``param_dtype`` (master weights) are torch dtypes.
-The reference's remat wrapper is left out (the port keeps every
-activation of a train step; remat changes no number).  Its activation
+:func:`checkpoint_wrap` is the reference's activation recomputation: a
+train step keeps each wrapped layer's inputs and recomputes the rest in
+the backward (``torch.utils.checkpoint``), as ``cfg.remat`` and
+``cfg.remat_policy`` say; it changes no number, only what a step keeps
+and how much it computes, and a forward without gradients (every serve)
+never enters it.  Its activation
 sharding helpers (:func:`mesh_axes`, :func:`dp_spec`, :func:`constrain`)
 read the mesh of the DTensor they are given, where the reference reads
 the active mesh: the multi-pod dry run (:mod:`repro_torch.launch.dryrun`)
@@ -25,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.rmsnorm import rmsnorm_fused
 
@@ -80,6 +86,8 @@ class ModelConfig:
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
     remat: bool = True
+    #: "full" recomputes everything; "dots" saves the 2-D matrix
+    #: products (the projections) and recomputes the rest
     remat_policy: str = "full"
     #: embeddings/heads are padded to a multiple of this
     pad_vocab_multiple: int = 128
@@ -103,6 +111,42 @@ class ModelConfig:
     def scaled(self, **kw) -> "ModelConfig":
         """Reduced copy for smoke tests."""
         return replace(self, **kw)
+
+
+#: the products the "dots" policy saves: the 2-D matrix products (the
+#: projections, the router, the head), which is what the reference's
+#: ``dots_with_no_batch_dims_saveable`` keeps; batched products (``bmm``:
+#: the MoE einsums, the plain attention and SSD), the kernels B2, B3 and
+#: B4 and every elementwise op are recomputed
+SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _saving_products():
+    return create_selective_checkpoint_contexts(list(SAVED_PRODUCTS))
+
+
+def checkpoint_wrap(fn, cfg: ModelConfig):
+    """``fn`` under activation recomputation, as the reference's
+    ``checkpoint_wrap`` (``jax.checkpoint``): ``fn`` itself where
+    ``cfg.remat`` is off or grad mode is off (a serve); else ``fn`` run
+    through ``torch.utils.checkpoint`` (non-reentrant), which keeps its
+    inputs and drops what it saves for the backward, recomputing it
+    there.  ``remat_policy == "dots"`` keeps the outputs of
+    :data:`SAVED_PRODUCTS` from the first forward; any other policy
+    recomputes everything ("full").  The models draw no random numbers,
+    so no RNG state is stashed; the kernels' autograd Functions save
+    through ``ctx.save_for_backward``, which the recomputation
+    covers."""
+    if not cfg.remat or not torch.is_grad_enabled():
+        return fn
+    extra = ({"context_fn": _saving_products}
+             if cfg.remat_policy == "dots" else {})
+
+    def run(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **extra, **kwargs)
+
+    return run
 
 
 def normal(gen: torch.Generator, shape, scale: float,

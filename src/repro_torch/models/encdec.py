@@ -39,7 +39,8 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (CastCache, ModelConfig, dense_init,
+from repro_torch.models.common import (CastCache, ModelConfig,
+                                       checkpoint_wrap, dense_init,
                                        embed_rows, join, normal, rmsnorm,
                                        split_product)
 from repro_torch.models.mlp import MLP, mlp, mlp_weights, param
@@ -130,18 +131,24 @@ class EncDecLM(CastCache):
 
 
 # ------------------------------------------------------------------ encoder
+def _enc_block(blk: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One encoder block: non-causal attention without RoPE, the MLP."""
+    h = rmsnorm(x, blk["ln1"], cfg.norm_eps)
+    q, k, v = attn.qkv_project(blk, h, cfg, None, rope=False)
+    x = x + attn.attn_output(
+        blk, attn.flash_attend(q, k, v, causal=False), cfg)
+    h = rmsnorm(x, blk["ln2"], cfg.norm_eps)
+    return x + mlp(blk, h, cfg)
+
+
 def _encode(w: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The encoder over the compute dict ``w``, under the caller's grad
-    mode."""
+    mode, each block under :func:`checkpoint_wrap`."""
     n_frames = frames.shape[1]
     x = frames.to(cfg.dtype) + w["pos_enc"][:n_frames]
+    block = checkpoint_wrap(_enc_block, cfg)
     for blk in w["enc"]:
-        h = rmsnorm(x, blk["ln1"], cfg.norm_eps)
-        q, k, v = attn.qkv_project(blk, h, cfg, None, rope=False)
-        x = x + attn.attn_output(
-            blk, attn.flash_attend(q, k, v, causal=False), cfg)
-        h = rmsnorm(x, blk["ln2"], cfg.norm_eps)
-        x = x + mlp(blk, h, cfg)
+        x = block(blk, x, cfg)
     return rmsnorm(x, w["enc_ln"], cfg.norm_eps)
 
 
@@ -193,16 +200,26 @@ def _logits(w: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return rmsnorm(x, w["ln_f"], cfg.norm_eps) @ w["head"]
 
 
+def _dec_layer(w: dict, x: torch.Tensor, enc: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor) -> torch.Tensor:
+    """One decoder block with its cross K/V projected from ``enc``, so
+    that a recomputed block projects them again, as the reference's."""
+    return _dec_block(w, x, cfg, positions,
+                      *_cross_kv(w["cross"], enc, cfg))[0]
+
+
 def _apply(w: dict, frames: torch.Tensor, tokens: torch.Tensor,
            cfg: ModelConfig):
     """The encoder, every decoder block's cross K/V and the decoder over
-    the compute dict ``w``, under the caller's grad mode."""
+    the compute dict ``w``, under the caller's grad mode, each encoder
+    block and each decoder block with its cross K/V under
+    :func:`checkpoint_wrap`."""
     enc = _encode(w, frames, cfg)
     x = embed_rows(w["embed"], tokens)
     positions = _positions(tokens)
+    layer = checkpoint_wrap(_dec_layer, cfg)
     for blk in w["dec"]:
-        x, _ = _dec_block(blk, x, cfg, positions,
-                          *_cross_kv(blk["cross"], enc, cfg))
+        x = layer(blk, x, enc, cfg, positions)
     return _logits(w, x, cfg), torch.zeros((), device=x.device)
 
 

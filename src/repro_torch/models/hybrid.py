@@ -33,7 +33,8 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (CastCache, ModelConfig, dense_init,
+from repro_torch.models.common import (CastCache, ModelConfig,
+                                       checkpoint_wrap, dense_init,
                                        embed_rows, normal, rmsnorm)
 from repro_torch.models.mamba2 import Mamba2State, init_mamba2_state
 from repro_torch.models.mlp import param
@@ -130,6 +131,26 @@ def _state_of(state: "HybridDecodeState", idx) -> Mamba2State:
     return Mamba2State(*(t[idx[1:]] for t in tree))
 
 
+def _group(x: torch.Tensor, a, layers: list, w: dict, cfg: ModelConfig,
+           positions: torch.Tensor, state, train: bool) -> torch.Tensor:
+    """One group of :func:`_groups`: the shared block where ``a`` > 0,
+    then its Mamba2 layers, each over a compute dict cast anew where
+    ``train``."""
+    if a:
+        x, (k, v, _) = block_forward(w["shared"], x, cfg, positions)
+        if state is not None:
+            attn.cache_update(state.attn_cache.k[a], state.attn_cache.v[a],
+                              k, v, 0)
+    for layer, ln, idx in layers:
+        st = None if state is None else _state_of(state, idx)
+        y, new = layer.mamba(rmsnorm(x, ln, cfg.norm_eps), st,
+                             w=layer.mamba._cast() if train else None)
+        if st is not None:
+            _write(st, new)
+        x = x + y
+    return x
+
+
 def _forward(model: HybridLM, tokens: torch.Tensor, cfg: ModelConfig,
              state=None, *, train: bool = False):
     """The hidden states after every layer of a sequence from position 0,
@@ -138,23 +159,16 @@ def _forward(model: HybridLM, tokens: torch.Tensor, cfg: ModelConfig,
     slots are written into it.  ``train``: every compute copy is cast
     anew from the masters (``_cast``, with gradients; the shared block's
     once, so its gradient sums over its applications), else the serving
-    caches."""
+    caches; each super-block (its shared block and Mamba2 layers, their
+    casts inside) runs under :func:`checkpoint_wrap`, the trailing layers
+    outside it, as the reference's."""
     w = model._cast() if train else model.weights()
     x = embed_rows(w["embed"], tokens)
     positions = _positions(tokens)
+    wrapped = checkpoint_wrap(_group, cfg)
     for a, layers in _groups(model, w["ln"]):
-        if a:
-            x, (k, v, _) = block_forward(w["shared"], x, cfg, positions)
-            if state is not None:
-                attn.cache_update(state.attn_cache.k[a],
-                                  state.attn_cache.v[a], k, v, 0)
-        for layer, ln, idx in layers:
-            st = None if state is None else _state_of(state, idx)
-            y, new = layer.mamba(rmsnorm(x, ln, cfg.norm_eps), st,
-                                 w=layer.mamba._cast() if train else None)
-            if st is not None:
-                _write(st, new)
-            x = x + y
+        run = _group if a is None else wrapped
+        x = run(x, a, layers, w, cfg, positions, state, train)
     return x, w
 
 

@@ -110,10 +110,13 @@ def anchored(anchor: RouterTrace, trace: RouterTrace):
         moe.router_probs, moe.topk = real_probs, real_topk
 
 
-def flips(run: RouterTrace, anchor: RouterTrace, n_layers: int) -> dict:
+def flips(run: RouterTrace, anchor: RouterTrace, n_layers: int,
+          recomputed: bool = False) -> dict:
     """Each (call, token) whose choices in ``run`` differ from
     ``anchor``'s, held to the tie rule.  Returns ``per_layer`` (flips by
-    layer, call i being layer ``i % n_layers``), ``n`` (all of them),
+    layer, call i being layer ``i % n_layers``; with ``recomputed``, the
+    calls after the forward's ``n_layers`` are the backward's
+    recomputations, the last layer's first), ``n`` (all of them),
     ``share`` (the largest margin's share of its bound; at most 1 passes)
     and ``calls`` compared."""
     if len(run.calls) != len(anchor.calls):
@@ -124,7 +127,10 @@ def flips(run: RouterTrace, anchor: RouterTrace, n_layers: int) -> dict:
     for n, (own, ref) in enumerate(zip(run.calls, anchor.calls)):
         x, router = ref[0].double(), ref[1].double()
         diff = (own[3] != ref[3]).any(dim=1).nonzero().flatten()
-        per_layer[n % n_layers] += int(diff.numel())
+        layer = n % n_layers
+        if recomputed and n >= n_layers:
+            layer = n_layers - 1 - layer
+        per_layer[layer] += int(diff.numel())
         for t in diff.tolist():
             j = int((own[3][t] != ref[3][t]).nonzero()[0])
             a, c = int(ref[3][t, j]), int(own[3][t, j])

@@ -14,8 +14,9 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from repro_torch.models.common import (CastCache, ModelConfig, embed_rows,
-                                       normal, rmsnorm)
+from repro_torch.models.common import (CastCache, ModelConfig,
+                                       checkpoint_wrap, embed_rows, normal,
+                                       rmsnorm)
 from repro_torch.models.mamba2 import (Mamba2Block, Mamba2State,
                                        init_mamba2_state)
 
@@ -75,15 +76,24 @@ def _logits(w: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x @ w["embed"].T
 
 
+def _layer(layer: SSMLayer, x: torch.Tensor, ln: torch.Tensor, wb,
+           cfg: ModelConfig) -> torch.Tensor:
+    """One layer: the norm, the Mamba2 mixer over the compute dict ``wb``
+    and the residual."""
+    y, _ = layer.mamba(rmsnorm(x, ln, cfg.norm_eps), w=wb)
+    return x + y
+
+
 def _apply(model: SSMLM, tokens: torch.Tensor, cfg: ModelConfig,
            w: dict, blocks: list):
     """Logits ``[B,S,Vp]`` and a zero aux loss over the compute dicts
     ``w`` (the model's) and ``blocks`` (one per Mamba2 block, or None for
-    its serving cache), under the caller's grad mode."""
+    its serving cache), under the caller's grad mode, each layer under
+    :func:`checkpoint_wrap` (the reference's remat of its layer scan)."""
     x = _embed(w, tokens)
+    layer_fn = checkpoint_wrap(_layer, cfg)
     for ln, layer, wb in zip(w["ln"], model.blocks, blocks):
-        y, _ = layer.mamba(rmsnorm(x, ln, cfg.norm_eps), w=wb)
-        x = x + y
+        x = layer_fn(layer, x, ln, wb, cfg)
     return _logits(w, x, cfg), torch.zeros((), device=x.device)
 
 

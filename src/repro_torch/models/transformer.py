@@ -45,8 +45,8 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (CastCache, Family, ModelConfig,
-                                       dense_init, embed_rows, join, normal,
-                                       rmsnorm)
+                                       checkpoint_wrap, dense_init,
+                                       embed_rows, join, normal, rmsnorm)
 from repro_torch.models.mlp import MLP, mlp, mlp_weights, param
 from repro_torch.models.moe import MoE, init_moe, moe_einsum, moe_weights
 
@@ -266,14 +266,17 @@ def _forward(w: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
              extra_embeds: Optional[torch.Tensor] = None,
              prefix_len: int = 0, mesh=None, logits_from: int = 0):
     """The whole-sequence forward over the compute dict ``w``, under the
-    caller's grad mode; logits at the positions from ``logits_from``
-    on (each row's the same function as over the whole sequence)."""
+    caller's grad mode, each block under :func:`checkpoint_wrap` (the
+    reference's remat of its block scan); logits at the positions from
+    ``logits_from`` on (each row's the same function as over the whole
+    sequence)."""
     x = _embed(w, tokens, extra_embeds)
     positions = _positions(x)
     aux = torch.zeros((), device=x.device)
+    block = checkpoint_wrap(block_forward, cfg)
     for wb in w["blocks"]:
-        x, (_, _, a) = block_forward(wb, x, cfg, positions,
-                                     prefix_len=prefix_len, mesh=mesh)
+        x, (_, _, a) = block(wb, x, cfg, positions, prefix_len=prefix_len,
+                             mesh=mesh)
         aux = aux + a
     if logits_from:
         x = x[:, logits_from:].contiguous()

@@ -10,8 +10,12 @@ work in place under ``torch.no_grad``: the clip scales the given
 gradients, and the update writes the parameters and the moments where
 they are (at qwen2-1.5b every float32 copy is 6.17 GB).  The arithmetic
 is the reference's, elementwise in float32, on ``torch._foreach`` lists
-(a few launches for all the tensors); the reference leaves it to XLA,
-so there is no kernel.
+(a few launches for a chunk of tensors); the reference leaves it to XLA,
+so there is no kernel.  The update's two float32 temporaries are made a
+chunk of at most :data:`UPDATE_CHUNK` entries at a time (or one tensor,
+where it is larger), so that beside the masters, their gradients and
+the moments the update needs 8 bytes an entry of one chunk, not of every
+parameter; each entry's arithmetic is the same whatever the chunk.
 """
 
 from __future__ import annotations
@@ -35,6 +39,24 @@ class AdamWConfig:
     warmup_steps: int = 100
     total_steps: int = 10_000
     min_lr_ratio: float = 0.1
+
+
+#: entries of the parameters updated together (1 GiB of float32 per
+#: temporary)
+UPDATE_CHUNK = 1 << 28
+
+
+def _chunks(params: dict) -> list:
+    """The parameter names in chunks of at most UPDATE_CHUNK entries (a
+    larger tensor alone), in order."""
+    chunks, cur, n = [], [], 0
+    for name, p in params.items():
+        if cur and n + p.numel() > UPDATE_CHUNK:
+            chunks.append(cur)
+            cur, n = [], 0
+        cur.append(name)
+        n += p.numel()
+    return chunks + [cur] if cur else chunks
 
 
 class AdamWState(NamedTuple):
@@ -125,7 +147,6 @@ def _update(cfg: AdamWConfig, params: dict, grads: dict, state: AdamWState,
             norm: torch.Tensor | None = None):
     """:func:`adamw_update` on plain tensors; ``norm``: the gradients'
     global norm where the caller took it."""
-    names = list(params)
     if norm is None:
         _, gnorm = clip_by_global_norm(grads, cfg.grad_clip_norm)
     else:
@@ -135,23 +156,25 @@ def _update(cfg: AdamWConfig, params: dict, grads: dict, state: AdamWState,
     lr = cosine_schedule(cfg, step)
     bc1 = float(1.0 - _f32(cfg.b1) ** step)
     bc2 = float(1.0 - _f32(cfg.b2) ** step)
-    p = [params[n] for n in names]
-    g = [grads[n].float() for n in names]
-    m = [state.m[n] for n in names]
-    v = [state.v[n] for n in names]
-    torch._foreach_mul_(m, cfg.b1)
-    torch._foreach_add_(m, g, alpha=1 - cfg.b1)
-    torch._foreach_mul_(v, cfg.b2)
-    torch._foreach_addcmul_(v, g, g, value=1 - cfg.b2)
-    del g
-    denom = torch._foreach_div(v, bc2)
-    torch._foreach_sqrt_(denom)
-    torch._foreach_add_(denom, cfg.eps)
-    delta = torch._foreach_div(m, bc1)
-    torch._foreach_div_(delta, denom)
-    del denom
-    torch._foreach_add_(delta, p, alpha=cfg.weight_decay)
-    torch._foreach_mul_(delta, float(lr))
-    torch._foreach_sub_(p, delta)
+    for names in _chunks(params):
+        p = [params[n] for n in names]
+        g = [grads[n].float() for n in names]
+        m = [state.m[n] for n in names]
+        v = [state.v[n] for n in names]
+        torch._foreach_mul_(m, cfg.b1)
+        torch._foreach_add_(m, g, alpha=1 - cfg.b1)
+        torch._foreach_mul_(v, cfg.b2)
+        torch._foreach_addcmul_(v, g, g, value=1 - cfg.b2)
+        del g
+        denom = torch._foreach_div(v, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, cfg.eps)
+        delta = torch._foreach_div(m, bc1)
+        torch._foreach_div_(delta, denom)
+        del denom
+        torch._foreach_add_(delta, p, alpha=cfg.weight_decay)
+        torch._foreach_mul_(delta, float(lr))
+        torch._foreach_sub_(p, delta)
+        del delta
     metrics = {"lr": lr, "grad_norm": gnorm}
     return params, AdamWState(step=step, m=state.m, v=state.v), metrics

@@ -37,10 +37,13 @@ class TrainConfig:
 def auto_microbatch(cfg: ModelConfig, global_batch: int, seq_len: int,
                     dp_size: int, *, budget_bytes: float = 3e9) -> int:
     """Pick a microbatch size so the remat stash (~per-layer saved
-    activations x depth) fits the budget.  Returns 0 (no microbatching)
-    when the full batch already fits.  The microbatch stays a multiple of
-    dp_size so each shard keeps >=1 row.  (The reference's estimate, as
-    it is.)"""
+    activations x depth: under ``cfg.remat`` each layer's input, which
+    :func:`repro_torch.models.common.checkpoint_wrap` keeps, and one
+    layer's recomputed activations) fits the budget.  Returns 0 (no
+    microbatching) when the full batch already fits.  The microbatch
+    stays a multiple of dp_size so each shard keeps >=1 row.  (The
+    reference's estimate, as it is: its family factors stand for the
+    saved activations of a layer, not for its input alone.)"""
     depth = cfg.n_layers + (cfg.n_encoder_layers or 0)
     if cfg.family == Family.HYBRID:
         depth += max(cfg.n_layers // cfg.shared_attn_period, 0)
